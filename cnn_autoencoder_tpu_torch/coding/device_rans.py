@@ -1,0 +1,176 @@
+"""On-device interleaved rANS of cae_tpu frame v4: tables and stream layout.
+
+The latent of a tile is split into S interleaved streams (flattened
+channel-major symbol p goes to stream p % S at step p // S), every stream
+runs a word-wise rANS-32/16 with 12-bit probabilities, and the words of all
+streams share one queue per tile in decode order.  Escapes (symbols outside
+a channel's table) are not coded: callers count them and refuse the batch.
+
+``encode_interleaved`` / ``decode_interleaved`` keep the contract of the JAX
+package's ``encode_device_interleaved`` / ``decode_device_interleaved``;
+they run the kernels of ``ops/kernels/rans_kernel.py`` on CUDA tensors and
+the plain versions there on CPU tensors.  The legacy per-stream layout
+(frame v3) is not ported.
+"""
+
+from typing import Dict, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.kernels.rans_kernel import (PRECISION, PROB_SCALE, pack_dec_lut,
+                                       rans_decode, rans_encode)
+from .cdf import pmf_to_quantized_cdf
+
+
+class DeviceTables(NamedTuple):
+    """Per-channel coding tables."""
+    freq: torch.Tensor     # (C, L) int32
+    start: torch.Tensor    # (C, L) int32
+    slot: torch.Tensor     # (C, 4096) int32: cum -> symbol value index
+    offset: torch.Tensor   # (C,) int32
+    length: torch.Tensor   # (C,) int32: true pmf length (rows past it are
+    #                        freq=1 padding, never valid)
+    support: int           # L = max(length)
+
+    def to(self, device) -> "DeviceTables":
+        return self._replace(**{k: getattr(self, k).to(device)
+                                for k in ("freq", "start", "slot", "offset",
+                                          "length")})
+
+
+def bake_device_tables(params: Dict[str, np.ndarray], filters: Sequence[int],
+                       extra_support: int = 8) -> DeviceTables:
+    """12-bit tables over a widened quantile support (CPU tensors).
+
+    The same arithmetic as the JAX package's ``bake_device_tables``, except
+    that the logit chain runs in float64 (JAX: float32), so the tables do
+    not depend on the host's float32 math library.  The tables of the two
+    packages are then equal unless a pmf lies within about 1e-7 of a
+    quantization boundary; the tests hold them element-equal on the
+    flagship checkpoints."""
+    from ..models.entropy import logits_cumulative
+
+    params = {k: np.asarray(v) for k, v in params.items()}
+    quantiles = params["quantiles"]
+    medians = quantiles[:, 0, 1]
+    minima = np.clip(np.ceil(medians - quantiles[:, 0, 0]).astype(np.int64),
+                     0, None) + extra_support
+    maxima = np.clip(np.ceil(quantiles[:, 0, 2] - medians).astype(np.int64),
+                     0, None) + extra_support
+    offset = (-minima).astype(np.int32)
+    pmf_length = (maxima + minima + 1).astype(np.int64)
+    max_length = int(pmf_length.max())
+    if max_length > 255:
+        raise ValueError(
+            f"device rANS supports <=255 symbol values/channel (packed LUT "
+            f"val field); got {max_length}")
+
+    samples = (np.arange(max_length, dtype=np.float32)[:, None]
+               + (medians - minima)[None, :])
+    # float64 chain on float32 inputs: CPU float32 transcendentals differ by
+    # an ulp between libraries and instruction sets, and a table that moved
+    # with the host would make frames undecodable elsewhere
+    tparams = {k: torch.from_numpy(np.array(v, np.float32)).double()
+               for k, v in params.items()}
+    num_filters = len(filters)
+
+    def chain(v):
+        v32 = torch.from_numpy(v.astype(np.float32)).double()
+        with torch.no_grad():
+            return logits_cumulative(tparams, v32, num_filters).numpy()
+
+    lower, upper = chain(samples - 0.5), chain(samples + 0.5)
+    sign = -np.sign(lower + upper)
+
+    def sig(x):
+        # piecewise-stable: exp only ever sees non-positive arguments
+        e = np.exp(-np.abs(x))
+        return np.where(x >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
+
+    pmf = np.abs(sig(sign * upper) - sig(sign * lower)).T  # (C, L)
+
+    channels = pmf.shape[0]
+    freq = np.zeros((channels, max_length), np.int32)
+    start = np.zeros((channels, max_length), np.int32)
+    slot = np.zeros((channels, PROB_SCALE), np.int32)
+    for c in range(channels):
+        n = int(pmf_length[c])
+        prob = pmf[c, :n].astype(np.float64)
+        prob = prob / prob.sum()
+        cdf = pmf_to_quantized_cdf(prob, PRECISION)
+        f = np.diff(cdf)
+        freq[c, :n] = f
+        start[c, :n] = cdf[:-1]
+        freq[c, n:] = 1  # padding keeps the division well-defined
+        slot[c] = np.repeat(np.arange(n), f)
+
+    return DeviceTables(freq=torch.from_numpy(freq),
+                        start=torch.from_numpy(start),
+                        slot=torch.from_numpy(slot),
+                        offset=torch.from_numpy(offset),
+                        length=torch.from_numpy(pmf_length.astype(np.int32)),
+                        support=max_length)
+
+
+def expected_bits_per_symbol(tables: DeviceTables) -> float:
+    """Mean source entropy (bits/symbol) under the baked tables, used to
+    size the first encode capacity."""
+    freq = tables.freq.cpu().numpy().astype(np.float64)
+    length = tables.length.cpu().numpy()
+    bits = []
+    for c in range(freq.shape[0]):
+        p = freq[c, :length[c]] / PROB_SCALE
+        p = p[p > 0]
+        bits.append(float(-(p * np.log2(p)).sum()))
+    return float(np.mean(bits))
+
+
+def stream_channel_map(num_channels: int, latent_hw: Tuple[int, int],
+                       num_streams: int) -> np.ndarray:
+    """(T, S) channel index per (step, stream) for a channel-major latent;
+    the total is padded up to S*T with the last channel."""
+    h, w = latent_hw
+    n = num_channels * h * w
+    s = num_streams
+    t = -(-n // s)
+    p = np.arange(s * t)
+    ch = np.minimum(p // (h * w), num_channels - 1).astype(np.int32)
+    return ch.reshape(t, s)
+
+
+def pack_streams(symbols_flat: torch.Tensor, num_streams: int
+                 ) -> torch.Tensor:
+    """(B, N) channel-major symbols -> (B, T, S) interleaved, zero-padded."""
+    b, n = symbols_flat.shape
+    s = num_streams
+    t = -(-n // s)
+    pad = s * t - n
+    if pad:
+        symbols_flat = torch.nn.functional.pad(symbols_flat, (0, pad))
+    return symbols_flat.reshape(b, t, s)
+
+
+def unpack_streams(sym_ts: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, T, S) -> (B, N)."""
+    return sym_ts.reshape(sym_ts.shape[0], -1)[:, :n]
+
+
+def encode_interleaved(symbols: torch.Tensor, channel_map: torch.Tensor,
+                       tables: DeviceTables, capacity: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode (B, T, S) int32 symbols -> ((B, capacity) int32 words in
+    decode order, (B,) total words).  The caller checks escapes and
+    ``totals <= capacity``."""
+    return rans_encode(symbols.contiguous(), channel_map, tables.freq,
+                       tables.start, tables.offset, capacity)
+
+
+def decode_interleaved(queues: torch.Tensor, channel_map: torch.Tensor,
+                       tables: DeviceTables, num_steps: int) -> torch.Tensor:
+    """Decode (B, Q) int32 word queues -> (B, T, S) int32 symbols.  Reads
+    past a (corrupt or truncated) queue's end take its last word: garbage
+    out, no out-of-bounds read."""
+    lut = pack_dec_lut(tables.freq, tables.start, tables.slot)
+    vals = rans_decode(queues, channel_map, lut, num_steps)
+    return vals + tables.offset[channel_map][None]

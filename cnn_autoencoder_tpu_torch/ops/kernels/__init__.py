@@ -1,0 +1,22 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Every kernel module holds, for one function: the plain PyTorch version, the
+CUDA wrapper (which counts its launches in ``wrapper.launches``) and a
+dispatcher that gives CPU tensors the plain version and CUDA tensors the
+kernel.  There is no fallback between them: a CUDA tensor that the kernel
+does not take raises.
+"""
+
+
+def kernel_wrappers():
+    """The CUDA wrappers of this slice's kernels, each with ``launches``."""
+    from .conv_gdn_kernel import conv_gdn_cuda
+    from .gdn_kernel import gdn_cuda
+    from .rans_kernel import decode_interleaved_cuda, encode_interleaved_cuda
+    return (gdn_cuda, conv_gdn_cuda, encode_interleaved_cuda,
+            decode_interleaved_cuda)
+
+
+def reset_launch_counts() -> None:
+    for fn in kernel_wrappers():
+        fn.launches = 0
