@@ -7,23 +7,39 @@ Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; build the CUDA kernels from ``cnn_autoencoder_tpu_torch/csrc``.
-2. Kernels: each kernel's wrapper on card tensors at the shapes the
+2. Serving kernels: each kernel's wrapper on card tensors at the shapes the
    serving path gives it (16 tiles of 512^2 through the flagship), held
    against its plain PyTorch version on the same inputs, then timed with
    CUDA events beside the plain version.
-3. End to end: the flagship checkpoint through ``CAETurboCore`` (the
-   ``cae_tpu`` codec's batched core), ``encode_tiles`` then ``decode_tiles``
-   on 16 synthetic 512^2 tiles, with launch counts reset just before and
-   read just after; then the same tiles through the plain versions on the
-   card; then one tile through the ``cae_tpu`` codec object; then the
-   device time by operation of one more round trip (torch.profiler).
-4. One JSON line ``{"kernels": [...]}``, then the last line
+3. Serving end to end: the flagship checkpoint through ``CAETurboCore``
+   (the ``cae_tpu`` codec's batched core), ``encode_tiles`` then
+   ``decode_tiles`` on 16 synthetic 512^2 tiles, with launch counts reset
+   just before and read just after; then the same tiles through the plain
+   versions on the card; then one tile through the ``cae_tpu`` codec
+   object; then the device time by operation of one more round trip
+   (torch.profiler).
+4. Training kernels: K2, K3 and K4's training variant against their plain
+   versions at the training path's shapes (batch 16 of 256^2 through the
+   flagship), float32 and bf16, C = 128 and 48, forward and inverse GDN,
+   then timed.
+5. Training end to end: the flagship's RateMSE train step (lambda 0.01,
+   encoder, decoder and fact_ent trainable, Adam at lr 1e-4; the
+   configuration of ``scripts/bench_train.py``), from the flagship
+   checkpoint, on a batch of 16 synthetic 256^2 patches, 3 float32 steps
+   and 3 bf16 steps with launch counts reset just before and read just
+   after each run; every trainable parameter's step-1 gradient finite and
+   non-zero; the same steps with the same noise through the plain versions
+   on the card, losses held to the kernels' run; then the step time, an
+   eval step and the device time by operation of one more step.
+6. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3 and 5), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
 non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -35,10 +51,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "benchmarks", "bench_flagship.msgpack")
 TILES = 16          # tiles of 512^2 in the serving batch
+TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS, TRAIN_LR = 16, 256, 3, 1e-4
+TIMED_STEPS = 10
 
 # H100 SXM peaks (NVIDIA data sheet; at the full 700 W power limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12        # float32 on the CUDA cores (no tensor cores)
+PEAK_BF16_S = 989e12      # bf16 on the tensor cores, dense
 # 32-bit integer operations issue on 64 of the 128 lanes of each SM
 # (Hopper white paper): half the float32 rate
 PEAK_I32_S = PEAK_F32_S / 2
@@ -46,15 +65,28 @@ PEAK_I32_S = PEAK_F32_S / 2
 # (name, TPU kernel it replaces)
 REPLACES = {
     "gdn_fwd": "cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:71",
+    "gdn_train_fwd": "cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:230",
+    "gdn_train_bwd": "cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:279",
     "conv_gdn_fwd": "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
+    "conv_gdn_train_fwd":
+        "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
     "rans_encode": "cnn_autoencoder_tpu/ops/pallas/rans_kernel.py:319",
     "rans_decode": "cnn_autoencoder_tpu/ops/pallas/rans_kernel.py:119",
 }
 SOURCES = {
     "gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
+    "gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
+    "gdn_train_bwd": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
     "conv_gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
+    "conv_gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
     "rans_encode": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
     "rans_decode": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
+}
+SERVING_KERNELS = ("gdn_fwd", "conv_gdn_fwd", "rans_encode", "rans_decode")
+# launches per train step, by compute mode; every other kernel launches 0
+STEP_LAUNCHES = {
+    "float32": {"gdn_fwd": 3, "conv_gdn_train_fwd": 1},
+    "bf16": {"gdn_train_fwd": 3, "gdn_train_bwd": 3, "conv_gdn_train_fwd": 1},
 }
 
 
@@ -71,9 +103,11 @@ def log(msg):
     print(msg, flush=True)
 
 
-def bound_ms(nbytes, ops, op_rate):
-    """(least time in ms, 'bytes' or 'operations')."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / op_rate
+def bound_ms(nbytes, ops, op_rate=None):
+    """(least time in ms, 'bytes' or 'operations').  ``ops`` is a count
+    at ``op_rate``, or a list of (count, rate) pairs by operation type."""
+    pairs = ops if op_rate is None else [(ops, op_rate)]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, sum(n / r for n, r in pairs)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -450,9 +484,10 @@ def phase_end_to_end(torch, model, core, tiles):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
-    log(f"main path launches: {launches}")
+    log(f"serving path launches: {launches}")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        check((n > 0) == (name in SERVING_KERNELS),
+              f"kernel {name}: {n} launches on the serving path")
 
     check(len(frames) == tiles and all(is_turbo_frame(f) for f in frames),
           "not every frame is a turbo frame")
@@ -491,19 +526,20 @@ def phase_end_to_end(torch, model, core, tiles):
     diff = np.abs(codec.decode(buf).astype(np.int32) - rec[0])
     check(np.mean(diff != 0) < 5e-3 and int(diff.max()) <= 1,
           "codec.decode differs from decode_tiles beyond 0.5% / 1 level")
-    profile_round_trip(torch, core, imgs)
+    profile_device(torch, lambda: core.decode_tiles(core.encode_tiles(imgs)),
+                   "one more round trip")
     return launches
 
 
-def profile_round_trip(torch, core, imgs):
-    """Device time by operation over one more encode_tiles + decode_tiles,
-    and the share of the wall time the device was busy."""
+def profile_device(torch, fn, label):
+    """Device time by operation over one more call of ``fn``, and the share
+    of the wall time the device was busy; returns the busy seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        core.decode_tiles(core.encode_tiles(imgs))
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -516,10 +552,358 @@ def profile_round_trip(torch, core, imgs):
         rows.append((evt.self_device_time_total, evt.count, evt.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"profile: wall {wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
-        f"({100 * busy / wall:.1f}%)")
+    log(f"profile of {label}: wall {wall * 1e3:.3f} ms, device busy "
+        f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%)")
     for us, count, key in rows[:15]:
         log(f"  {us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
+    return busy
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+
+def bf16_ulps(a, b):
+    """Largest distance in bf16 ulps between two bf16 tensors whose
+    elements share their signs."""
+    import torch
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int())
+               .abs().max())
+
+
+def close(got, ref, rel, slack):
+    """max |got - ref| <= rel * |ref| + slack * max |ref|, elementwise;
+    returns (ok, max abs error)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    ok = bool((err <= rel * ref.abs() + slack * ref.abs().max()).all())
+    return ok, float(err.max())
+
+
+def check_gdn_train_case(torch, x, gamma, beta, inverse, label, rng):
+    """K2 then K3 on the same rows, each against its plain version:
+    y to 1e-5 relative (float32) or one bf16 ulp, r and dnb to one bf16
+    ulp, dx to one bf16 ulp (2^-7 relative) or 1e-5 relative, plus 1e-5 of
+    max |dx| for the sums' order.  Returns the max abs errors of y and
+    dx."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
+    bf16 = x.dtype == torch.bfloat16
+    y, rb = gk.gdn_train_fwd_cuda(x, gamma, beta, inverse)
+    y_p, rb_p = gk.gdn_train_fwd_plain(x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y.float()).all()), f"{label}: y not finite")
+    if bf16:
+        check(bf16_ulps(y, y_p) <= 1, f"gdn_train_fwd {label}: y differs "
+              "from the plain version by more than one bf16 ulp")
+    ok, y_err = close(y, y_p, 1e-5, 0.0) if not bf16 else close(y, y_p, 1, 0)
+    check(ok, f"gdn_train_fwd {label}: y error {y_err:.3e}")
+    check(bf16_ulps(rb, rb_p) <= 1, f"gdn_train_fwd {label}: r differs "
+          "by more than one bf16 ulp")
+    g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).cuda()
+    g = g.to(x.dtype)
+    xb = x.to(torch.bfloat16)
+    dx, dnb = gk.gdn_train_bwd_cuda(g, xb, rb, gamma, inverse)
+    dx_p, dnb_p = gk.gdn_train_bwd_plain(g, xb, rb, gamma, inverse)
+    torch.cuda.synchronize()
+    check(bf16_ulps(dnb, dnb_p) <= 1, f"gdn_train_bwd {label}: dnb differs "
+          "by more than one bf16 ulp")
+    ok, dx_err = close(dx, dx_p, 2.0 ** -7 if bf16 else 1e-5, 1e-5)
+    check(ok, f"gdn_train_bwd {label}: dx error {dx_err:.3e}")
+    log(f"gdn_train_fwd/bwd {label}: y max abs {y_err:.3e}, dx max abs "
+        f"{dx_err:.3e}, dnb identical on "
+        f"{float((dnb == dnb_p).float().mean()):.6f} of elements")
+    return y_err, dx_err
+
+
+def check_conv_train_case(torch, x, kernel, gamma, beta, label):
+    """K4's training variant against its plain version: y to 1e-4 of
+    max |y|, out to 1e-4 of max |out| (float32) or one bf16 ulp plus
+    that.  Returns the max abs error of out."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    out, y = cg.conv_gdn_train_cuda(x, kernel, gamma, beta)
+    out_p, y_p = cg.conv_gdn_train_plain(x, kernel, gamma, beta)
+    torch.cuda.synchronize()
+    check(out.shape == out_p.shape and out.dtype == x.dtype
+          and y.dtype == torch.float32, f"conv_gdn_train_fwd {label}: "
+          f"{tuple(out.shape)} {out.dtype} {y.dtype}")
+    check(bool(torch.isfinite(out.float()).all()), f"{label}: not finite")
+    ok_y, y_err = close(y, y_p, 0.0, 1e-4)
+    bf16 = x.dtype == torch.bfloat16
+    ok_o, o_err = close(out, out_p, 2.0 ** -7 if bf16 else 0.0, 1e-4)
+    check(ok_y and ok_o, f"conv_gdn_train_fwd {label}: y error {y_err:.3e}, "
+          f"out error {o_err:.3e}")
+    log(f"conv_gdn_train_fwd {label}: out max abs {o_err:.3e}, y max abs "
+        f"{y_err:.3e}")
+    return o_err
+
+
+def phase_train_kernels(torch, model):
+    """K2, K3 and K4's training variant against their plain versions at the
+    training path's shapes and at ragged ones, then timed at the path's
+    shapes; returns {name: record}."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
+    rng = np.random.RandomState(1)
+    b, h = TRAIN_BATCH, TRAIN_PATCH
+    n = b * (h // 2) ** 2           # rows of down_0 and up_1
+    out = {}
+    with torch.no_grad():
+        # K2/K3 at the path's shapes: down_0 (forward) and up_1 (inverse)
+        errs = {}
+        for inverse, unit, gdn_name in ((False, model.encoder.down_0,
+                                         "gdn_down"),
+                                        (True, model.decoder.up_1,
+                                         "gdn_up")):
+            gamma, beta = getattr(unit, gdn_name).effective_params()
+            c = gamma.shape[0]
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.from_numpy(rng.randn(n, c).astype(np.float32)
+                                     * 0.5).cuda().to(dtype)
+                errs[(inverse, dtype)] = check_gdn_train_case(
+                    torch, x, gamma, beta, inverse,
+                    f"({n}, {c}) {str(dtype)[6:]} inverse={inverse}", rng)
+                del x
+        # C = 48 (the latent's width), and a ragged C
+        for rows, c in ((1000, 48), (77, 130)):
+            gamma = torch.from_numpy((0.1 * rng.rand(c, c))
+                                     .astype(np.float32)).cuda()
+            beta = torch.from_numpy((1.0 + rng.rand(c))
+                                    .astype(np.float32)).cuda()
+            for dtype in (torch.bfloat16, torch.float32):
+                for inverse in (False, True):
+                    x = torch.from_numpy(rng.randn(rows, c).astype(
+                        np.float32)).cuda().to(dtype)
+                    check_gdn_train_case(
+                        torch, x, gamma, beta, inverse,
+                        f"({rows}, {c}) {str(dtype)[6:]} inverse={inverse}",
+                        rng)
+
+        # K4 training variant: down_1 at the path's shape, and ragged
+        unit = model.encoder.down_1
+        kernel = unit.conv_down.kernel_hwio()
+        gamma, beta = unit.gdn_down.effective_params()
+        cin, cout = kernel.shape[2], kernel.shape[3]
+        x32 = torch.from_numpy(rng.rand(b, h // 2, h // 2, cin)
+                               .astype(np.float32)).cuda()
+        conv_err = {dt: check_conv_train_case(
+            torch, x32.to(dt), kernel, gamma, beta,
+            f"{tuple(x32.shape)} {str(dt)[6:]}")
+            for dt in (torch.float32, torch.bfloat16)}
+        for shape, co in (((2, 18, 14, 72), 40), ((1, 4, 6, 64), 128)):
+            xr = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
+            kr = torch.from_numpy((rng.randn(3, 3, shape[3], co) * 0.05)
+                                  .astype(np.float32)).cuda()
+            gr = torch.from_numpy((0.1 * rng.rand(co, co))
+                                  .astype(np.float32)).cuda()
+            br = torch.from_numpy((1.0 + rng.rand(co))
+                                  .astype(np.float32)).cuda()
+            for dt in (torch.float32, torch.bfloat16):
+                check_conv_train_case(torch, xr.to(dt), kr, gr, br,
+                                      f"{shape} -> {co} {str(dt)[6:]}")
+                # the serving variant in bf16 (eval in bf16) gives the
+                # training variant's output
+                served = cg.conv_gdn_cuda(xr.to(dt), kr, gr, br)
+                check(torch.equal(served, cg.conv_gdn_train_cuda(
+                    xr.to(dt), kr, gr, br)[0]),
+                    f"conv_gdn_fwd {shape} {dt}: differs from the training "
+                    "variant's output")
+
+        # timing at the path's shapes (bf16 rows for K2/K3, their mode)
+        gamma0, beta0 = model.encoder.down_0.gdn_down.effective_params()
+        c = gamma0.shape[0]
+        xb = torch.from_numpy(rng.randn(n, c).astype(np.float32) * 0.5) \
+            .cuda().to(torch.bfloat16)
+        _, rb = gk.gdn_train_fwd_cuda(xb, gamma0, beta0)
+        gb = torch.from_numpy(rng.randn(n, c).astype(np.float32)).cuda() \
+            .to(torch.bfloat16)
+        nc = n * c
+        ms = cuda_ms(torch, lambda: gk.gdn_train_fwd_cuda(xb, gamma0, beta0),
+                     20)
+        plain_ms = cuda_ms(torch, lambda: gk.gdn_train_fwd_plain(
+            xb, gamma0, beta0), 10)
+        bms, by = bound_ms(6 * nc + 4 * c * (c + 1),
+                           [(2 * nc * c, PEAK_BF16_S), (5 * nc, PEAK_F32_S)])
+        # core_ms: the same operations at the CUDA cores' float32 rate,
+        # where these designs compute (the ceiling of the design built)
+        out["gdn_train_fwd"] = dict(
+            max_abs_err=errs[(False, torch.bfloat16)][0], ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c],
+            core_ms=(2 * nc * c + 5 * nc) / PEAK_F32_S * 1e3)
+        ms = cuda_ms(torch, lambda: gk.gdn_train_bwd_cuda(gb, xb, rb, gamma0),
+                     20)
+        plain_ms = cuda_ms(torch, lambda: gk.gdn_train_bwd_plain(
+            gb, xb, rb, gamma0), 10)
+        bms, by = bound_ms(10 * nc + 4 * c * c,
+                           [(2 * nc * c, PEAK_BF16_S), (12 * nc, PEAK_F32_S)])
+        out["gdn_train_bwd"] = dict(
+            max_abs_err=errs[(False, torch.bfloat16)][1], ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c],
+            core_ms=(2 * nc * c + 12 * nc) / PEAK_F32_S * 1e3)
+        del xb, gb, rb
+
+        npix = b * (h // 4) ** 2
+        conv_ops = npix * 2 * 9 * cin * cout
+        gdn_ops = npix * cout * (2 * cout + 5)
+        param_bytes = 4 * (kernel.numel() + cout * (cout + 1))
+        for dt, name in ((torch.bfloat16, "bf16"),
+                         (torch.float32, "float32")):
+            xt = x32.to(dt)
+            size = xt.element_size()
+            ms = cuda_ms(torch, lambda: cg.conv_gdn_train_cuda(
+                xt, kernel, gamma, beta), 10)
+            plain_ms = cuda_ms(torch, lambda: cg.conv_gdn_train_plain(
+                xt, kernel, gamma, beta), 5)
+            ops = ([(conv_ops, PEAK_BF16_S), (gdn_ops, PEAK_F32_S)]
+                   if dt == torch.bfloat16
+                   else [(conv_ops + gdn_ops, PEAK_F32_S)])
+            bms, by = bound_ms(size * (xt.numel() + npix * cout)
+                               + 4 * npix * cout + param_bytes, ops)
+            core_ms = (conv_ops + gdn_ops) / PEAK_F32_S * 1e3
+            log(f"conv_gdn_train_fwd {name} {tuple(xt.shape)}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+                f"({by}), CUDA-core ceiling {core_ms:.4f} ms")
+            # the line's entry is the float32 mode, the default
+            out["conv_gdn_train_fwd"] = dict(
+                max_abs_err=conv_err[dt], ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, shape=list(xt.shape))
+        del x32
+    for name in ("gdn_train_fwd", "gdn_train_bwd"):
+        rec = out[name]
+        log(f"{name} {rec['shape']} bf16: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), CUDA-core ceiling {rec['core_ms']:.4f} ms")
+    return out
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+
+def synthetic_batch(torch):
+    """scripts/bench_train.py's synthetic patches: uniform 60..220 plus
+    seeded noise, in [0, 1]."""
+    rng = np.random.RandomState(0)
+    b, p = TRAIN_BATCH, TRAIN_PATCH
+    x = np.clip(rng.rand(b, p, p, 3) * 160 + 60
+                + rng.randn(b, p, p, 3) * 6, 0, 255).astype(np.float32)
+    return torch.from_numpy(x / 255.0).cuda()
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Swap the training path's CUDA wrappers for their plain versions in
+    the kernel modules' namespaces for the block: the comparison run."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
+    swaps = [(gk, "gdn_cuda", gk.gdn_plain),
+             (gk, "gdn_train_fwd_cuda", gk.gdn_train_fwd_plain),
+             (gk, "gdn_train_bwd_cuda", gk.gdn_train_bwd_plain),
+             (cg, "conv_gdn_cuda", cg.conv_gdn_plain),
+             (cg, "conv_gdn_train_cuda", cg.conv_gdn_train_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def train_setup(torch, compute_dtype, x):
+    """A fresh flagship model from the checkpoint with its optimizers and
+    train step; returns (model, criterion, step(i) -> (stats, grads))."""
+    from cnn_autoencoder_tpu_torch.criteria.loss import setup_loss
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.training.loop import make_train_step
+    from cnn_autoencoder_tpu_torch.training.optim import setup_optimizers
+    model = autoencoder_from_state_dict(CHECKPOINT, device="cuda").train()
+    trainable = ["encoder", "decoder", "fact_ent"]
+    criterion = setup_loss("RateMSE", distortion_lambda=0.01)
+    optimizers = setup_optimizers(model, trainable)
+    train_step = make_train_step(model, criterion, optimizers,
+                                 trainable_modules=trainable,
+                                 compute_dtype=compute_dtype)
+    lrs = {k: TRAIN_LR for k in optimizers}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return model, criterion, lambda i: train_step(x, lrs, i, generator=gen)
+
+
+def phase_training(torch):
+    """The counted train steps in both modes, the plain comparison, the
+    step time, an eval step and a profile; returns the launch counts."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.training.loop import make_eval_step
+    x = synthetic_batch(torch)
+    totals = {}
+    for mode, dtype, rtol in (("float32", torch.float32, 1e-5),
+                              ("bf16", torch.bfloat16, 2e-2)):
+        model, criterion, step = train_setup(torch, dtype, x)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses, times = [], []
+        for i in range(1, TRAIN_STEPS + 1):
+            t0 = time.perf_counter()
+            stats, grads = step(i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(stats["loss"]))
+            if i == 1:
+                for module, gs in grads.items():
+                    for name, g in gs.items():
+                        check(bool(torch.isfinite(g).all())
+                              and float(g.abs().max()) > 0,
+                              f"{mode} step 1: the gradient of "
+                              f"{module}.{name} is zero or not finite")
+                n_grads = sum(len(gs) for gs in grads.values())
+        launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+        expected = {name: STEP_LAUNCHES[mode].get(name, 0) * TRAIN_STEPS
+                    for name in launches}
+        log(f"train {mode}: launches over {TRAIN_STEPS} steps {launches}")
+        check(launches == expected, f"train {mode}: launches {launches}, "
+              f"expected {expected}")
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        check(all(np.isfinite(losses)), f"train {mode}: losses {losses}")
+        log(f"train {mode}: losses {losses}; step times (ms) "
+            f"{[round(t * 1e3, 3) for t in times]}; all {n_grads} "
+            "step-1 gradients finite and non-zero")
+
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS + 1, TRAIN_STEPS + TIMED_STEPS + 1):
+            step(i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        log(f"train {mode}: {ms:.3f} ms per step over {TIMED_STEPS} steps, "
+            f"{TRAIN_BATCH / ms * 1e3:.2f} images/s "
+            f"(batch {TRAIN_BATCH} x {TRAIN_PATCH}^2); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        eval_stats = make_eval_step(model, criterion, compute_dtype=dtype)(x)
+        check(np.isfinite(float(eval_stats["loss"])),
+              f"eval {mode}: loss not finite")
+        log(f"eval {mode}: loss {float(eval_stats['loss']):.6f}, rate "
+            f"{float(eval_stats['rate_loss']):.6f} bpp")
+        busy = profile_device(
+            torch, lambda: step(TRAIN_STEPS + TIMED_STEPS + 1),
+            f"one {mode} train step")
+        # the profiler slows the host, so the busy share is also taken
+        # against the unprofiled step time
+        log(f"train {mode}: device busy {busy * 1e3:.3f} ms of the "
+            f"unprofiled {ms:.3f} ms step ({100 * busy * 1e3 / ms:.1f}%)")
+        del model, step
+
+        with plain_versions():
+            _, _, plain_step = train_setup(torch, dtype, x)
+            plain = [float(plain_step(i)[0]["loss"])
+                     for i in range(1, TRAIN_STEPS + 1)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+        log(f"train {mode}: plain versions on the card: losses {plain}, "
+            f"max relative difference {rel:.3e} (limit {rtol})")
+        check(rel <= rtol, f"train {mode}: losses differ from the plain "
+              f"versions' by {rel:.3e} > {rtol}")
+        del plain_step
+        torch.cuda.empty_cache()
+    return totals
 
 
 def main():
@@ -543,6 +927,11 @@ def main():
     core = CAETurboCore(model, num_streams=1024, device="cuda")
     records = phase_kernels(torch, model, core, TILES)
     launches = phase_end_to_end(torch, model, core, TILES)
+    records.update(phase_train_kernels(torch, model))
+    for name, n in phase_training(torch).items():
+        launches[name] += n
+    check(all(launches[name] > 0 for name in records),
+          f"a kernel was not launched on the main paths: {launches}")
 
     kernels = []
     for name, rec in records.items():

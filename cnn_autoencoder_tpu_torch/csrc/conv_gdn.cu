@@ -1,18 +1,26 @@
-// Fused reflect-pad + 3x3 stride-2 convolution + GDN, float32, for the H100
-// (sm_90a).
+// Fused reflect-pad + 3x3 stride-2 convolution + GDN, for the H100
+// (sm_90a): K4, its serving variant and its training (want_y) variant.
 //
 // Replaces: cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:_kernel (its
-// pallas_call in _fused_conv_gdn_pallas, entry fused_conv_gdn), the serving
-// variant (no pre-GDN output).  Computes, for NHWC x (B, H, W, Cin), HWIO
-// weights (3, 3, Cin, Cout) and even H, W:
+// pallas_call in _fused_conv_gdn_pallas, entry fused_conv_gdn).  Computes,
+// for NHWC x (B, H, W, Cin), HWIO weights (3, 3, Cin, Cout) and even H, W:
 //   y[b, r, c, o]   = sum_{dy, dx, i} w[dy, dx, i, o] * x[b, R(2r+dy-1), R(2c+dx-1), i]
 //   out[b, r, c, o] = y * (beta[o] + sum_i gamma[o, i] * y[b, r, c, i]^2)^(-1/2)
-// with R the reflect index (-1 -> 1, H -> H-2).
+// with R the reflect index (-1 -> 1, H -> H-2).  The training variant
+// (want_y in the TPU kernel) also writes the pre-GDN y in float32, the
+// backward's residual.  Two compute types, chosen by x's type:
+//   float32 x: float32 products (the JAX package's HIGHEST);
+//   bf16 x:    bf16 multiplicands (w rounded to bf16 as it is staged) and
+//              float32 sums (DEFAULT on the matrix unit).
+// y is accumulated in float32 either way, the GDN epilogue is full float32
+// (conv_gdn_kernel.py:57-70 there), and out is stored in x's type.
 //
 // What bounds it here: 2 * (9 * Cin + Cout) * Cout FLOP per output pixel
 // (1152 + 128 terms per channel at the flagship's 128 -> 128 stage) against
-// Cin * 16 + Cout * 4 bytes, far above the float32 ridge: the CUDA cores'
-// float32 FMA rate bounds it.  No tensor cores (exact float32 path).
+// Cin * 16 + Cout * 4 bytes (float32), far above the float32 ridge: the
+// CUDA cores' float32 FMA rate bounds it.  No tensor cores in this first
+// design, in either type (bf16 values are exact in float32, so the float32
+// FMAs give the bf16-multiplicand products exactly).
 //
 // Design: an implicit GEMM, M = output pixels, N = Cout, K = 9 * Cin.  A
 // block of 256 threads owns 64 output pixels x all (<= 128) output
@@ -24,9 +32,11 @@
 // on the finished tile: y^2 goes through the same shared-memory slices
 // against gamma^T, and the output is written once.  Accumulation is float32
 // in (tap, channel) order, so parity with cuDNN is by tolerance.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -35,15 +45,34 @@ constexpr int kMaxCout = 128; // output channels held per block
 constexpr int kSlice = 32;    // reduction slice staged in shared memory
 constexpr int kThreads = 256;
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float load(const float* p, int64_t i) {
+  return p[i];
+}
+__device__ __forceinline__ float load(const bf16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store(float* p, int64_t i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void store(bf16* p, int64_t i, float v) {
+  p[i] = __float2bfloat16(v);
+}
+
 __device__ __forceinline__ int reflect(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
+// T is x's and out's type; y (float32) is written when it is not null.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv_gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+conv_gdn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ gamma_t,
-                    const float* __restrict__ beta, float* __restrict__ out,
-                    int bsz, int h, int wd, int cin, int cout) {
+                    const float* __restrict__ beta, T* __restrict__ out,
+                    float* __restrict__ y, int bsz, int h, int wd, int cin,
+                    int cout) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   __shared__ float s_a[kSlice][kPix + 1];
   __shared__ float s_b[kSlice][kMaxCout];
   const int tid = threadIdx.x;
@@ -91,12 +120,13 @@ conv_gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int m = 0; m < 8; ++m)
         s_a[kk_ld][tid / kSlice + 8 * m] =
-            (pix_ok[m] && ci < cin) ? x[src[m] + ci] : 0.f;
+            (pix_ok[m] && ci < cin) ? load(x, src[m] + ci) : 0.f;
       for (int e = tid; e < kSlice * kMaxCout; e += kThreads) {
         const int o = e % kMaxCout, kk = e / kMaxCout;
         const int c = ci0 + kk;
-        s_b[kk][o] = (c < cin && o < cout)
+        const float wv = (c < cin && o < cout)
             ? w[(static_cast<int64_t>(tap) * cin + c) * cout + o] : 0.f;
+        s_b[kk][o] = kBf16 ? __bfloat162float(__float2bfloat16(wv)) : wv;
       }
       __syncthreads();
 #pragma unroll 4
@@ -162,23 +192,34 @@ conv_gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < 8; ++j) {
       const int o = tx + 16 * j;
       if (o >= cout) continue;
-      out[p * cout + o] = acc[i][j] * (1.0f / sqrtf(nrm[i][j] + beta[o]));
+      store(out, p * cout + o,
+            acc[i][j] * (1.0f / sqrtf(nrm[i][j] + beta[o])));
+      if (y != nullptr) y[p * cout + o] = acc[i][j];
     }
   }
 }
 
 }  // namespace
 
-extern "C" int cae_conv_gdn_fwd(const float* x, const float* w,
+// x and out are float32 (is_bf16 = 0) or bf16 (is_bf16 = 1); y may be null
+// (the serving variant).
+extern "C" int cae_conv_gdn_fwd(const void* x, const float* w,
                                 const float* gamma_t, const float* beta,
-                                float* out, int bsz, int h, int wd, int cin,
-                                int cout, cudaStream_t stream) {
+                                void* out, float* y, int bsz, int h, int wd,
+                                int cin, int cout, int is_bf16,
+                                cudaStream_t stream) {
   if (cout > kMaxCout || (h % 2) || (wd % 2) || h < 2 || wd < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t npix = static_cast<int64_t>(bsz) * (h / 2) * (wd / 2);
   if (npix == 0) return 0;
   const unsigned grid = static_cast<unsigned>((npix + kPix - 1) / kPix);
-  conv_gdn_fwd_kernel<<<grid, kThreads, 0, stream>>>(x, w, gamma_t, beta, out,
-                                                     bsz, h, wd, cin, cout);
+  if (is_bf16)
+    conv_gdn_fwd_kernel<bf16><<<grid, kThreads, 0, stream>>>(
+        static_cast<const bf16*>(x), w, gamma_t, beta, static_cast<bf16*>(out),
+        y, bsz, h, wd, cin, cout);
+  else
+    conv_gdn_fwd_kernel<float><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(x), w, gamma_t, beta,
+        static_cast<float*>(out), y, bsz, h, wd, cin, cout);
   return static_cast<int>(cudaGetLastError());
 }

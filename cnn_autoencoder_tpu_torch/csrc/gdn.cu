@@ -1,39 +1,103 @@
-// GDN / IGDN over (N, C) float32 rows, for the H100 (sm_90a).
+// GDN / IGDN over (N, C) rows, for the H100 (sm_90a): the serving forward
+// (K1) and the two training kernels of the bf16 mode (K2 forward, K3
+// backward).
 //
-// Replaces: cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:_gdn_kernel (its
+// K1 replaces cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:_gdn_kernel (its
 // pallas_call in _gdn_pallas, entry fused_gdn).  Computes
 //   y[n, o] = x[n, o] * (beta[o] + sum_i gamma[o, i] * x[n, i]^2)^(-1/2)
-// (IGDN: ^(+1/2)) in float32, one rounding of the output.
+// (IGDN: ^(+1/2)) on float32 rows in float32, one rounding of the output.
 //
-// What bounds it here: at C = 128 the norm pool is 2*C = 256 FLOP per
-// element against 8 bytes read and written, above the H100's float32
-// ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte), so the CUDA cores'
-// float32 FMA rate bounds it, not memory.  No tensor cores: the f32 path is
-// exact float32 (the JAX package's HIGHEST), which TF32 would break.
+// K2 replaces gdn_kernel.py:_gdn_train_fwd_kernel (pallas_call in
+// _gdn_train_fwd_pallas): the same y, written in the input's type, and the
+// backward residual r = norm^(-1/2) (IGDN: norm^(+1/2)) as bf16.  The norm
+// pool follows ops/gdn.py:norm_pool_precision: float32 rows in full
+// float32; bf16 rows with x^2 and gamma rounded to bf16 and the products
+// summed in float32 (what the matrix unit's DEFAULT precision does).
 //
-// Design: the pool is a small matrix product (rows x C) @ gamma^T.  A block
-// of 256 threads owns a 64-row x 64-channel output tile; each thread holds a
-// 4 x 4 register tile, so every pair of values loaded from shared memory
-// feeds 4 FMAs.  x^2 and gamma^T are staged through shared memory in
-// 32-channel slices (x^2 slice-major with one pad column, so the staging
-// stores hit 32 banks); gamma^T is read from device memory, where L2 keeps
-// its 64 KB.  The epilogue reads x once more and writes y once.  C is taken
-// as it comes (no padding to 128): partial tiles are masked.
+// K3 replaces gdn_kernel.py:_gdn_train_bwd_kernel (pallas_call in
+// _gdn_train_bwd_pallas).  From the cotangent g and the bf16 residuals
+// xb, rb of K2:
+//   dnorm = -g x r^3 / 2   (IGDN: g x / (2 r)),  dnb = bf16(dnorm)
+//   back[n, i] = sum_o dnb[n, o] * bf16(gamma[o, i])   (float32 sums)
+//   dx = g r + 2 x back
+// writing dx in g's type and dnb as bf16; dgamma and dbeta are
+// contractions over dnb outside the kernel (ops/gdn.py).
+//
+// What bounds them here: the pool is 2 * C FLOP per element against 4 to
+// 12 bytes read and written, so at C = 128 float32 FMAs on the CUDA cores
+// (67 TFLOP/s) bound all three, not memory (3.35 TB/s).  With bf16 rows
+// the tensor cores would lift that bound above the byte bound; these
+// kernels stay on the CUDA cores (a first, simple design: bf16 values are
+// exact in float32, so the f32 FMAs give the bf16-multiplicand products
+// exactly and sum them in float32).
+//
+// Design: the pool is a small matrix product (rows x C) @ (C x C).  A
+// block of 256 threads owns a 64-row x 64-channel output tile; each thread
+// holds a 4 x 4 register tile, so every pair of values loaded from shared
+// memory feeds 4 FMAs.  The row operand (x^2 for K1/K2, dnb for K3, which
+// is computed from g, xb, rb while it is staged) and the C x C operand are
+// staged through shared memory in 32-channel slices (row operand
+// slice-major with one pad column, so the staging stores hit 32 banks);
+// the C x C operand is read from device memory, where L2 keeps it.  The
+// epilogue reads the row's inputs once more and writes each output once.
+// C is taken as it comes (no padding to 128): partial tiles are masked.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kRows = 64;     // rows per block
 constexpr int kCols = 64;     // output channels per block
-constexpr int kSlice = 32;    // input channels per shared-memory slice
+constexpr int kSlice = 32;    // reduction channels per shared-memory slice
 constexpr int kThreads = 256;
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float load(const float* p, int64_t i) {
+  return p[i];
+}
+__device__ __forceinline__ float load(const bf16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store(float* p, int64_t i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void store(bf16* p, int64_t i, float v) {
+  p[i] = __float2bfloat16(v);  // round to nearest even, as torch's .to()
+}
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// acc[i][j] += sum_kk a[kk][4 ty + i] * b[kk][tx + 16 j]
+__device__ __forceinline__ void tile_fma(const float (*a)[kRows + 1],
+                                         const float (*b)[kCols], int tx,
+                                         int ty, float (&acc)[4][4]) {
+#pragma unroll 8
+  for (int kk = 0; kk < kSlice; ++kk) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[kk][4 * ty + i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = b[kk][tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// K1 (T = float, kTrain = false) and K2 (kTrain = true).  gamma_t is
+// gamma transposed: gamma_t[i * c + o] = gamma[o, i].
+template <typename T, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
-gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma_t,
-               const float* __restrict__ beta, float* __restrict__ y,
-               int64_t n, int c, int inverse) {
+gdn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma_t,
+               const float* __restrict__ beta, T* __restrict__ y,
+               bf16* __restrict__ rb, int64_t n, int c, int inverse) {
+  constexpr bool kRound = std::is_same<T, bf16>::value;
   __shared__ float s_x2[kSlice][kRows + 1];
   __shared__ float s_g[kSlice][kCols];
   const int tid = threadIdx.x;
@@ -53,28 +117,18 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma_t,
       const int kk = e % kSlice, r = e / kSlice;
       const int64_t row = row0 + r;
       const int ch = k0 + kk;
-      const float v = (row < n && ch < c) ? x[row * c + ch] : 0.f;
-      s_x2[kk][r] = v * v;
+      const float v = (row < n && ch < c) ? load(x, row * c + ch) : 0.f;
+      s_x2[kk][r] = kRound ? round_bf16(v * v) : v * v;
     }
     for (int e = tid; e < kSlice * kCols; e += kThreads) {
       const int cc = e % kCols, kk = e / kCols;
       const int ch = k0 + kk, o = col0 + cc;
-      s_g[kk][cc] = (ch < c && o < c)
-                        ? gamma_t[static_cast<int64_t>(ch) * c + o] : 0.f;
+      const float gv = (ch < c && o < c)
+                           ? gamma_t[static_cast<int64_t>(ch) * c + o] : 0.f;
+      s_g[kk][cc] = kRound ? round_bf16(gv) : gv;
     }
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kSlice; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = s_x2[kk][4 * ty + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = s_g[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    tile_fma(s_x2, s_g, tx, ty, acc);
     __syncthreads();
   }
 
@@ -89,10 +143,87 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma_t,
       // correctly rounded sqrt and division (no fast-math): within an ulp
       // or two of torch's rsqrt/sqrt
       const float s = sqrtf(acc[i][j] + beta[o]);
-      const float xv = x[row * c + o];
-      y[row * c + o] = inverse ? xv * s : xv * (1.0f / s);
+      const float r = inverse ? s : 1.0f / s;
+      const int64_t idx = row * c + o;
+      store(y, idx, load(x, idx) * r);
+      if constexpr (kTrain) rb[idx] = __float2bfloat16(r);
     }
   }
+}
+
+// K3.  gamma is untransposed: back[i] = sum_o dnb[o] * gamma[o * c + i].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gdn_bwd_kernel(const T* __restrict__ g, const bf16* __restrict__ xb,
+               const bf16* __restrict__ rb, const float* __restrict__ gamma,
+               T* __restrict__ dx, bf16* __restrict__ dnb, int64_t n, int c,
+               int inverse) {
+  __shared__ float s_dn[kSlice][kRows + 1];
+  __shared__ float s_g[kSlice][kCols];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
+  const int col0 = blockIdx.y * kCols;
+  // the blocks of column 0 stage every channel of their rows: they write dnb
+  const bool write_dnb = blockIdx.y == 0;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < c; k0 += kSlice) {
+    for (int e = tid; e < kRows * kSlice; e += kThreads) {
+      const int kk = e % kSlice, r = e / kSlice;
+      const int64_t row = row0 + r;
+      const int ch = k0 + kk;
+      float d = 0.f;
+      if (row < n && ch < c) {
+        const int64_t idx = row * c + ch;
+        const float gv = load(g, idx);
+        const float xv = __bfloat162float(xb[idx]);
+        const float rv = __bfloat162float(rb[idx]);
+        // the same operation order as the TPU kernel, so dnb rounds alike
+        const float dn = inverse ? (0.5f * gv * xv) / rv
+                                 : (-0.5f * gv * xv) * (rv * rv * rv);
+        const bf16 q = __float2bfloat16(dn);
+        if (write_dnb) dnb[idx] = q;
+        d = __bfloat162float(q);
+      }
+      s_dn[kk][r] = d;
+    }
+    for (int e = tid; e < kSlice * kCols; e += kThreads) {
+      const int cc = e % kCols, kk = e / kCols;
+      const int o = k0 + kk, i = col0 + cc;
+      s_g[kk][cc] = (o < c && i < c)
+          ? round_bf16(gamma[static_cast<int64_t>(o) * c + i]) : 0.f;
+    }
+    __syncthreads();
+    tile_fma(s_dn, s_g, tx, ty, acc);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t row = row0 + 4 * ty + i;
+    if (row >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ch = col0 + tx + 16 * j;
+      if (ch >= c) continue;
+      const int64_t idx = row * c + ch;
+      const float xv = __bfloat162float(xb[idx]);
+      const float rv = __bfloat162float(rb[idx]);
+      store(dx, idx, load(g, idx) * rv + 2.0f * xv * acc[i][j]);
+    }
+  }
+}
+
+dim3 row_grid(int64_t n, int c) {
+  return dim3(static_cast<unsigned>((n + kRows - 1) / kRows),
+              static_cast<unsigned>((c + kCols - 1) / kCols));
 }
 
 }  // namespace
@@ -101,9 +232,46 @@ extern "C" int cae_gdn_fwd(const float* x, const float* gamma_t,
                            const float* beta, float* y, int64_t n, int c,
                            int inverse, cudaStream_t stream) {
   if (n == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((n + kRows - 1) / kRows),
-                  static_cast<unsigned>((c + kCols - 1) / kCols));
-  gdn_fwd_kernel<<<grid, kThreads, 0, stream>>>(x, gamma_t, beta, y, n, c,
-                                                inverse);
+  gdn_fwd_kernel<float, false><<<row_grid(n, c), kThreads, 0, stream>>>(
+      x, gamma_t, beta, y, nullptr, n, c, inverse);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x and y are float32 (is_bf16 = 0) or bf16 (is_bf16 = 1); rb is bf16.
+extern "C" int cae_gdn_train_fwd(const void* x, const float* gamma_t,
+                                 const float* beta, void* y, void* rb,
+                                 int64_t n, int c, int inverse, int is_bf16,
+                                 cudaStream_t stream) {
+  if (n == 0) return 0;
+  bf16* r = static_cast<bf16*>(rb);
+  if (is_bf16)
+    gdn_fwd_kernel<bf16, true><<<row_grid(n, c), kThreads, 0, stream>>>(
+        static_cast<const bf16*>(x), gamma_t, beta, static_cast<bf16*>(y), r,
+        n, c, inverse);
+  else
+    gdn_fwd_kernel<float, true><<<row_grid(n, c), kThreads, 0, stream>>>(
+        static_cast<const float*>(x), gamma_t, beta, static_cast<float*>(y),
+        r, n, c, inverse);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g and dx are float32 (is_bf16 = 0) or bf16 (is_bf16 = 1); xb, rb and dnb
+// are bf16.
+extern "C" int cae_gdn_train_bwd(const void* g, const void* xb,
+                                 const void* rb, const float* gamma, void* dx,
+                                 void* dnb, int64_t n, int c, int inverse,
+                                 int is_bf16, cudaStream_t stream) {
+  if (n == 0) return 0;
+  const bf16* x = static_cast<const bf16*>(xb);
+  const bf16* r = static_cast<const bf16*>(rb);
+  bf16* d = static_cast<bf16*>(dnb);
+  if (is_bf16)
+    gdn_bwd_kernel<bf16><<<row_grid(n, c), kThreads, 0, stream>>>(
+        static_cast<const bf16*>(g), x, r, gamma, static_cast<bf16*>(dx), d,
+        n, c, inverse);
+  else
+    gdn_bwd_kernel<float><<<row_grid(n, c), kThreads, 0, stream>>>(
+        static_cast<const float*>(g), x, r, gamma, static_cast<float*>(dx), d,
+        n, c, inverse);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,13 @@ runs the fused conv+GDN kernel when H and W are even (the JAX package's gate
 at ``models/autoencoder.py:73-77``); the other GDN stages run the
 convolution and the GDN kernel.  On the card the fused kernel takes at most
 ``conv_gdn_kernel.MAX_COUT`` output channels and raises beyond that.
+
+Training and serving run the same modules.  The compute type follows the
+input (float32, or bf16 activations end to end), and where a gradient is
+wanted the fused stage takes its training variant; the JAX package's
+``train`` flag switches only batch norm and dropout, which are not ported
+and raise, so in the port it is ``nn.Module.train()`` and changes nothing
+here.
 """
 
 from typing import List, Optional, Tuple

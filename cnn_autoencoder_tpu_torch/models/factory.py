@@ -1,9 +1,10 @@
 """Model factory: the CAE as one ``nn.Module`` built from a checkpoint's
 config, with ``encoder``, ``decoder`` and ``fact_ent`` children.
 
-Counterpart of the JAX package's ``CAEModel`` / ``autoencoder_from_state_dict``
-(``models/factory.py:141-227`` there).  Config keys and defaults are the
-same; the config dict is kept on the model.
+Counterpart of the JAX package's ``CAEModel``, ``build_model`` and
+``autoencoder_from_state_dict`` (``models/factory.py:41-227`` there).
+Config keys and defaults are the same; the config dict is kept on the
+model.
 """
 
 from typing import Any, Dict, Tuple
@@ -14,7 +15,7 @@ from ..training.checkpoint import load_checkpoint
 from ..utils.device import resolve_device
 from ..utils.weights import state_from_jax
 from .autoencoder import Analyzer, Synthesizer
-from .entropy import EntropyParams
+from .entropy import FactorizedEntropyBottleneck
 
 # options of the JAX package that this slice does not port yet
 _NOT_PORTED = ("batch_norm", "use_residual", "groups", "multiscale_analysis",
@@ -48,7 +49,8 @@ class CAEModel(nn.Module):
         net.setdefault("compression_level", 4)
         self.encoder = Analyzer(**net)
         self.decoder = Synthesizer(**net)
-        self.fact_ent = EntropyParams(self.channels_bn, self.filters)
+        self.fact_ent = FactorizedEntropyBottleneck(self.channels_bn,
+                                                    self.filters)
 
     @property
     def compression_level(self) -> int:
@@ -63,6 +65,23 @@ class CAEModel(nn.Module):
         k = int(self.config.get("K", 4))
         r = int(self.config.get("r", 3))
         return tuple([r] * k)
+
+
+def build_model(config: Dict[str, Any], generator=None,
+                device=None) -> CAEModel:
+    """A fresh CAE with the JAX package's initialisers: convs and deconvs
+    xavier-uniform with gain sqrt(2/1.01) and bias 0.01, GDN beta 1 and
+    gamma 0.1 I, the bottleneck's constant matrices, U(-0.5, 0.5) biases and
+    (-10, 0, 10) quantiles.  Every draw comes from ``generator`` (a CPU
+    ``torch.Generator``; None: torch's default), module by module in
+    registration order.  The JAX package draws other bits from the same
+    seed.  Returned in train mode on ``device`` (``None``: the card)."""
+    dev = resolve_device(device)
+    model = CAEModel(config)
+    for module in model.modules():
+        if module is not model and hasattr(module, "reset_parameters"):
+            module.reset_parameters(generator)
+    return model.to(dev).train()
 
 
 def autoencoder_from_state_dict(checkpoint, device=None) -> CAEModel:

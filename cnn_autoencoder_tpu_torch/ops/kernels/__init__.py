@@ -9,11 +9,13 @@ does not take raises.
 
 
 def kernel_wrappers():
-    """The CUDA wrappers of this slice's kernels, each with ``launches``."""
-    from .conv_gdn_kernel import conv_gdn_cuda
-    from .gdn_kernel import gdn_cuda
+    """The CUDA wrappers of every kernel, each with ``launches`` and
+    ``kernel_name``."""
+    from .conv_gdn_kernel import conv_gdn_cuda, conv_gdn_train_cuda
+    from .gdn_kernel import gdn_cuda, gdn_train_bwd_cuda, gdn_train_fwd_cuda
     from .rans_kernel import decode_interleaved_cuda, encode_interleaved_cuda
-    return (gdn_cuda, conv_gdn_cuda, encode_interleaved_cuda,
+    return (gdn_cuda, gdn_train_fwd_cuda, gdn_train_bwd_cuda, conv_gdn_cuda,
+            conv_gdn_train_cuda, encode_interleaved_cuda,
             decode_interleaved_cuda)
 
 

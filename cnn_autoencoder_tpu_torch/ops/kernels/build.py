@@ -30,7 +30,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # be passed as 32 bits and cut the address)
 SIGNATURES = {
     "cae_gdn_fwd": [_P, _P, _P, _P, _L, _I, _I, _P],
-    "cae_conv_gdn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cae_gdn_train_fwd": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "cae_gdn_train_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "cae_conv_gdn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P],
     "cae_rans_encode": [_P, _P, _P, _P, _P, _I, _I, _P, _L, _P, _P, _I,
                         _I, _P],
     "cae_rans_decode": [_P, _I, _L, _P, _P, _P, _I, _I, _P],

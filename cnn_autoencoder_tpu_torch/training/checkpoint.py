@@ -1,4 +1,5 @@
-"""Checkpoint reading: the JAX package's self-describing ``.msgpack`` files.
+"""Checkpoint reading and writing: the JAX package's self-describing
+``.msgpack`` files.
 
 A checkpoint is flax's msgpack serialization of
 ``{"config": <json str>, "state": <tree of arrays>}``.  flax stores each
@@ -6,8 +7,12 @@ ndarray as msgpack extension type 1 whose payload is itself a msgpack array
 ``(shape, dtype name, raw C-order bytes)``; arrays above 2**30 bytes are
 split into ``__msgpack_chunked_array__`` dicts.  The decoder below reads
 exactly that subset of msgpack (maps, arrays, str, bin, ints, floats, nil,
-bool and ext types 1 and 3), so no ``msgpack`` or ``flax`` package is needed.
-Reference torch ``.pth`` import is not ported yet.
+bool and ext types 1 and 3), and the encoder writes it (no chunking: it
+refuses an array above 2**30 bytes, which no model of the port holds), so
+no ``msgpack`` or ``flax`` package is needed.  ``save_checkpoint`` writes a
+model's config and variables; both the JAX package's ``load_checkpoint``
+and this module's read it.  Optimizer state is not saved yet, and
+reference torch ``.pth`` import is not ported yet.
 """
 
 import json
@@ -17,9 +22,12 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from ..utils.weights import state_to_jax
+
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 _CHUNKED = "__msgpack_chunked_array__"
+_MAX_ARRAY_BYTES = 2 ** 30
 
 
 class _Reader:
@@ -165,3 +173,99 @@ def load_checkpoint(source) -> Dict[str, Any]:
     state = dict(payload["state"])
     state.update(json.loads(payload["config"]))
     return state
+
+
+class _Writer:
+    """Sequential msgpack encoder: the mirror of ``_Reader``."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def pack(self, fmt: str, *values) -> None:
+        self.out += struct.pack(fmt, *values)
+
+    def header(self, n: int, fix: int, fix_max: int, codes) -> None:
+        """A length-prefixed header: the fix form up to ``fix_max``, then
+        the 8/16/32-bit forms in ``codes`` (None where msgpack has none)."""
+        if fix is not None and n <= fix_max:
+            self.out.append(fix | n)
+            return
+        for code, fmt, limit in zip(codes, "BHI", (0xFF, 0xFFFF, 0xFFFFFFFF)):
+            if code is not None and n <= limit:
+                self.pack(">B" + fmt, code, n)
+                return
+        raise ValueError(f"msgpack item of length {n} is too long")
+
+    def integer(self, n: int) -> None:
+        if 0 <= n <= 0x7F or -32 <= n < 0:
+            self.out.append(n & 0xFF)
+            return
+        kinds = (((0xCC, "B", 2 ** 8), (0xCD, "H", 2 ** 16),
+                  (0xCE, "I", 2 ** 32), (0xCF, "Q", 2 ** 64)) if n >= 0 else
+                 ((0xD0, "b", 2 ** 7), (0xD1, "h", 2 ** 15),
+                  (0xD2, "i", 2 ** 31), (0xD3, "q", 2 ** 63)))
+        for code, fmt, limit in kinds:
+            if (n < limit) if n >= 0 else (n >= -limit):
+                self.pack(">B" + fmt, code, n)
+                return
+        raise ValueError(f"integer {n} does not fit msgpack")
+
+    def value(self, v: Any) -> None:
+        if v is None:
+            self.out.append(0xC0)
+        elif isinstance(v, bool):
+            self.out.append(0xC3 if v else 0xC2)
+        elif isinstance(v, int):
+            self.integer(v)
+        elif isinstance(v, float):
+            self.pack(">Bd", 0xCB, v)
+        elif isinstance(v, str):
+            raw = v.encode("utf-8")
+            self.header(len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            self.out += raw
+        elif isinstance(v, bytes):
+            self.header(len(v), None, 0, (0xC4, 0xC5, 0xC6))
+            self.out += v
+        elif isinstance(v, dict):
+            self.header(len(v), 0x80, 15, (None, 0xDE, 0xDF))
+            for k, x in v.items():
+                self.value(k)
+                self.value(x)
+        elif isinstance(v, (list, tuple)):
+            self.header(len(v), 0x90, 15, (None, 0xDC, 0xDD))
+            for x in v:
+                self.value(x)
+        elif isinstance(v, np.ndarray):
+            if v.nbytes > _MAX_ARRAY_BYTES:
+                raise ValueError(f"array of {v.nbytes} bytes: chunked arrays "
+                                 "are not written")
+            payload = msgpack_serialize([list(v.shape), v.dtype.name,
+                                         np.ascontiguousarray(v).tobytes()])
+            self.header(len(payload), None, 0, (0xC7, 0xC8, 0xC9))
+            self.pack(">b", _EXT_NDARRAY)
+            self.out += payload
+        else:
+            raise TypeError(f"cannot write {type(v).__name__} to msgpack")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode a tree of dicts, lists, scalars and numpy arrays as flax-msgpack
+    bytes (the counterpart of ``flax.serialization.msgpack_serialize``)."""
+    w = _Writer()
+    w.value(tree)
+    return bytes(w.out)
+
+
+def save_checkpoint(path, model) -> None:
+    """Write ``model``'s config and variables as a checkpoint that both
+    packages load: ``{"config": json, "state": {"encoder" | "decoder" |
+    "fact_ent": {"params": tree}}}``, HWIO kernels as the JAX package keeps
+    them.  The file is replaced atomically."""
+    payload = {"config": json.dumps(model.config),
+               "state": state_to_jax(model.state_dict())}
+    data = msgpack_serialize(payload)
+    path = os.fspath(path)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)

@@ -10,6 +10,8 @@ port uses PyTorch's layouts.  This inverts
   (in, out, kh, kw): ``transpose(hwio[::-1, ::-1], (2, 3, 0, 1))``;
 * biases, GDN ``beta``/``gamma`` (stored reparameterized in both) and the
   ``fact_ent`` parameters carry over as stored.
+
+``state_to_jax`` is the inverse, for checkpoints the JAX package reads.
 """
 
 from typing import Any, Dict
@@ -73,5 +75,35 @@ def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
     if fact_ent is not None:
         for name, value in fact_ent["params"].items():
             arrays[f"fact_ent.{name}"] = np.asarray(value)
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in arrays.items()}
+
+
+def _conv_to_hwio(weight: np.ndarray) -> np.ndarray:
+    return np.transpose(weight, (2, 3, 1, 0))
+
+
+def _deconv_to_hwio(weight: np.ndarray) -> np.ndarray:
+    return np.transpose(weight, (2, 3, 0, 1))[::-1, ::-1]
+
+
+def state_to_jax(weights: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``CAEModel`` state dict -> the JAX package's variable
+    trees ``{"encoder"|"decoder"|"fact_ent": {"params": tree}}`` of
+    contiguous float32 numpy arrays (the inverse of ``state_from_jax``)."""
+    tree: Dict[str, Any] = {}
+    for key, value in weights.items():
+        arr = value.detach().cpu().float().numpy()
+        module, *path = key.split(".")
+        params = tree.setdefault(module, {"params": {}})["params"]
+        if module == "fact_ent":
+            params[path[0]] = np.ascontiguousarray(arr)
+            continue
+        unit, layer, name = path
+        if name == "weight":
+            arr = (_deconv_to_hwio if layer.startswith("deconv")
+                   else _conv_to_hwio)(arr)
+            name = "kernel"
+        params.setdefault(unit, {}).setdefault(layer, {})[name] = \
+            np.ascontiguousarray(arr)
+    return tree

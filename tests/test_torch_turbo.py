@@ -198,17 +198,22 @@ def test_default_device_without_card_raises(small_checkpoint, monkeypatch):
 
 def test_kernel_wrappers_take_only_cuda_tensors():
     from cnn_autoencoder_tpu_torch.ops.kernels import kernel_wrappers
-    from cnn_autoencoder_tpu_torch.ops.kernels.conv_gdn_kernel import \
-        conv_gdn_cuda
-    from cnn_autoencoder_tpu_torch.ops.kernels.gdn_kernel import gdn_cuda
+    from cnn_autoencoder_tpu_torch.ops.kernels.conv_gdn_kernel import (
+        conv_gdn_cuda, conv_gdn_train_cuda)
+    from cnn_autoencoder_tpu_torch.ops.kernels.gdn_kernel import (
+        gdn_cuda, gdn_train_bwd_cuda, gdn_train_fwd_cuda)
     from cnn_autoencoder_tpu_torch.ops.kernels.rans_kernel import (
         decode_interleaved_cuda, encode_interleaved_cuda)
     x = torch.zeros(4, 8)
+    xb = x.to(torch.bfloat16)
     i = torch.zeros(1, 2, 4, dtype=torch.int32)
+    conv_args = (torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 8),
+                 torch.eye(8), torch.ones(8))
     calls = [lambda: gdn_cuda(x, torch.eye(8), torch.ones(8)),
-             lambda: conv_gdn_cuda(torch.zeros(1, 4, 4, 8),
-                                   torch.zeros(3, 3, 8, 8), torch.eye(8),
-                                   torch.ones(8)),
+             lambda: gdn_train_fwd_cuda(xb, torch.eye(8), torch.ones(8)),
+             lambda: gdn_train_bwd_cuda(xb, xb, xb, torch.eye(8)),
+             lambda: conv_gdn_cuda(*conv_args),
+             lambda: conv_gdn_train_cuda(*conv_args),
              lambda: encode_interleaved_cuda(i, i[0], i[0], i[0], i[0, 0],
                                              64),
              lambda: decode_interleaved_cuda(i[0], i[0], i[0], 2)]
@@ -216,7 +221,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert {fn.kernel_name for fn in kernel_wrappers()} == {
-        "gdn_fwd", "conv_gdn_fwd", "rans_encode", "rans_decode"}
+        "gdn_fwd", "gdn_train_fwd", "gdn_train_bwd", "conv_gdn_fwd",
+        "conv_gdn_train_fwd", "rans_encode", "rans_decode"}
     assert all(fn.launches == 0 for fn in kernel_wrappers())
 
 
