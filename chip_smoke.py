@@ -6,11 +6,18 @@
 Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions; build the CUDA kernels from ``cnn_autoencoder_tpu_torch/csrc``.
+   versions; build the CUDA kernels from ``cnn_autoencoder_tpu_torch/csrc``
+   (ptxas registers, spills and shared memory logged), and check in the
+   built library's SASS that K1 multiplies on the tensor cores (HMMA);
+   meanwhile build K1's probes (``csrc/probes``): K1 with one TF32 pass,
+   the control that must fail K1's accuracy check, and K1 without its
+   device-memory traffic, to time what the SM spends.
 2. Serving kernels: each kernel's wrapper on card tensors at the shapes the
    serving path gives it (16 tiles of 512^2 through the flagship), held
    against its plain PyTorch version on the same inputs, then timed with
-   CUDA events beside the plain version.
+   CUDA events beside the plain version; K1 also at ragged rows, every
+   shared-memory layout of its C range and a misaligned row pointer, its
+   one-pass control, and its probes' times.
 3. Serving end to end: the flagship checkpoint through ``CAETurboCore``
    (the ``cae_tpu`` codec's batched core), ``encode_tiles`` then
    ``decode_tiles`` on 16 synthetic 512^2 tiles, with launch counts reset
@@ -40,6 +47,7 @@ non-zero and prints no result.
 """
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -58,9 +66,20 @@ TIMED_STEPS = 10
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12        # float32 on the CUDA cores (no tensor cores)
 PEAK_BF16_S = 989e12      # bf16 on the tensor cores, dense
+PEAK_TF32_S = 495e12      # TF32 on the tensor cores, dense
 # 32-bit integer operations issue on 64 of the 128 lanes of each SM
 # (Hopper white paper): half the float32 rate
 PEAK_I32_S = PEAK_F32_S / 2
+# K1 against gdn_plain, max relative error: the three-pass kernel reads
+# about 1.2e-6 at most, one TF32 pass about 1e-5
+K1_REL_LIMIT = 3e-6
+K1_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
+                               "probes", "gdn_tc_probe.cu")
+# K1's probe builds and their defines (csrc/gdn_tc.cu)
+K1_PROBES = {"one_pass": ["-DGDN_TC_PASSES=1"],
+             "no_io": ["-DGDN_TC_NO_IO=1"],
+             "no_io_one_pass": ["-DGDN_TC_NO_IO=1", "-DGDN_TC_PASSES=1"]}
+PROBES = {}  # probe name -> its loaded library (phase 1)
 
 # (name, TPU kernel it replaces)
 REPLACES = {
@@ -74,7 +93,7 @@ REPLACES = {
     "rans_decode": "cnn_autoencoder_tpu/ops/pallas/rans_kernel.py:119",
 }
 SOURCES = {
-    "gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
+    "gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn_tc.cu",
     "gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
     "gdn_train_bwd": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
     "conv_gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
@@ -167,12 +186,68 @@ def phase_device(torch):
         f"count {torch.cuda.device_count()}")
     from cnn_autoencoder_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
-    build.load_library()
+    probes = start_k1_probes(build)
+    try:
+        build.load_library()
+    finally:
+        PROBES.update(finish_k1_probes(build, probes))
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {build.build_seconds:.1f} s)")
+        f"(nvcc {build.build_seconds:.1f} s), K1's probes with them")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas " + line.strip())
+    check_k1_sass(build)
+
+
+def start_k1_probes(build):
+    """Start one nvcc for each of K1's probe builds (into build/probes);
+    returns {name: (process, library path)}."""
+    out = os.path.join(ROOT, "build", "probes")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name, defines in K1_PROBES.items():
+        path = os.path.join(out, f"gdn_tc_{name}.so")
+        cmd = ([build.cuda_tool()] + build.ARCH_FLAGS
+               + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared"]
+               + defines + [K1_PROBE_SOURCE, "-o", path])
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       path)
+    return procs
+
+
+def finish_k1_probes(build, procs):
+    """Wait for every probe build; returns {name: loaded library}."""
+    outs = {name: (p.communicate()[0], p.returncode, path)
+            for name, (p, path) in procs.items()}
+    libs = {}
+    for name, (out, rc, path) in outs.items():
+        check(rc == 0, f"K1 probe build {name} failed:\n{out}")
+        lib = ctypes.CDLL(path)
+        lib.cae_gdn_fwd.argtypes = build.SIGNATURES["cae_gdn_fwd"]
+        lib.cae_gdn_mma_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p]
+        lib.cae_gdn_fwd_layout.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        libs[name] = lib
+    return libs
+
+
+def check_k1_sass(build):
+    """K1's instantiations in the built library's SASS (cuobjdump), each of
+    which must hold HMMA (tensor-core) instructions."""
+    lib = build.load_library()._name
+    dump = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", lib],
+                          capture_output=True, text=True, timeout=300)
+    check(dump.returncode == 0, f"cuobjdump failed: {dump.stderr.strip()}")
+    counts = {}
+    for part in dump.stdout.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "gdn_tc_kernel" in name:
+            counts[name] = sum(" HMMA." in line for line in part.splitlines())
+    log(f"K1 SASS: {len(counts)} instantiations, HMMA instructions "
+        f"{sorted(counts.values())}")
+    check(len(counts) == 5 and all(counts.values()),
+          f"K1 SASS lacks HMMA: {counts}")
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -189,16 +264,31 @@ def edge_geometries(torch, rng):
         beta = torch.from_numpy((1.0 + rng.rand(c)).astype(np.float32))
         return gamma.cuda(), beta.cuda()
 
-    for n, c in ((1000, 48), (77, 130), (5, 3)):
-        x = torch.from_numpy(rng.randn(n, c).astype(np.float32)).cuda()
+    # K1: ragged rows and channels; C = 136, 256, 500, 1000, 1552, 1553
+    # and 2048 take each shared-memory layout of csrc/gdn_tc.cu (gamma
+    # resident or streamed, 64- or 32-row tiles, double- or
+    # single-buffered, x in K-slices); the last case has rows 4 bytes off
+    # 16-byte alignment (4-byte copies)
+    for n, c in ((1000, 48), (77, 130), (5, 3), (300, 136), (300, 256),
+                 (100, 500), (70, 1000), (33, 1552), (67, 1553),
+                 (100, 2048), (131, 128)):
+        x = torch.from_numpy(rng.randn(n * c + 1).astype(np.float32)).cuda()
+        x = x[1:].view(n, c) if (n, c) == (131, 128) else x[:-1].view(n, c)
         gamma, beta = params(c)
+        rels = []
         for inverse in (False, True):
             got = gdn_kernel.gdn_cuda(x, gamma, beta, inverse)
             ref = gdn_kernel.gdn_plain(x, gamma, beta, inverse)
-            rel = float(((got - ref).abs()
-                         / ref.abs().clamp_min(1e-30)).max())
-            check(rel <= 1e-5, f"gdn_fwd ({n}, {c}) inverse={inverse}: "
-                  f"max relative error {rel:.3e}")
+            rels.append(float(((got - ref).abs()
+                               / ref.abs().clamp_min(1e-30)).max()))
+            check(rels[-1] <= K1_REL_LIMIT, f"gdn_fwd ({n}, {c}) "
+                  f"inverse={inverse}: max relative error {rels[-1]:.3e}")
+        log(f"gdn_fwd ({n}, {c}): max rel {rels[0]:.3e} / {rels[1]:.3e} "
+            f"(GDN / IGDN); layout {k1_layout(c)}")
+    bad = k1_root_mismatches(torch)
+    log(f"gdn_fwd epilogue roots against sqrtf and 1.0f / s over every "
+        f"positive float32 in range: {bad[0]} and {bad[1]} mismatches")
+    check(bad == (0, 0), f"gdn_fwd epilogue roots: {bad} mismatches")
     for shape, cout in (((2, 18, 14, 72), 40), ((1, 4, 6, 64), 128),
                         ((1, 2, 2, 3), 5)):
         x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
@@ -224,13 +314,152 @@ def edge_geometries(torch, rng):
         "shapes; conv_gdn_fwd refuses Cout > 128 and odd H")
 
 
+def k1_layout(c):
+    """The layout K1 takes for c channels, from its launch plan
+    (csrc/probes/gdn_tc_probe.cu:cae_gdn_fwd_layout)."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import build
+    out = (ctypes.c_int * 7)()
+    build.check_launch(PROBES["one_pass"].cae_gdn_fwd_layout(
+        c, ctypes.addressof(out)), "gdn_fwd layout")
+    return dict(zip(("groups", "rows", "gamma_resident", "x_sliced",
+                     "x_buffers", "smem_bytes", "most_blocks"), out))
+
+
+def k1_probe(torch, name, x, gamma, beta, inverse, out):
+    """K1 as the probe build ``name`` computes it, into ``out``."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import build
+    n, c = x.shape
+    build.check_launch(PROBES[name].cae_gdn_fwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), n,
+        c, int(inverse), torch.cuda.current_stream().cuda_stream), name)
+    return out
+
+
+def k1_root_mismatches(torch):
+    """Over every positive float32 value in K1's fast range: how many give
+    an epilogue square root, and a reciprocal of it, other than sqrtf and
+    1.0f / s (csrc/gdn_tc.cu:cae_gdn_root_check)."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import build
+    bad = torch.zeros(2, dtype=torch.int64, device="cuda")
+    build.check_launch(build.load_library().cae_gdn_root_check(
+        0, 1 << 31, bad.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "gdn_fwd root check")
+    return tuple(bad.tolist())
+
+
+def mma_tf32_tflops(torch):
+    """TFLOP/s of the mma.sync TF32 products K1 issues, with one 8-warp
+    block per SM as K1 runs (csrc/probes/gdn_tc_probe.cu:
+    cae_gdn_mma_probe): the ceiling of its three passes on this card."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import build
+    lib = PROBES["one_pass"]
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 256, device="cuda")
+    iters = 4096
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        build.check_launch(lib.cae_gdn_mma_probe(out.data_ptr(), blocks,
+                                                 iters, stream), "mma probe")
+    ms = cuda_ms(torch, run, 3)
+    return blocks * 8 * iters * 8 * (2 * 16 * 8 * 8) / ms / 1e9
+
+
+def k1_serving(torch, model, b, h, w, rng):
+    """K1 at the round trip's shapes with the flagship's parameters: down_0
+    (GDN) and up_1 (IGDN) over (B 256^2, 128) rows, up_0 (IGDN) over
+    (B 128^2, 128); each against its plain version and against the
+    one-pass control, down_0 and up_0 timed, down_0 beside K1's probes.
+    Returns down_0's record."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel
+    rows = b * (h // 2) * (w // 2)
+    rec = None
+    mma_tflops = mma_tf32_tflops(torch)
+    log(f"mma.sync TF32 on this card: {mma_tflops:.1f} TFLOP/s (one 8-warp "
+        "block per SM)")
+    with torch.no_grad():
+        for inverse, unit, n in ((False, model.encoder.down_0, rows),
+                                 (True, model.decoder.up_1, rows),
+                                 (True, model.decoder.up_0, rows // 4)):
+            mod = unit.gdn_up if inverse else unit.gdn_down
+            gamma, beta = mod.effective_params()
+            c = gamma.shape[0]
+            x = torch.from_numpy(rng.randn(n, c).astype(np.float32)
+                                 * 0.5).cuda()
+            got = gdn_kernel.gdn_cuda(x, gamma, beta, inverse)
+            ref = gdn_kernel.gdn_plain(x, gamma, beta, inverse)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "gdn_fwd: non-finite")
+            err = (got - ref).abs()
+            rel = float((err / ref.abs().clamp_min(1e-30)).max())
+            # the one-pass control must fail the limit the kernel holds
+            gamma, beta = gamma.detach().contiguous(), beta.detach()
+            one = k1_probe(torch, "one_pass", x, gamma, beta, inverse,
+                           torch.empty_like(x))
+            rel_one = float(((one - ref).abs()
+                             / ref.abs().clamp_min(1e-30)).max())
+            del one
+            log(f"gdn_fwd inverse={inverse} {tuple(x.shape)}: max abs "
+                f"{float(err.max()):.3e} max rel {rel:.3e}; one-pass "
+                f"control max rel {rel_one:.3e} (limit {K1_REL_LIMIT:.0e})")
+            check(rel <= K1_REL_LIMIT, f"gdn_fwd inverse={inverse}: max "
+                  f"relative error {rel:.3e} > {K1_REL_LIMIT:.0e}")
+            check(rel_one > K1_REL_LIMIT, f"gdn_fwd inverse={inverse}: the "
+                  f"one-pass control passed ({rel_one:.3e})")
+            if unit is model.decoder.up_1:
+                continue
+            ms = cuda_ms(torch, lambda: gdn_kernel.gdn_cuda(
+                x, gamma, beta, inverse), 20)
+            plain_ms = cuda_ms(torch, lambda: gdn_kernel.gdn_plain(
+                x, gamma, beta, inverse), 10)
+            nbytes = 8 * n * c + 4 * c * (c + 1)
+            # the pool as three TF32 passes, the rest in float32
+            bms, by = bound_ms(nbytes, [(3 * 2 * n * c * c, PEAK_TF32_S),
+                                        (5 * n * c, PEAK_F32_S)])
+            log(f"gdn_fwd {(n, c)} inverse={inverse}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms; bytes bound "
+                f"{nbytes / PEAK_BYTES_S * 1e3:.4f} ms, three-pass TF32 "
+                f"operations {6 * n * c * c / PEAK_TF32_S * 1e3:.4f} ms, "
+                f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of it; "
+                "the three passes at the mma.sync rate "
+                f"{6 * n * c * c / mma_tflops / 1e9:.4f} ms; "
+                "the earlier CUDA-core design's float32 ceiling "
+                f"{n * c * (2 * c + 5) / PEAK_F32_S * 1e3:.4f} ms; layout "
+                f"{k1_layout(c)}")
+            if not inverse:
+                k1_probe_times(torch, x, gamma, beta, ms)
+                rec = dict(max_abs_err=float(err.max()), ms=ms,
+                           plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                           shape=list(x.shape))
+            del x, got, ref, err
+    return rec
+
+
+def k1_probe_times(torch, x, gamma, beta, ms):
+    """K1's time split by its probes at x's shape (GDN): one TF32 pass,
+    and both pass counts without x's and y's device-memory traffic, beside
+    a device copy of x (the bytes K1 moves)."""
+    out = torch.empty_like(x)
+    t = {name: cuda_ms(torch, lambda: k1_probe(torch, name, x, gamma, beta,
+                                               False, out), 20)
+         for name in K1_PROBES}
+    copy_ms = cuda_ms(torch, lambda: out.copy_(x), 20)
+    two_low = t["no_io"] - t["no_io_one_pass"]
+    log(f"gdn_fwd {tuple(x.shape)} probes: kernel {ms:.4f} ms, one pass "
+        f"{t['one_pass']:.4f} ms; without device-memory traffic "
+        f"{t['no_io']:.4f} ms (three passes), {t['no_io_one_pass']:.4f} ms "
+        f"(one pass); a device copy of x {copy_ms:.4f} ms. In the SM: the "
+        f"two low passes {two_low:.4f} ms, so three passes about "
+        f"{1.5 * two_low:.4f} ms and the rest (x^2 split, fragment loads, "
+        f"epilogue, barriers) about {t['no_io'] - 1.5 * two_low:.4f} ms")
+
+
 def phase_kernels(torch, model, core, tiles):
     """Every kernel against its plain version at the serving path's shapes;
     returns {name: record}."""
     from cnn_autoencoder_tpu_torch.coding.device_rans import (
         DeviceTables, pack_streams, stream_channel_map)
     from cnn_autoencoder_tpu_torch.ops.kernels import (conv_gdn_kernel,
-                                                       gdn_kernel,
                                                        rans_kernel)
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
@@ -238,38 +467,7 @@ def phase_kernels(torch, model, core, tiles):
     out = {}
     edge_geometries(torch, rng)
 
-    # K1: GDN over (B*256^2, 128) rows, flagship down_0 / up_1 parameters
-    with torch.no_grad():
-        for inverse, unit, gdn_name in ((False, model.encoder.down_0,
-                                         "gdn_down"),
-                                        (True, model.decoder.up_1, "gdn_up")):
-            gamma, beta = getattr(unit, gdn_name).effective_params()
-            c = gamma.shape[0]
-            x = torch.from_numpy(
-                rng.randn(b * (h // 2) * (w // 2), c).astype(np.float32)
-                * 0.5).to(dev)
-            got = gdn_kernel.gdn_cuda(x, gamma, beta, inverse)
-            ref = gdn_kernel.gdn_plain(x, gamma, beta, inverse)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), "gdn_fwd: non-finite")
-            err = (got - ref).abs()
-            rel = float((err / ref.abs().clamp_min(1e-30)).max())
-            log(f"gdn_fwd inverse={inverse} {tuple(x.shape)}: max abs "
-                f"{float(err.max()):.3e} max rel {rel:.3e}")
-            check(rel <= 1e-5, f"gdn_fwd inverse={inverse}: max relative "
-                  f"error {rel:.3e} > 1e-5")
-            if not inverse:
-                n = x.shape[0]
-                ms = cuda_ms(torch, lambda: gdn_kernel.gdn_cuda(
-                    x, gamma, beta, False), 20)
-                plain_ms = cuda_ms(torch, lambda: gdn_kernel.gdn_plain(
-                    x, gamma, beta, False), 10)
-                bms, by = bound_ms(8 * n * c + 4 * c * (c + 1),
-                                   n * c * (2 * c + 5), PEAK_F32_S)
-                out["gdn_fwd"] = dict(max_abs_err=float(err.max()), ms=ms,
-                                      plain_ms=plain_ms, bound_ms=bms,
-                                      bound_by=by, shape=list(x.shape))
-            del x, got, ref, err
+    out["gdn_fwd"] = k1_serving(torch, model, b, h, w, rng)
 
     # K4: reflect pad + 3x3/s2 conv + GDN, flagship down_1: (B, 256, 256,
     # 128) -> (B, 128, 128, 128)
@@ -840,6 +1038,7 @@ def phase_training(torch):
                               ("bf16", torch.bfloat16, 2e-2)):
         model, criterion, step = train_setup(torch, dtype, x)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()  # this mode's peak alone
         reset_launch_counts()
         losses, times = [], []
         for i in range(1, TRAIN_STEPS + 1):

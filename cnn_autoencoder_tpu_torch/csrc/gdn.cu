@@ -1,18 +1,15 @@
-// GDN / IGDN over (N, C) rows, for the H100 (sm_90a): the serving forward
-// (K1) and the two training kernels of the bf16 mode (K2 forward, K3
-// backward).
+// GDN / IGDN over (N, C) rows, for the H100 (sm_90a): the two training
+// kernels of the bf16 mode (K2 forward, K3 backward).  The serving forward
+// K1 runs on the tensor cores in gdn_tc.cu.
 //
-// K1 replaces cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:_gdn_kernel (its
-// pallas_call in _gdn_pallas, entry fused_gdn).  Computes
+// K2 replaces cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:
+// _gdn_train_fwd_kernel (pallas_call in _gdn_train_fwd_pallas):
 //   y[n, o] = x[n, o] * (beta[o] + sum_i gamma[o, i] * x[n, i]^2)^(-1/2)
-// (IGDN: ^(+1/2)) on float32 rows in float32, one rounding of the output.
-//
-// K2 replaces gdn_kernel.py:_gdn_train_fwd_kernel (pallas_call in
-// _gdn_train_fwd_pallas): the same y, written in the input's type, and the
-// backward residual r = norm^(-1/2) (IGDN: norm^(+1/2)) as bf16.  The norm
-// pool follows ops/gdn.py:norm_pool_precision: float32 rows in full
-// float32; bf16 rows with x^2 and gamma rounded to bf16 and the products
-// summed in float32 (what the matrix unit's DEFAULT precision does).
+// (IGDN: ^(+1/2)), written in the input's type, and the backward residual
+// r = norm^(-1/2) (IGDN: norm^(+1/2)) as bf16.  The norm pool follows
+// ops/gdn.py:norm_pool_precision: float32 rows in full float32; bf16 rows
+// with x^2 and gamma rounded to bf16 and the products summed in float32
+// (what the matrix unit's DEFAULT precision does).
 //
 // K3 replaces gdn_kernel.py:_gdn_train_bwd_kernel (pallas_call in
 // _gdn_train_bwd_pallas).  From the cotangent g and the bf16 residuals
@@ -25,17 +22,17 @@
 //
 // What bounds them here: the pool is 2 * C FLOP per element against 4 to
 // 12 bytes read and written, so at C = 128 float32 FMAs on the CUDA cores
-// (67 TFLOP/s) bound all three, not memory (3.35 TB/s).  With bf16 rows
-// the tensor cores would lift that bound above the byte bound; these
-// kernels stay on the CUDA cores (a first, simple design: bf16 values are
-// exact in float32, so the f32 FMAs give the bf16-multiplicand products
-// exactly and sum them in float32).
+// (67 TFLOP/s) bound both, not memory (3.35 TB/s).  With bf16 rows the
+// tensor cores would lift that bound above the byte bound; these kernels
+// stay on the CUDA cores (a first, simple design: bf16 values are exact in
+// float32, so the f32 FMAs give the bf16-multiplicand products exactly and
+// sum them in float32).
 //
 // Design: the pool is a small matrix product (rows x C) @ (C x C).  A
 // block of 256 threads owns a 64-row x 64-channel output tile; each thread
 // holds a 4 x 4 register tile, so every pair of values loaded from shared
-// memory feeds 4 FMAs.  The row operand (x^2 for K1/K2, dnb for K3, which
-// is computed from g, xb, rb while it is staged) and the C x C operand are
+// memory feeds 4 FMAs.  The row operand (x^2 for K2, dnb for K3, which is
+// computed from g, xb, rb while it is staged) and the C x C operand are
 // staged through shared memory in 32-channel slices (row operand
 // slice-major with one pad column, so the staging stores hit 32 banks);
 // the C x C operand is read from device memory, where L2 keeps it.  The
@@ -90,13 +87,13 @@ __device__ __forceinline__ void tile_fma(const float (*a)[kRows + 1],
   }
 }
 
-// K1 (T = float, kTrain = false) and K2 (kTrain = true).  gamma_t is
-// gamma transposed: gamma_t[i * c + o] = gamma[o, i].
-template <typename T, bool kTrain>
+// K2.  gamma_t is gamma transposed: gamma_t[i * c + o] = gamma[o, i].
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gdn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma_t,
-               const float* __restrict__ beta, T* __restrict__ y,
-               bf16* __restrict__ rb, int64_t n, int c, int inverse) {
+gdn_train_fwd_kernel(const T* __restrict__ x,
+                     const float* __restrict__ gamma_t,
+                     const float* __restrict__ beta, T* __restrict__ y,
+                     bf16* __restrict__ rb, int64_t n, int c, int inverse) {
   constexpr bool kRound = std::is_same<T, bf16>::value;
   __shared__ float s_x2[kSlice][kRows + 1];
   __shared__ float s_g[kSlice][kCols];
@@ -146,7 +143,7 @@ gdn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma_t,
       const float r = inverse ? s : 1.0f / s;
       const int64_t idx = row * c + o;
       store(y, idx, load(x, idx) * r);
-      if constexpr (kTrain) rb[idx] = __float2bfloat16(r);
+      rb[idx] = __float2bfloat16(r);
     }
   }
 }
@@ -228,15 +225,6 @@ dim3 row_grid(int64_t n, int c) {
 
 }  // namespace
 
-extern "C" int cae_gdn_fwd(const float* x, const float* gamma_t,
-                           const float* beta, float* y, int64_t n, int c,
-                           int inverse, cudaStream_t stream) {
-  if (n == 0) return 0;
-  gdn_fwd_kernel<float, false><<<row_grid(n, c), kThreads, 0, stream>>>(
-      x, gamma_t, beta, y, nullptr, n, c, inverse);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // x and y are float32 (is_bf16 = 0) or bf16 (is_bf16 = 1); rb is bf16.
 extern "C" int cae_gdn_train_fwd(const void* x, const float* gamma_t,
                                  const float* beta, void* y, void* rb,
@@ -245,11 +233,11 @@ extern "C" int cae_gdn_train_fwd(const void* x, const float* gamma_t,
   if (n == 0) return 0;
   bf16* r = static_cast<bf16*>(rb);
   if (is_bf16)
-    gdn_fwd_kernel<bf16, true><<<row_grid(n, c), kThreads, 0, stream>>>(
+    gdn_train_fwd_kernel<bf16><<<row_grid(n, c), kThreads, 0, stream>>>(
         static_cast<const bf16*>(x), gamma_t, beta, static_cast<bf16*>(y), r,
         n, c, inverse);
   else
-    gdn_fwd_kernel<float, true><<<row_grid(n, c), kThreads, 0, stream>>>(
+    gdn_train_fwd_kernel<float><<<row_grid(n, c), kThreads, 0, stream>>>(
         static_cast<const float*>(x), gamma_t, beta, static_cast<float*>(y),
         r, n, c, inverse);
   return static_cast<int>(cudaGetLastError());

@@ -30,6 +30,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # be passed as 32 bits and cut the address)
 SIGNATURES = {
     "cae_gdn_fwd": [_P, _P, _P, _P, _L, _I, _I, _P],
+    "cae_gdn_root_check": [ctypes.c_uint32, _L, _P, _P],
     "cae_gdn_train_fwd": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "cae_gdn_train_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "cae_conv_gdn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -57,17 +58,19 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH or in
+    ``$CUDA_HOME/bin``; raises if neither has it."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
+    cand = os.path.join(home, "bin", name)
     if os.path.exists(cand):
         return cand
     raise RuntimeError(
-        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
-        "kernels of cnn_autoencoder_tpu_torch cannot be built")
+        f"{name} not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "toolkit builds and inspects the kernels of cnn_autoencoder_tpu_torch")
 
 
 def _run_all(cmds):
@@ -91,7 +94,7 @@ def _run_all(cmds):
 def build(out_dir: Path) -> Path:
     """Compile the sources in parallel and link the shared library."""
     global build_log, build_seconds
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     t0 = time.perf_counter()
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="build-", dir=out_dir))

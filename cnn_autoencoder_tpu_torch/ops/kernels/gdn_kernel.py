@@ -1,10 +1,12 @@
-"""GDN over (N, C) rows: the CUDA kernels of ``csrc/gdn.cu`` and their
-plain PyTorch versions.
+"""GDN over (N, C) rows: the CUDA kernels of ``csrc/gdn_tc.cu`` and
+``csrc/gdn.cu`` and their plain PyTorch versions.
 
 * K1 ``gdn_cuda`` replaces ``cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:
-  _gdn_kernel``: float32 rows, float32 math.  ``fused_gdn`` is its
-  differentiable entry (the JAX ``fused_gdn`` custom VJP): the forward is
-  the kernel on the card and ``gdn_plain`` on the CPU; the backward
+  _gdn_kernel``: float32 rows, float32-accurate math on the tensor cores
+  (three TF32 passes over hi/lo parts of x^2 and gamma, split in the
+  kernel).  ``fused_gdn`` is its differentiable entry (the JAX
+  ``fused_gdn`` custom VJP): the forward is the kernel on the card and
+  ``gdn_plain`` on the CPU; the backward
   recomputes the plain float32 GDN and differentiates it, as the JAX
   backward does (it has no kernel there either).
 * K2 ``gdn_train_fwd_cuda`` replaces ``_gdn_train_fwd_kernel``: ``y`` in the
@@ -14,7 +16,7 @@ plain PyTorch versions.
 
 The norm pool's precision follows ``norm_pool_precision``.  The dispatchers
 (``fused_gdn``, ``gdn_train_fwd``, ``gdn_train_bwd``) give CPU tensors the
-plain versions and CUDA tensors the kernels; the kernels take any C.
+plain versions and CUDA tensors the kernels, which take any C.
 """
 
 from typing import Tuple
@@ -114,17 +116,17 @@ def _require_cuda(name, t):
 def gdn_cuda(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              inverse: bool = False) -> torch.Tensor:
     """K1; raises on what it does not take."""
-    _require_cuda("gdn_cuda", x2d)
     c = x2d.shape[-1]
     _check_rows("gdn kernel x", x2d, c, (torch.float32,), x2d.device)
     _check_params("gdn kernel", x2d.device, c, gamma, beta)
+    _require_cuda("gdn_cuda", x2d)
     n = x2d.shape[0]
-    gamma_t = gamma.detach().float().t().contiguous()
+    gamma = gamma.detach().float().contiguous()
     beta = beta.detach().float().contiguous()
     out = torch.empty_like(x2d)
     lib = load_library()
     with torch.cuda.device(x2d.device):
-        err = lib.cae_gdn_fwd(x2d.data_ptr(), gamma_t.data_ptr(),
+        err = lib.cae_gdn_fwd(x2d.data_ptr(), gamma.data_ptr(),
                               beta.data_ptr(), out.data_ptr(), n, c,
                               int(inverse), stream_handle(x2d))
     check_launch(err, "gdn_fwd")

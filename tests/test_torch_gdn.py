@@ -27,7 +27,7 @@ def _stored_params(c, seed):
     return beta, gamma
 
 
-@pytest.mark.parametrize("c", [16, 128])
+@pytest.mark.parametrize("c", [3, 16, 48, 128, 130, 256])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_gdn_matches_jax(c, inverse):
     rng = np.random.RandomState(c + inverse)
