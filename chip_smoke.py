@@ -7,17 +7,22 @@ Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; build the CUDA kernels from ``cnn_autoencoder_tpu_torch/csrc``
-   (ptxas registers, spills and shared memory logged), and check in the
-   built library's SASS that K1 multiplies on the tensor cores (HMMA);
-   meanwhile build K1's probes (``csrc/probes``): K1 with one TF32 pass,
-   the control that must fail K1's accuracy check, and K1 without its
-   device-memory traffic, to time what the SM spends.
+   (ptxas registers, spills and shared memory logged for every
+   instantiation), and check in the built library's SASS that K1 and K4 multiply
+   on the tensor cores (HMMA);
+   meanwhile build K1's and K4's probes (``csrc/probes``): K1 with one
+   TF32 pass, the control that must fail K1's accuracy check; K1 and K4
+   without their device-memory traffic, to time what the SM spends; K4
+   with one pass for its float32 conv and with every mma operand in
+   registers.
 2. Serving kernels: each kernel's wrapper on card tensors at the shapes the
    serving path gives it (16 tiles of 512^2 through the flagship), held
    against its plain PyTorch version on the same inputs, then timed with
-   CUDA events beside the plain version; K1 also at ragged rows, every
-   shared-memory layout of its C range and a misaligned row pointer, its
-   one-pass control, and its probes' times.
+   CUDA events beside the plain version and its bound; K1 also at ragged
+   rows, every shared-memory layout of its C range and a misaligned row
+   pointer, its one-pass control, and its probes' times; K4 in both
+   variants and both types at ragged Cin and Cout and at Cout 129 to
+   1024, its probes' times, and timed at (8, 128, 128, 192) -> 192.
 3. Serving end to end: the flagship checkpoint through ``CAETurboCore``
    (the ``cae_tpu`` codec's batched core), ``encode_tiles`` then
    ``decode_tiles`` on 16 synthetic 512^2 tiles, with launch counts reset
@@ -79,7 +84,22 @@ K1_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
 K1_PROBES = {"one_pass": ["-DGDN_TC_PASSES=1"],
              "no_io": ["-DGDN_TC_NO_IO=1"],
              "no_io_one_pass": ["-DGDN_TC_NO_IO=1", "-DGDN_TC_PASSES=1"]}
+K4_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
+                               "probes", "conv_gdn_probe.cu")
+# K4's probe builds and their defines (csrc/conv_gdn.cu)
+K4_PROBES = {"k4_one_pass": ["-DCONV_GDN_PASSES=1"],
+             "k4_no_io": ["-DCONV_GDN_NO_IO=1"],
+             "k4_no_io_one_pass": ["-DCONV_GDN_NO_IO=1",
+                                   "-DCONV_GDN_PASSES=1"],
+             "k4_no_io_no_lds": ["-DCONV_GDN_NO_IO=1", "-DCONV_GDN_NO_LDS=1"]}
 PROBES = {}  # probe name -> its loaded library (phase 1)
+# K4's edge geometries ((B, H, W, Cin), Cout): ragged Cin and Cout, Cin < 32,
+# and Cout past one 128-channel block up to 1024
+K4_EDGE_CASES = (((2, 18, 14, 72), 40), ((1, 4, 6, 64), 128),
+                 ((1, 2, 2, 3), 5), ((2, 10, 12, 64), 129),
+                 ((2, 8, 8, 64), 192), ((1, 8, 8, 128), 256),
+                 ((1, 6, 4, 64), 512), ((1, 4, 4, 32), 1024),
+                 ((1, 4, 6, 33), 200))
 
 # (name, TPU kernel it replaces)
 REPLACES = {
@@ -186,68 +206,80 @@ def phase_device(torch):
         f"count {torch.cuda.device_count()}")
     from cnn_autoencoder_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
-    probes = start_k1_probes(build)
+    probes = start_probes(build)
     try:
         build.load_library()
     finally:
-        PROBES.update(finish_k1_probes(build, probes))
+        PROBES.update(finish_probes(build, probes))
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {build.build_seconds:.1f} s), K1's probes with them")
+        f"(nvcc {build.build_seconds:.1f} s), K1's and K4's probes with "
+        "them")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas " + line.strip())
-    check_k1_sass(build)
+    check_tc_sass(build)
 
 
-def start_k1_probes(build):
-    """Start one nvcc for each of K1's probe builds (into build/probes);
-    returns {name: (process, library path)}."""
+def start_probes(build):
+    """Start one nvcc for each of K1's and K4's probe builds (into
+    build/probes); returns {name: (process, library path)}."""
     out = os.path.join(ROOT, "build", "probes")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name, defines in K1_PROBES.items():
-        path = os.path.join(out, f"gdn_tc_{name}.so")
+    builds = ([(name, K1_PROBE_SOURCE, d) for name, d in K1_PROBES.items()]
+              + [(name, K4_PROBE_SOURCE, d) for name, d in K4_PROBES.items()])
+    for name, source, defines in builds:
+        path = os.path.join(out, f"{name}.so")
         cmd = ([build.cuda_tool()] + build.ARCH_FLAGS
                + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared"]
-               + defines + [K1_PROBE_SOURCE, "-o", path])
+               + defines + [source, "-o", path])
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        path)
     return procs
 
 
-def finish_k1_probes(build, procs):
+def finish_probes(build, procs):
     """Wait for every probe build; returns {name: loaded library}."""
     outs = {name: (p.communicate()[0], p.returncode, path)
             for name, (p, path) in procs.items()}
     libs = {}
     for name, (out, rc, path) in outs.items():
-        check(rc == 0, f"K1 probe build {name} failed:\n{out}")
+        check(rc == 0, f"probe build {name} failed:\n{out}")
         lib = ctypes.CDLL(path)
-        lib.cae_gdn_fwd.argtypes = build.SIGNATURES["cae_gdn_fwd"]
-        lib.cae_gdn_mma_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_void_p]
-        lib.cae_gdn_fwd_layout.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        if name in K4_PROBES:
+            lib.cae_conv_gdn_fwd.argtypes = build.SIGNATURES[
+                "cae_conv_gdn_fwd"]
+        else:
+            lib.cae_gdn_fwd.argtypes = build.SIGNATURES["cae_gdn_fwd"]
+            lib.cae_gdn_mma_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_void_p]
+            lib.cae_gdn_fwd_layout.argtypes = [ctypes.c_int,
+                                               ctypes.c_void_p]
         libs[name] = lib
     return libs
 
 
-def check_k1_sass(build):
-    """K1's instantiations in the built library's SASS (cuobjdump), each of
-    which must hold HMMA (tensor-core) instructions."""
+def check_tc_sass(build):
+    """K1's and K4's instantiations in the built library's SASS
+    (cuobjdump), each of which must hold HMMA (tensor-core) instructions."""
     lib = build.load_library()._name
     dump = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", lib],
                           capture_output=True, text=True, timeout=300)
     check(dump.returncode == 0, f"cuobjdump failed: {dump.stderr.strip()}")
-    counts = {}
+    counts = {"gdn_tc_kernel": {}, "conv_gdn_mma_kernel": {}}
     for part in dump.stdout.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        if "gdn_tc_kernel" in name:
-            counts[name] = sum(" HMMA." in line for line in part.splitlines())
-    log(f"K1 SASS: {len(counts)} instantiations, HMMA instructions "
-        f"{sorted(counts.values())}")
-    check(len(counts) == 5 and all(counts.values()),
-          f"K1 SASS lacks HMMA: {counts}")
+        for kind, found in counts.items():
+            if kind in name:
+                found[name] = sum(" HMMA." in line
+                                  for line in part.splitlines())
+    for kind, want in (("gdn_tc_kernel", 5), ("conv_gdn_mma_kernel", 6)):
+        found = counts[kind]
+        log(f"{kind} SASS: {len(found)} instantiations, HMMA instructions "
+            f"{sorted(found.values())}")
+        check(len(found) == want and all(found.values()),
+              f"{kind} SASS lacks HMMA: {found}")
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -289,29 +321,28 @@ def edge_geometries(torch, rng):
     log(f"gdn_fwd epilogue roots against sqrtf and 1.0f / s over every "
         f"positive float32 in range: {bad[0]} and {bad[1]} mismatches")
     check(bad == (0, 0), f"gdn_fwd epilogue roots: {bad} mismatches")
-    for shape, cout in (((2, 18, 14, 72), 40), ((1, 4, 6, 64), 128),
-                        ((1, 2, 2, 3), 5)):
+    # K4: ragged Cin and Cout, and Cout past one 128-channel block (the
+    # layout that passes y through device memory), both variants and types
+    for shape, cout in K4_EDGE_CASES:
         x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
         kernel = torch.from_numpy((rng.randn(3, 3, shape[3], cout) * 0.05)
                                   .astype(np.float32)).cuda()
         gamma, beta = params(cout)
-        got = conv_gdn_kernel.conv_gdn_cuda(x, kernel, gamma, beta)
-        ref = conv_gdn_kernel.conv_gdn_plain(x, kernel, gamma, beta)
-        err = float((got - ref).abs().max())
-        check(got.shape == ref.shape and err <= 1e-4 * float(
-            ref.abs().max()), f"conv_gdn_fwd {shape} -> {cout}: error {err}")
-    for shape, cout in (((1, 4, 4, 64), 129), ((1, 5, 4, 64), 64)):
-        x = torch.zeros(shape, device="cuda")
-        gamma, beta = params(cout)
-        try:
-            conv_gdn_kernel.conv_gdn_cuda(
-                x, torch.zeros((3, 3, 64, cout), device="cuda"), gamma, beta)
-        except ValueError:
-            continue
-        raise SmokeError(f"conv_gdn_fwd took {shape} -> {cout}")
+        for dt in (torch.float32, torch.bfloat16):
+            check_conv_case(torch, x.to(dt), kernel, gamma, beta,
+                            f"{shape} -> {cout} {str(dt)[6:]}")
+    x = torch.zeros((1, 5, 4, 64), device="cuda")
+    gamma, beta = params(64)
+    try:
+        conv_gdn_kernel.conv_gdn_cuda(
+            x, torch.zeros((3, 3, 64, 64), device="cuda"), gamma, beta)
+        raise SmokeError("conv_gdn_fwd took odd H")
+    except ValueError:
+        pass
     torch.cuda.synchronize()
     log("gdn_fwd and conv_gdn_fwd agree with their plain versions at ragged "
-        "shapes; conv_gdn_fwd refuses Cout > 128 and odd H")
+        "shapes, conv_gdn_fwd and conv_gdn_train_fwd up to Cout = 1024 in "
+        "float32 and bf16; conv_gdn_fwd refuses odd H")
 
 
 def k1_layout(c):
@@ -454,6 +485,117 @@ def k1_probe_times(torch, x, gamma, beta, ms):
         f"epilogue, barriers) about {t['no_io'] - 1.5 * two_low:.4f} ms")
 
 
+def k4_bound(x, cout, want_y):
+    """K4's bound at x's shape: its bytes (x, out in x's type, y in float32
+    where wanted, the parameters) against its operations at the card's rate
+    for their type: three TF32 passes for each float32 product, the bf16
+    conv's products at the bf16 rate, the pool (float32 y^2) in three TF32
+    passes in both types, and five float32 operations an output in the
+    epilogue.  Returns (bound ms, what bounds it, design ms): the last is
+    the operations as the design issues them (the bf16 conv in one TF32
+    pass), its ceiling."""
+    import torch
+    b, h, w, cin = x.shape
+    npix = b * (h // 2) * (w // 2)
+    size = x.element_size()
+    conv_ops = npix * 2 * 9 * cin * cout
+    pool_ops = npix * 2 * cout * cout
+    epilogue = (5 * npix * cout, PEAK_F32_S)
+    if x.dtype == torch.bfloat16:
+        conv, conv_tf32 = (conv_ops, PEAK_BF16_S), conv_ops
+    else:
+        conv, conv_tf32 = (3 * conv_ops, PEAK_TF32_S), 3 * conv_ops
+    nbytes = (size * (x.numel() + npix * cout) + 4 * npix * cout * want_y
+              + 4 * (9 * cin * cout + cout * (cout + 1)))
+    bms, by = bound_ms(nbytes, [conv, (3 * pool_ops, PEAK_TF32_S), epilogue])
+    design_ms = ((conv_tf32 + 3 * pool_ops) / PEAK_TF32_S
+                 + epilogue[0] / PEAK_F32_S) * 1e3
+    return bms, by, design_ms
+
+
+def k4_probe_times(torch, x, kernel, gamma, beta, ms):
+    """K4's serving time split by its probes at x's shape (float32): one
+    TF32 pass for the conv, and both pass counts without the copies into
+    the ring, beside a device copy of x and the three passes' time at the
+    mma.sync rate.  The one-pass build is also the control of K4's
+    accuracy limits: its out and y must fail the 1e-4 of max |out| and of
+    max |y| that the kernel holds."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import build
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    b, h, w, cin = x.shape
+    cout = kernel.shape[3]
+    kernel, gamma, beta = (t.detach().float().contiguous()
+                           for t in (kernel, gamma, beta))
+    npix = b * (h // 2) * (w // 2)
+    work = torch.empty(build.load_library().cae_conv_gdn_workspace(
+        npix, cin, cout, 0, 1), dtype=torch.uint8, device="cuda")
+    out = torch.empty((b, h // 2, w // 2, cout), device="cuda")
+    y = torch.empty_like(out)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name, y_ptr=None):
+        build.check_launch(PROBES[name].cae_conv_gdn_fwd(
+            x.data_ptr(), kernel.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), out.data_ptr(), y_ptr, work.data_ptr(), b, h, w,
+            cin, cout, 0, stream), name)
+
+    run("k4_one_pass", y.data_ptr())
+    out_p, y_p = cg.conv_gdn_train_plain(x, kernel, gamma, beta)
+    torch.cuda.synchronize()
+    ok_o, o_err = close(out, out_p, 0.0, 1e-4)
+    ok_y, y_err = close(y, y_p, 0.0, 1e-4)
+    log(f"conv_gdn_fwd {tuple(x.shape)} one-pass control: out max abs "
+        f"{o_err:.3e} (limit {1e-4 * float(out_p.abs().max()):.3e}), y max "
+        f"abs {y_err:.3e} (limit {1e-4 * float(y_p.abs().max()):.3e})")
+    check(not ok_o and not ok_y, "conv_gdn_fwd: the one-pass control passes "
+          "K4's limits, which then cannot tell three passes from one")
+    del out_p, y_p, y
+    t = {name: cuda_ms(torch, lambda: run(name), 10) for name in K4_PROBES}
+    copy_ms = cuda_ms(torch, lambda: torch.empty_like(x).copy_(x), 10)
+    passes = 3 * npix * 2 * cout * (9 * cin + cout)
+    two_low = t["k4_no_io"] - t["k4_no_io_one_pass"]
+    log(f"conv_gdn_fwd {tuple(x.shape)} probes: kernel {ms:.4f} ms, one "
+        f"pass {t['k4_one_pass']:.4f} ms; without copies into the ring "
+        f"{t['k4_no_io']:.4f} ms (three passes), "
+        f"{t['k4_no_io_one_pass']:.4f} ms (one pass); a device copy of x "
+        f"{copy_ms:.4f} ms; without copies or fragment loads (operands in "
+        f"registers) {t['k4_no_io_no_lds']:.4f} ms; the three passes at the "
+        f"mma.sync rate {passes / mma_tf32_tflops(torch) / 1e9:.4f} ms. "
+        "In the SM: "
+        f"the conv's two low passes and x's split {two_low:.4f} ms, the "
+        f"fragment loads and splits "
+        f"{t['k4_no_io'] - t['k4_no_io_no_lds']:.4f} ms; the copies' share "
+        f"{ms - t['k4_no_io']:.4f} ms")
+
+
+def k4_wide_time(torch, rng):
+    """K4's serving variant at a Cout past one 128-channel block, (8, 128,
+    128, 192) -> 192 float32 (y passes through device memory), against its
+    plain version, timed."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    cin = cout = 192
+    x = torch.from_numpy(rng.rand(8, 128, 128, cin).astype(np.float32)).cuda()
+    kernel = torch.from_numpy((rng.randn(3, 3, cin, cout) * 0.03)
+                              .astype(np.float32)).cuda()
+    gamma = torch.from_numpy((0.01 * rng.rand(cout, cout))
+                             .astype(np.float32)).cuda()
+    beta = torch.from_numpy((1.0 + rng.rand(cout)).astype(np.float32)).cuda()
+    got = cg.conv_gdn_cuda(x, kernel, gamma, beta)
+    ref = cg.conv_gdn_plain(x, kernel, gamma, beta)
+    torch.cuda.synchronize()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(err <= 1e-4 * scale, f"conv_gdn_fwd {tuple(x.shape)} -> {cout}: "
+          f"error {err:.3e} above 1e-4 max|out|")
+    ms = cuda_ms(torch, lambda: cg.conv_gdn_cuda(x, kernel, gamma, beta), 10)
+    plain_ms = cuda_ms(torch, lambda: cg.conv_gdn_plain(
+        x, kernel, gamma, beta), 5)
+    bms, by, _ = k4_bound(x, cout, want_y=False)
+    log(f"conv_gdn_fwd {tuple(x.shape)} -> {cout} float32: max abs "
+        f"{err:.3e} (max|out| {scale:.3e}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{100 * bms / ms:.1f}% of it")
+
+
 def phase_kernels(torch, model, core, tiles):
     """Every kernel against its plain version at the serving path's shapes;
     returns {name: record}."""
@@ -493,15 +635,16 @@ def phase_kernels(torch, model, core, tiles):
             x, kernel, gamma, beta), 10)
         plain_ms = cuda_ms(torch, lambda: conv_gdn_kernel.conv_gdn_plain(
             x, kernel, gamma, beta), 5)
-        npix = b * (h // 4) * (w // 4)
-        bms, by = bound_ms(
-            4 * (x.numel() + kernel.numel() + cout * (cout + 1)
-                 + npix * cout),
-            npix * (2 * 9 * cin * cout + cout * (2 * cout + 5)), PEAK_F32_S)
+        bms, by, _ = k4_bound(x, cout, want_y=False)
+        log(f"conv_gdn_fwd {tuple(x.shape)} -> {cout} float32: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}), {100 * bms / ms:.1f}% of it")
         out["conv_gdn_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                    bound_ms=bms, bound_by=by,
                                    shape=list(x.shape))
+        k4_probe_times(torch, x, kernel, gamma, beta, ms)
         del x, got, ref
+        k4_wide_time(torch, rng)
 
     # K6 / K5: rANS on symbols drawn from the flagship tables at the serving
     # geometry (latent 64x64x48, S = 1024: T = 192), then a peaked table
@@ -604,9 +747,13 @@ def phase_kernels(torch, model, core, tiles):
 # -- phase 3 -----------------------------------------------------------------
 
 
-def plain_reconstruct(torch, model, core, tiles_u8):
+def plain_reconstruct(torch, model, core, tiles_u8, symbols):
     """The serving round trip through the plain versions only, on the card:
-    (symbols (B, C, lh, lw), u8 reconstruction (B, H, W, 3))."""
+    (symbols (B, C, lh, lw), u8 reconstruction (B, H, W, 3)).  The plain
+    rANS round trip runs on the plain encoder's own symbols; the plain
+    decoder synthesizes ``symbols`` (the kernels' path's), so the two
+    reconstructions come from the same quantized latent, as
+    tests/test_rd_parity.py compares them."""
     from cnn_autoencoder_tpu_torch.coding.device_rans import (
         pack_streams, unpack_streams)
     from cnn_autoencoder_tpu_torch.ops.kernels.conv_gdn_kernel import \
@@ -649,7 +796,7 @@ def plain_reconstruct(torch, model, core, tiles_u8):
         dec = unpack_streams(vals + tab.offset[cmap.long()][None],
                              c * lh * lw).reshape(sym.shape)
         check(torch.equal(dec, sym), "plain rANS round trip lost symbols")
-        y = dec.permute(0, 2, 3, 1).float() + core._med
+        y = symbols.permute(0, 2, 3, 1).float() + core._med
         for name in model.decoder.names:
             unit = getattr(model.decoder, name)
             y = unit.deconv_up(y)
@@ -705,12 +852,13 @@ def phase_end_to_end(torch, model, core, tiles):
         f"MP/s ({(t1 - t0) * 1e3:.1f} ms), decode {mpix / (t2 - t1):.3f} "
         f"MP/s ({(t2 - t1) * 1e3:.1f} ms)")
 
-    sym_p, rec_p = plain_reconstruct(torch, model, core, imgs)
+    sym_p, rec_p = plain_reconstruct(torch, model, core, imgs, sym_enc)
     flips = float((sym_p != sym_enc).float().mean())
     diff = np.abs(rec_p.astype(np.int32) - rec)
     frac = float(np.mean(diff != 0))
-    log(f"plain versions on the card: symbol flips {flips:.3e}, u8 pixels "
-        f"differing {frac:.3e}, max difference {int(diff.max())}")
+    log(f"plain versions on the card: symbol flips {flips:.3e}; from the "
+        f"same symbols, u8 pixels differing {frac:.3e}, max difference "
+        f"{int(diff.max())}")
     check(flips <= 1e-4, f"symbol flips {flips:.3e} > 1e-4")
     check(frac < 5e-3 and int(diff.max()) <= 1,
           "plain and kernel reconstructions differ beyond 0.5% / 1 level")
@@ -834,6 +982,23 @@ def check_conv_train_case(torch, x, kernel, gamma, beta, label):
     return o_err
 
 
+def check_conv_case(torch, x, kernel, gamma, beta, label):
+    """K4 in both variants at one geometry: the training variant by
+    check_conv_train_case, the serving variant against the plain version
+    to the same out tolerance and equal to the training variant's out."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    check_conv_train_case(torch, x, kernel, gamma, beta, label)
+    got = cg.conv_gdn_cuda(x, kernel, gamma, beta)
+    ref = cg.conv_gdn_plain(x, kernel, gamma, beta)
+    torch.cuda.synchronize()
+    ok, err = close(got, ref, 2.0 ** -7 if x.dtype == torch.bfloat16
+                    else 0.0, 1e-4)
+    check(ok and got.shape == ref.shape, f"conv_gdn_fwd {label}: out error "
+          f"{err:.3e}")
+    check(torch.equal(got, cg.conv_gdn_train_cuda(x, kernel, gamma, beta)[0]),
+          f"conv_gdn_fwd {label}: differs from the training variant's out")
+
+
 def phase_train_kernels(torch, model):
     """K2, K3 and K4's training variant against their plain versions at the
     training path's shapes and at ragged ones, then timed at the path's
@@ -938,27 +1103,18 @@ def phase_train_kernels(torch, model):
             core_ms=(2 * nc * c + 12 * nc) / PEAK_F32_S * 1e3)
         del xb, gb, rb
 
-        npix = b * (h // 4) ** 2
-        conv_ops = npix * 2 * 9 * cin * cout
-        gdn_ops = npix * cout * (2 * cout + 5)
-        param_bytes = 4 * (kernel.numel() + cout * (cout + 1))
         for dt, name in ((torch.bfloat16, "bf16"),
                          (torch.float32, "float32")):
             xt = x32.to(dt)
-            size = xt.element_size()
             ms = cuda_ms(torch, lambda: cg.conv_gdn_train_cuda(
                 xt, kernel, gamma, beta), 10)
             plain_ms = cuda_ms(torch, lambda: cg.conv_gdn_train_plain(
                 xt, kernel, gamma, beta), 5)
-            ops = ([(conv_ops, PEAK_BF16_S), (gdn_ops, PEAK_F32_S)]
-                   if dt == torch.bfloat16
-                   else [(conv_ops + gdn_ops, PEAK_F32_S)])
-            bms, by = bound_ms(size * (xt.numel() + npix * cout)
-                               + 4 * npix * cout + param_bytes, ops)
-            core_ms = (conv_ops + gdn_ops) / PEAK_F32_S * 1e3
+            bms, by, design_ms = k4_bound(xt, cout, want_y=True)
             log(f"conv_gdn_train_fwd {name} {tuple(xt.shape)}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-                f"({by}), CUDA-core ceiling {core_ms:.4f} ms")
+                f"({by}), {100 * bms / ms:.1f}% of it; design ceiling "
+                f"(its TF32 passes) {design_ms:.4f} ms")
             # the line's entry is the float32 mode, the default
             out["conv_gdn_train_fwd"] = dict(
                 max_abs_err=conv_err[dt], ms=ms, plain_ms=plain_ms,

@@ -13,8 +13,8 @@ later slices; asking for them raises.
 A downsampling unit with GDN, no bias, k=3 and at least 64 input channels
 runs the fused conv+GDN kernel when H and W are even (the JAX package's gate
 at ``models/autoencoder.py:73-77``); the other GDN stages run the
-convolution and the GDN kernel.  On the card the fused kernel takes at most
-``conv_gdn_kernel.MAX_COUT`` output channels and raises beyond that.
+convolution and the GDN kernel.  The fused kernel takes any number of
+channels.
 
 Training and serving run the same modules.  The compute type follows the
 input (float32, or bf16 activations end to end), and where a gradient is

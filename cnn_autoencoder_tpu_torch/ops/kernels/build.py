@@ -33,12 +33,15 @@ SIGNATURES = {
     "cae_gdn_root_check": [ctypes.c_uint32, _L, _P, _P],
     "cae_gdn_train_fwd": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "cae_gdn_train_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
-    "cae_conv_gdn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _P],
+    "cae_conv_gdn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _P],
+    "cae_conv_gdn_workspace": [_L, _I, _I, _I, _I],
     "cae_rans_encode": [_P, _P, _P, _P, _P, _I, _I, _P, _L, _P, _P, _I,
                         _I, _P],
     "cae_rans_decode": [_P, _I, _L, _P, _P, _P, _I, _I, _P],
 }
+# launchers that return something other than a cudaError_t (int)
+RESTYPES = {"cae_conv_gdn_workspace": ctypes.c_int64}
 
 _lib = None
 build_log = ""
@@ -130,7 +133,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
 

@@ -9,9 +9,13 @@ the JAX package's: NHWC input, HWIO kernel (3, 3, Cin, Cout),
 ``gamma``/``beta`` already reparameterized.  The compute type follows x:
 float32 x multiplies in float32, bf16 x multiplies bf16 values (the
 kernel's weights rounded to bf16); the sums, ``y`` and the GDN epilogue are
-float32 either way, and the output is stored in x's type.  The kernel takes
-even H and W and at most ``MAX_COUT`` output channels (a block holds a
-pixel's whole channel row for the GDN epilogue) and raises otherwise.
+float32 either way, and the output is stored in x's type.  The kernel
+computes on the tensor cores (three TF32 passes for a float32 product, one
+for a bf16 one) and takes any Cin and Cout; it takes even H and W and
+raises otherwise.  Each launch gets a scratch buffer of the size the
+kernel asks for (the weights split in TF32 parts, and where Cout > 128
+and ``y`` is not wanted, a row store for ``y`` between the conv and the
+pool).
 
 ``fused_conv_gdn`` is the differentiable entry (the JAX ``fused_conv_gdn``
 custom VJP): when a gradient is wanted it runs the training variant and
@@ -29,8 +33,6 @@ import torch.nn.functional as F
 from ...utils.device import full_f32
 from .build import check_launch, load_library, stream_handle
 from .gdn_kernel import gdn_plain
-
-MAX_COUT = 128
 
 
 def _reflect_conv_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -62,9 +64,6 @@ def conv_gdn_plain(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
 
 
 def _launch(x, kernel, gamma, beta, want_y):
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_gdn kernel takes CUDA tensors, got "
-                         f"{x.device}")
     if (x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4
             or not x.is_contiguous()):
         raise ValueError("conv_gdn kernel takes a contiguous float32 or bf16 "
@@ -76,29 +75,34 @@ def _launch(x, kernel, gamma, beta, want_y):
         raise ValueError(f"conv_gdn kernel takes a (3, 3, {cin}, Cout) "
                          f"kernel, got {tuple(kernel.shape)}")
     cout = kernel.shape[3]
-    if cout > MAX_COUT:
-        raise ValueError(f"conv_gdn kernel takes Cout <= {MAX_COUT}, "
-                         f"got {cout}")
     if gamma.shape != (cout, cout) or beta.shape != (cout,):
         raise ValueError("conv_gdn kernel: gamma/beta do not match Cout")
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_gdn kernel takes CUDA tensors, got "
+                         f"{x.device}")
     for name, t in (("kernel", kernel), ("gamma", gamma), ("beta", beta)):
         if t.device != x.device:
             raise ValueError(f"conv_gdn kernel: {name} is on {t.device}, "
                              f"x on {x.device}")
     kernel = kernel.detach().float().contiguous()
-    gamma_t = gamma.detach().float().t().contiguous()
+    gamma = gamma.detach().float().contiguous()
     beta = beta.detach().float().contiguous()
+    bf16 = int(x.dtype == torch.bfloat16)
     shape = (b, h // 2, w // 2, cout)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     y = (torch.empty(shape, dtype=torch.float32, device=x.device) if want_y
          else None)
     lib = load_library()
+    npix = b * (h // 2) * (w // 2)
+    work = torch.empty(
+        lib.cae_conv_gdn_workspace(npix, cin, cout, bf16, int(want_y)),
+        dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.cae_conv_gdn_fwd(
-            x.data_ptr(), kernel.data_ptr(), gamma_t.data_ptr(),
+            x.data_ptr(), kernel.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), out.data_ptr(),
-            None if y is None else y.data_ptr(), b, h, w, cin, cout,
-            int(x.dtype == torch.bfloat16), stream_handle(x))
+            None if y is None else y.data_ptr(), work.data_ptr(), b, h, w,
+            cin, cout, bf16, stream_handle(x))
     return err, out, y
 
 
