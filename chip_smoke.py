@@ -10,11 +10,12 @@ Phases, in order; any failure exits non-zero:
    (ptxas registers, spills and shared memory logged for every
    instantiation), and check in the built library's SASS that K1 and K4 multiply
    on the tensor cores (HMMA);
-   meanwhile build K1's and K4's probes (``csrc/probes``): K1 with one
-   TF32 pass, the control that must fail K1's accuracy check; K1 and K4
-   without their device-memory traffic, to time what the SM spends; K4
-   with one pass for its float32 conv and with every mma operand in
-   registers.
+   meanwhile build K1's, K4's and the rANS kernels' probes
+   (``csrc/probes``): K1 with one TF32 pass, the control that must fail
+   K1's accuracy check; K1 and K4 without their device-memory traffic, to
+   time what the SM spends; K4 with one pass for its float32 conv and with
+   every mma operand in registers; K5 and K6's state pass with clock64
+   marks around their serial loops.
 2. Serving kernels: each kernel's wrapper on card tensors at the shapes the
    serving path gives it (16 tiles of 512^2 through the flagship), held
    against its plain PyTorch version on the same inputs, then timed with
@@ -22,13 +23,22 @@ Phases, in order; any failure exits non-zero:
    rows, every shared-memory layout of its C range and a misaligned row
    pointer, its one-pass control, and its probes' times; K4 in both
    variants and both types at ragged Cin and Cout and at Cout 129 to
-   1024, its probes' times, and timed at (8, 128, 128, 192) -> 192.
+   1024, its probes' times, and timed at (8, 128, 128, 192) -> 192; K6
+   (state pass, compaction) and K5 bit-identical to their plain versions
+   at S = 1024, 100, 2048, 3000 and 65535, a peaked table, a 60x60
+   plane and 192 channels of 255 values (a table past the state pass's
+   shared memory),
+   with one state pass compacted at two capacities and whole and cut
+   queues, timed at each of these but the peaked table and the plane, and
+   their serial chain from the probe.
 3. Serving end to end: the flagship checkpoint through ``CAETurboCore``
    (the ``cae_tpu`` codec's batched core), ``encode_tiles`` then
    ``decode_tiles`` on 16 synthetic 512^2 tiles, with launch counts reset
-   just before and read just after; then the same tiles through the plain
-   versions on the card; then one tile through the ``cae_tpu`` codec
-   object; then the device time by operation of one more round trip
+   just before and read just after (one state pass, one compaction per
+   capacity tried); then the same tiles through the plain versions on the
+   card; then one tile through the ``cae_tpu`` codec object; then the
+   same tiles through a core of 2048 streams; then the device time by
+   operation and the host<->device copies of one more round trip
    (torch.profiler).
 4. Training kernels: K2, K3 and K4's training variant against their plain
    versions at the training path's shapes (batch 16 of 256^2 through the
@@ -78,6 +88,9 @@ PEAK_I32_S = PEAK_F32_S / 2
 # K1 against gdn_plain, max relative error: the three-pass kernel reads
 # about 1.2e-6 at most, one TF32 pass about 1e-5
 K1_REL_LIMIT = 3e-6
+# the rANS state pass stages its table (8 bytes an entry, 4 an offset) in
+# shared memory up to this size (kEncSmemMax, csrc/rans.cu)
+ENC_SMEM_MAX = 200 * 1024
 K1_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
                                "probes", "gdn_tc_probe.cu")
 # K1's probe builds and their defines (csrc/gdn_tc.cu)
@@ -92,6 +105,8 @@ K4_PROBES = {"k4_one_pass": ["-DCONV_GDN_PASSES=1"],
              "k4_no_io_one_pass": ["-DCONV_GDN_NO_IO=1",
                                    "-DCONV_GDN_PASSES=1"],
              "k4_no_io_no_lds": ["-DCONV_GDN_NO_IO=1", "-DCONV_GDN_NO_LDS=1"]}
+RANS_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
+                                 "probes", "rans_probe.cu")
 PROBES = {}  # probe name -> its loaded library (phase 1)
 # K4's edge geometries ((B, H, W, Cin), Cout): ragged Cin and Cout, Cin < 32,
 # and Cout past one 128-channel block up to 1024
@@ -109,7 +124,8 @@ REPLACES = {
     "conv_gdn_fwd": "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
     "conv_gdn_train_fwd":
         "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
-    "rans_encode": "cnn_autoencoder_tpu/ops/pallas/rans_kernel.py:319",
+    "rans_encode_states": "cnn_autoencoder_tpu/ops/pallas/rans_kernel.py:319",
+    "rans_compact": "cnn_autoencoder_tpu/ops/pallas/rans_kernel.py:319",
     "rans_decode": "cnn_autoencoder_tpu/ops/pallas/rans_kernel.py:119",
 }
 SOURCES = {
@@ -118,10 +134,12 @@ SOURCES = {
     "gdn_train_bwd": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
     "conv_gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
     "conv_gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
-    "rans_encode": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
+    "rans_encode_states": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
+    "rans_compact": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
     "rans_decode": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
 }
-SERVING_KERNELS = ("gdn_fwd", "conv_gdn_fwd", "rans_encode", "rans_decode")
+SERVING_KERNELS = ("gdn_fwd", "conv_gdn_fwd", "rans_encode_states",
+                   "rans_compact", "rans_decode")
 # launches per train step, by compute mode; every other kernel launches 0
 STEP_LAUNCHES = {
     "float32": {"gdn_fwd": 3, "conv_gdn_train_fwd": 1},
@@ -163,6 +181,24 @@ def cuda_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps):
+    """Mean device ms per call of the kernels ``fn`` launches, over ``reps``
+    calls after one warm-up (torch.profiler's kernel times): for kernels of
+    a few microseconds, CUDA events around the calls would time the
+    wrappers' host work instead."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(evt.self_device_time_total for evt in prof.key_averages()
+             if evt.device_type == torch.autograd.DeviceType.CUDA
+             and evt.key != "Activity Buffer Request")
+    return us / reps / 1e3
 
 
 def image(h, w, seed):
@@ -212,8 +248,8 @@ def phase_device(torch):
     finally:
         PROBES.update(finish_probes(build, probes))
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {build.build_seconds:.1f} s), K1's and K4's probes with "
-        "them")
+        f"(nvcc {build.build_seconds:.1f} s), K1's, K4's and the rANS "
+        "probes with them")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas " + line.strip())
@@ -221,13 +257,14 @@ def phase_device(torch):
 
 
 def start_probes(build):
-    """Start one nvcc for each of K1's and K4's probe builds (into
-    build/probes); returns {name: (process, library path)}."""
+    """Start one nvcc for each of K1's, K4's and the rANS kernels' probe
+    builds (into build/probes); returns {name: (process, library path)}."""
     out = os.path.join(ROOT, "build", "probes")
     os.makedirs(out, exist_ok=True)
     procs = {}
     builds = ([(name, K1_PROBE_SOURCE, d) for name, d in K1_PROBES.items()]
-              + [(name, K4_PROBE_SOURCE, d) for name, d in K4_PROBES.items()])
+              + [(name, K4_PROBE_SOURCE, d) for name, d in K4_PROBES.items()]
+              + [("rans_probe", RANS_PROBE_SOURCE, [])])
     for name, source, defines in builds:
         path = os.path.join(out, f"{name}.so")
         cmd = ([build.cuda_tool()] + build.ARCH_FLAGS
@@ -247,7 +284,13 @@ def finish_probes(build, procs):
     for name, (out, rc, path) in outs.items():
         check(rc == 0, f"probe build {name} failed:\n{out}")
         lib = ctypes.CDLL(path)
-        if name in K4_PROBES:
+        if name == "rans_probe":
+            for fn in ("cae_rans_encode_states", "cae_rans_decode"):
+                getattr(lib, fn).argtypes = build.SIGNATURES[fn]
+            lib.cae_rans_probe_read.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                                ctypes.c_int]
+            lib.cae_rans_probe_laps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        elif name in K4_PROBES:
             lib.cae_conv_gdn_fwd.argtypes = build.SIGNATURES[
                 "cae_conv_gdn_fwd"]
         else:
@@ -599,10 +642,7 @@ def k4_wide_time(torch, rng):
 def phase_kernels(torch, model, core, tiles):
     """Every kernel against its plain version at the serving path's shapes;
     returns {name: record}."""
-    from cnn_autoencoder_tpu_torch.coding.device_rans import (
-        DeviceTables, pack_streams, stream_channel_map)
-    from cnn_autoencoder_tpu_torch.ops.kernels import (conv_gdn_kernel,
-                                                       rans_kernel)
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     b, h, w = tiles, 512, 512
@@ -646,16 +686,36 @@ def phase_kernels(torch, model, core, tiles):
         del x, got, ref
         k4_wide_time(torch, rng)
 
-    # K6 / K5: rANS on symbols drawn from the flagship tables at the serving
-    # geometry (latent 64x64x48, S = 1024: T = 192), then a peaked table
-    # (freq > 2^11, states above 2^31) and a plane that is not a multiple
-    # of S (steps that span two channels)
+    out.update(rans_kernels(torch, core, b))
+    for name, rec in out.items():
+        log(f"{name} {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+    return out
+
+
+def rans_cases(torch, core, b, rng):
+    """(label, symbols (B, T, S), channel map (T, S), tables) of the rANS
+    checks, symbols drawn from each position's channel table: the serving
+    geometry (latent 64x64x48, S = 1024: T = 192, B tiles), a peaked table
+    (freq > 2^11, states above 2^31), a 60x60 plane (not a multiple of S:
+    steps that span two channels), 100 streams, and the serving latent at
+    more than 1024 streams: 2048, 3000 (not a multiple of 32; steps span
+    channels) and 65535 (the frame's largest S, 16 channels a step); and
+    192 channels of 255 values at S = 1024 (the state pass's unstaged
+    table)."""
+    from cnn_autoencoder_tpu_torch.coding.device_rans import (
+        DeviceTables, pack_streams, stream_channel_map)
+    dev = torch.device("cuda")
     tables = core.tables
     s = core.num_streams
-    cases = []
+
+    def drawn(cmap, batch, seed):
+        return torch.from_numpy(sample_symbols(tables, cmap, batch,
+                                               seed)).to(dev)
+
     ch_map = core._ch_map(64, 64, s)
-    sym = torch.from_numpy(sample_symbols(tables, ch_map, b, 1)).to(dev)
-    cases.append(("flagship 64x64", sym, ch_map, tables))
+    cases = [("flagship 64x64", drawn(ch_map, b, 1), ch_map, tables)]
     freq = torch.tensor([[3968, 64, 32, 32]], dtype=torch.int32)
     peaked = DeviceTables(
         freq=freq, start=torch.tensor([[0, 3968, 4032, 4064]],
@@ -671,77 +731,264 @@ def phase_kernels(torch, model, core, tiles):
     odd_map = core._ch_map(60, 60, s)
     n_odd = tables.freq.shape[0] * 60 * 60
     odd = sample_symbols(tables, odd_map, 4, 2).reshape(4, -1)[:, :n_odd]
-    odd_sym = pack_streams(torch.from_numpy(odd), s).to(dev)
     check(bool((odd_map != odd_map[:, :1]).any()),
           "the 60x60 geometry should have multi-channel steps")
-    cases.append(("plane 60x60 (not a multiple of S)", odd_sym, odd_map,
+    cases.append(("plane 60x60 (not a multiple of S)",
+                  pack_streams(torch.from_numpy(odd), s).to(dev), odd_map,
                   tables))
-
     s100_map = torch.from_numpy(stream_channel_map(48, (8, 8), 100)).to(dev)
-    cases.append(("100 streams", torch.from_numpy(sample_symbols(
-        tables, s100_map, 3, 3)).to(dev), s100_map, tables))
+    cases.append(("100 streams", drawn(s100_map, 3, 3), s100_map, tables))
+    for streams, batch in ((2048, 4), (3000, 4), (65535, 2)):
+        cmap = torch.from_numpy(stream_channel_map(48, (64, 64),
+                                                   streams)).to(dev)
+        cases.append((f"{streams} streams 64x64", drawn(cmap, batch, streams),
+                      cmap, tables))
+    # 192 channels (the factory's default channels_bn) whose tables reach
+    # 255 values: the flagship's tables four times over, widened from its
+    # support to 255 columns by an entry no symbol takes; past ENC_SMEM_MAX
+    # staged bytes, so the state pass reads its table from device memory
+    def widen(a, value):
+        a = a.repeat(4, 1)
+        return torch.cat([a, torch.full((a.shape[0], 255 - a.shape[1]),
+                                        value, dtype=a.dtype,
+                                        device=a.device)], dim=1)
 
+    wide = DeviceTables(
+        freq=widen(tables.freq, 1), start=widen(tables.start, 4095),
+        slot=tables.slot.repeat(4, 1), offset=tables.offset.repeat(4),
+        length=tables.length.repeat(4), support=255)
+    check(wide.freq.numel() * 8 + wide.offset.numel() * 4 > ENC_SMEM_MAX,
+          "the 192-channel table should exceed the state pass's staging")
+    cmap = torch.from_numpy(stream_channel_map(192, (64, 64), s)).to(dev)
+    cases.append(("192 channels 64x64", torch.from_numpy(sample_symbols(
+        wide, cmap, 2, 5)).to(dev), cmap, wide))
+    return cases
+
+
+def u16_equal(torch, a, b):
+    """Bit equality of two uint16 tensors (compared as int16)."""
+    return a.dtype == b.dtype == torch.uint16 and torch.equal(
+        a.view(torch.int16), b.view(torch.int16))
+
+
+def u16_prefix(torch, words, n, width=None):
+    """The first n words of each row, zero-padded to width (int16 views:
+    the copy kernels need no uint16 support)."""
+    rows = words.shape[0]
+    out = torch.zeros((rows, width or n), dtype=torch.int16,
+                      device=words.device)
+    out[:, :n] = words.view(torch.int16)[:, :n]
+    return out.view(torch.uint16)
+
+
+def check_rans_case(torch, label, sym, cmap, tab):
+    """K6's passes and K5 against their plain versions on one case: the
+    state pass's buffers, one state pass compacted at a short capacity, then again at the worst case
+    (the re-compaction an overflowing batch takes); the decode of the whole
+    queue, the whole queue padded to 128 words as the codec uploads it
+    (staged through K5's window), and queues cut short (reads clamp to the
+    last word), at an odd length and at a multiple of 8.  Returns the
+    worst-case words and totals."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import rans_kernel as rk
+    t, s = cmap.shape
+    args = (sym, cmap, tab.freq, tab.start, tab.offset)
+    state = rk.encode_states_cuda(*args)
+    plain = rk.rans_encode_states_plain(*args)
+    torch.cuda.synchronize()
+    check(u16_equal(torch, state.words, plain.words)
+          and all(torch.equal(getattr(state, k), getattr(plain, k))
+                  for k in ("flags", "final", "counts")),
+          f"rans_encode {label}: the state pass differs from the plain "
+          "version")
+    worst = 2 * s + t * s
+    for cap in (2 * s + 100, worst):
+        words, totals = rk.compact_cuda(state, cap)
+        words_p, totals_p = rk.rans_compact_plain(plain, cap)
+        torch.cuda.synchronize()
+        check(torch.equal(totals, totals_p), f"rans_encode {label} "
+              f"capacity {cap}: totals differ from the plain version")
+        check(u16_equal(torch, words, words_p), f"rans_encode {label} "
+              f"capacity {cap}: words differ from the plain version")
+    lut = rk.pack_dec_lut(tab.freq, tab.start, tab.slot)
+    keep = int(totals.min()) // 2
+    queues = [("whole", words),
+              ("padded", u16_prefix(torch, words, worst,
+                                    -(-worst // 128) * 128)),
+              (f"cut to {keep}", u16_prefix(torch, words, keep)),
+              (f"cut to {keep & ~7}", u16_prefix(torch, words, keep & ~7))]
+    for qlabel, q in queues:
+        vals = rk.decode_interleaved_cuda(q, cmap, lut, t)
+        vals_p = rk.rans_decode_plain(q, cmap, lut, t)
+        torch.cuda.synchronize()
+        check(torch.equal(vals, vals_p), f"rans_decode {label} {qlabel} "
+              "queue: differs from the plain version")
+        if qlabel in ("whole", "padded"):
+            check(torch.equal(vals + tab.offset[cmap.long()][None], sym),
+                  f"rans_decode {label}: does not give back the symbols")
+    log(f"rans {label}: {tuple(sym.shape)} {int(totals.sum())} words; "
+        "encode (one state pass, compacted at two capacities) and decode "
+        "(whole, padded and cut queues) bit-identical to the plain versions")
+    return words, totals
+
+
+def rans_kernels(torch, core, b):
+    """K6 (state pass and compaction) and K5 against their plain versions
+    on every case of rans_cases, timed on each but the peaked table and
+    the plane, with their bounds and (at the serving geometry) the probe's
+    serial-chain figure; returns {name: record} for the serving
+    geometry."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import rans_kernel as rk
+    cases = rans_cases(torch, core, b, np.random.RandomState(4))
+    out = {}
     for label, sym, cmap, tab in cases:
-        t, s_c = cmap.shape
-        lut = rans_kernel.pack_dec_lut(tab.freq, tab.start, tab.slot)
-        for cap in (2 * s_c + t * s_c, 2 * s_c + 100):
-            words, totals = rans_kernel.encode_interleaved_cuda(
-                sym, cmap, tab.freq, tab.start, tab.offset, cap)
-            words_p, totals_p = rans_kernel.rans_encode_plain(
-                sym, cmap, tab.freq, tab.start, tab.offset, cap)
-            torch.cuda.synchronize()
-            check(torch.equal(totals, totals_p), f"rans_encode {label} "
-                  f"capacity {cap}: totals differ from the plain version")
-            check(torch.equal(words, words_p), f"rans_encode {label} "
-                  f"capacity {cap}: words differ from the plain version")
-        words, totals = rans_kernel.encode_interleaved_cuda(
-            sym, cmap, tab.freq, tab.start, tab.offset, 2 * s_c + t * s_c)
-        # whole queues, and queues cut short (reads clamp to the last word)
-        for q in (words, words[:, :int(totals.min()) // 2].contiguous()):
-            vals = rans_kernel.decode_interleaved_cuda(q, cmap, lut, t)
-            vals_p = rans_kernel.rans_decode_plain(q, cmap, lut, t)
-            torch.cuda.synchronize()
-            check(torch.equal(vals, vals_p), f"rans_decode {label} queue "
-                  f"{q.shape[1]}: differs from the plain version")
-            if q is words:
-                check(torch.equal(vals + tab.offset[cmap.long()][None], sym),
-                      f"rans_decode {label}: does not give back the symbols")
-        log(f"rans {label}: {tuple(sym.shape)} {int(totals.sum())} words, "
-            "encode (full and short capacity) and decode (whole and cut "
-            "queues) bit-identical to the plain versions")
-
-    label, sym, cmap, tab = cases[0]
-    t = cmap.shape[0]
-    cap = 2 * s + t * s
-    words, totals = rans_kernel.encode_interleaved_cuda(
-        sym, cmap, tab.freq, tab.start, tab.offset, cap)
-    lut = rans_kernel.pack_dec_lut(tab.freq, tab.start, tab.slot)
-    n_words = int(totals.sum())
-    enc_ms = cuda_ms(torch, lambda: rans_kernel.encode_interleaved_cuda(
-        sym, cmap, tab.freq, tab.start, tab.offset, cap), 20)
-    enc_plain = cuda_ms(torch, lambda: rans_kernel.rans_encode_plain(
-        sym, cmap, tab.freq, tab.start, tab.offset, cap), 3)
-    table_bytes = 4 * (2 * tab.freq.numel() + tab.offset.numel())
-    # about a dozen integer operations per symbol and step
-    bms, by = bound_ms(4 * (sym.numel() + cmap.numel() + n_words + b)
-                       + table_bytes, 12 * sym.numel(), PEAK_I32_S)
-    out["rans_encode"] = dict(max_abs_err=0.0, ms=enc_ms, plain_ms=enc_plain,
-                              bound_ms=bms, bound_by=by,
-                              shape=list(sym.shape))
-    dec_ms = cuda_ms(torch, lambda: rans_kernel.decode_interleaved_cuda(
-        words, cmap, lut, t), 20)
-    dec_plain = cuda_ms(torch, lambda: rans_kernel.rans_decode_plain(
-        words, cmap, lut, t), 3)
-    bms, by = bound_ms(4 * (n_words + cmap.numel() + lut.numel()
-                            + sym.numel()), 12 * sym.numel(), PEAK_I32_S)
-    out["rans_decode"] = dict(max_abs_err=0.0, ms=dec_ms, plain_ms=dec_plain,
-                              bound_ms=bms, bound_by=by,
-                              shape=list(sym.shape))
-    for name, rec in out.items():
-        log(f"{name} {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']})")
+        words, totals = check_rans_case(torch, label, sym, cmap, tab)
+        if label.startswith("peaked") or label.startswith("plane"):
+            continue
+        t, s = cmap.shape
+        bsz = sym.shape[0]
+        args = (sym, cmap, tab.freq, tab.start, tab.offset)
+        # the capacity the codec's last compaction of this batch takes
+        cap = int(totals.max())
+        state = rk.encode_states_cuda(*args)
+        queue = u16_prefix(torch, words, cap, -(-cap // 128) * 128)
+        lut = rk.pack_dec_lut(tab.freq, tab.start, tab.slot)
+        st_ms = device_ms(torch, lambda: rk.encode_states_cuda(*args), 20)
+        cp_ms = device_ms(torch, lambda: rk.compact_cuda(state, cap), 20)
+        k6_ms = st_ms + cp_ms
+        dec_ms = device_ms(torch, lambda: rk.decode_interleaved_cuda(
+            queue, cmap, lut, t), 20)
+        # the same calls with their wrappers' host work (CUDA events)
+        k6_wall = cuda_ms(torch, lambda: rk.compact_cuda(
+            rk.encode_states_cuda(*args), cap), 20)
+        dec_wall = cuda_ms(torch, lambda: rk.decode_interleaved_cuda(
+            queue, cmap, lut, t), 20)
+        n_words = int(totals.sum())
+        # K6 as one function: symbols, map and tables in, words and
+        # totals out; about a dozen integer operations per symbol.  The
+        # scratch between its two passes is the design's, not the
+        # function's: the passes share this one bound, the state pass the
+        # inputs' part, the compaction the outputs'.
+        k6_in = (4 * (sym.numel() + cmap.numel() + tab.offset.numel())
+                 + 8 * tab.freq.numel())
+        k6_out = 2 * n_words + 4 * bsz
+        k6_bms, k6_by = bound_ms(k6_in + k6_out, 12 * sym.numel(),
+                                 PEAK_I32_S)
+        dec_bms, dec_by = bound_ms(2 * n_words + 4 * (cmap.numel()
+                                                      + lut.numel()
+                                                      + sym.numel()),
+                                   12 * sym.numel(), PEAK_I32_S)
+        log(f"rans {label} {tuple(sym.shape)}, device time: state pass "
+            f"{st_ms:.4f} ms, compaction {cp_ms:.4f} ms (capacity {cap}), "
+            f"both {k6_ms:.4f} ms against K6's bound {k6_bms:.4f} ms "
+            f"({k6_by}); decode {dec_ms:.4f} ms against {dec_bms:.4f} ms "
+            f"({dec_by}); with the wrappers' host work (CUDA events) "
+            f"{k6_wall:.4f} and {dec_wall:.4f} ms")
+        if label != "flagship 64x64":
+            continue
+        st_plain = cuda_ms(torch, lambda: rk.rans_encode_states_plain(
+            *args), 3)
+        plain_state = rk.rans_encode_states_plain(*args)
+        cp_plain = cuda_ms(torch, lambda: rk.rans_compact_plain(
+            plain_state, cap), 3)
+        dec_plain = cuda_ms(torch, lambda: rk.rans_decode_plain(
+            queue, cmap, lut, t), 3)
+        st_bms = k6_bms * k6_in / (k6_in + k6_out)
+        cp_bms = k6_bms * k6_out / (k6_in + k6_out)
+        shape = list(sym.shape)
+        out["rans_encode_states"] = dict(
+            max_abs_err=0.0, ms=st_ms, plain_ms=st_plain, bound_ms=st_bms,
+            bound_by=k6_by, shape=shape)
+        out["rans_compact"] = dict(
+            max_abs_err=0.0, ms=cp_ms, plain_ms=cp_plain, bound_ms=cp_bms,
+            bound_by=k6_by, shape=shape)
+        out["rans_decode"] = dict(
+            max_abs_err=0.0, ms=dec_ms, plain_ms=dec_plain,
+            bound_ms=dec_bms, bound_by=dec_by, shape=shape)
+        log(f"K6 at {tuple(sym.shape)}: both passes {k6_ms:.4f} ms, bound "
+            f"{k6_bms:.4f} ms; K5 {dec_ms:.4f} ms, bound {dec_bms:.4f} ms")
+        rans_chain_probe(torch, sym, cmap, tab, queue, k6_ms, dec_ms,
+                         k6_bms, dec_bms)
     return out
+
+
+def rans_chain_probe(torch, sym, cmap, tab, queue, k6_ms, dec_ms, k6_bms,
+                     dec_bms):
+    """The serial chain of K6's state pass and of K5 from their probe build
+    (csrc/probes/rans_probe.cu: thread 0 of each block reads clock64 and
+    the nanosecond timer around its loop): cycles a step in the kernel at
+    the serving geometry, and with one warp of 32 streams on one tile (the
+    step's dependent chain alone, nothing else on its SM); the chain
+    figure is the latter's T steps at the clock read beside it."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import build
+    from cnn_autoencoder_tpu_torch.ops.kernels import rans_kernel as rk
+    lib = PROBES["rans_probe"]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def read(which, blocks, steps):
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (4 * blocks))()
+        build.check_launch(lib.cae_rans_probe_read(
+            which, ctypes.addressof(buf), blocks), "rans probe read")
+        rec = np.ctypeslib.as_array(buf).astype(np.float64).reshape(
+            blocks, 4)
+        cycles, ns = rec[:, 1] - rec[:, 0], rec[:, 3] - rec[:, 2]
+        return float(cycles.mean() / steps), float(cycles.sum() / ns.sum())
+
+    def probe(sym, cmap, q):
+        b, t, s = sym.shape
+        st = rk.encode_states_cuda(sym, cmap, tab.freq, tab.start,
+                                   tab.offset)
+        lut = rk.pack_dec_lut(tab.freq, tab.start, tab.slot)
+        vals = torch.empty((b, t, s), dtype=torch.int32, device="cuda")
+        scratch = torch.empty((b, s), dtype=torch.int32, device="cuda")
+        blocks = b * -(-(-(-s // 32) * 32) // 256)
+        for _ in range(2):  # the second launch is read
+            build.check_launch(lib.cae_rans_encode_states(
+                sym.data_ptr(), cmap.data_ptr(), tab.freq.data_ptr(),
+                tab.start.data_ptr(), tab.offset.data_ptr(),
+                tab.freq.shape[0], tab.freq.shape[1], b, t, s,
+                st.words.data_ptr(), st.flags.data_ptr(),
+                st.final.data_ptr(), st.counts.data_ptr(), stream),
+                "rans probe state pass")
+        enc = read(0, blocks, t)
+        for _ in range(2):
+            build.check_launch(lib.cae_rans_decode(
+                q.data_ptr(), b, q.shape[1], cmap.data_ptr(),
+                lut.data_ptr(), lut.shape[0], vals.data_ptr(),
+                scratch.data_ptr(), t, s, stream), "rans probe decode")
+        dec = read(1, b, t)
+        laps = (ctypes.c_ulonglong * (4 * b))()
+        build.check_launch(lib.cae_rans_probe_laps(ctypes.addressof(laps), b),
+                           "rans probe laps")
+        laps = np.ctypeslib.as_array(laps).astype(np.float64).reshape(b, 4)
+        check(torch.equal(vals, rk.decode_interleaved_cuda(q, cmap, lut, t)),
+              "rans probe build: decode differs from the library's")
+        return enc, dec, laps.mean(axis=0) / t
+
+    t = cmap.shape[0]
+    (enc_step, enc_ghz), (dec_step, dec_ghz), laps = probe(sym, cmap, queue)
+    one_sym = sym[:1, :, :32].contiguous()
+    one_map = cmap[:, :32].contiguous()
+    one_words, one_tot = rk.compact_cuda(rk.encode_states_cuda(
+        one_sym, one_map, tab.freq, tab.start, tab.offset), 64 + t * 32)
+    (enc_chain, enc_ghz1), (dec_chain, dec_ghz1), _ = probe(
+        one_sym, one_map, u16_prefix(torch, one_words, 64 + t * 32,
+                                     -(-(64 + t * 32) // 128) * 128))
+    for name, step, ghz, chain, ghz1, ms, bms in (
+            ("rans_encode_states", enc_step, enc_ghz, enc_chain, enc_ghz1,
+             k6_ms, k6_bms),
+            ("rans_decode", dec_step, dec_ghz, dec_chain, dec_ghz1, dec_ms,
+             dec_bms)):
+        log(f"{name} probe {tuple(sym.shape)}: {step:.1f} cycles a step in "
+            f"the kernel ({step * t / ghz / 1e6:.4f} ms over {t} steps at "
+            f"{ghz:.3f} GHz); one warp alone {chain:.1f} cycles a step, so "
+            f"the serial chain of {t} steps takes "
+            f"{chain * t / ghz1 / 1e6:.4f} ms at {ghz1:.3f} GHz; kernel "
+            f"{ms:.4f} ms (K6: both passes), byte bound {bms:.4f} ms")
+    log(f"rans_decode probe {tuple(sym.shape)}: a step's cycles by part "
+        f"(thread 0 of each block, mean): the states' decode {laps[0]:.1f}, "
+        f"the wait for copies and the barrier {laps[1]:.1f}, the counts of "
+        f"the warps before {laps[2]:.1f}, the refills {laps[3]:.1f}")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -820,6 +1067,7 @@ def phase_end_to_end(torch, model, core, tiles):
     # warm-up pass (cuDNN plans, allocator), then the counted, timed pass
     core.decode_tiles(core.encode_tiles(imgs))
     torch.cuda.synchronize()
+    retries = core.capacity_retries
     reset_launch_counts()
     t0 = time.perf_counter()
     frames = core.encode_tiles(imgs)
@@ -829,10 +1077,17 @@ def phase_end_to_end(torch, model, core, tiles):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
-    log(f"serving path launches: {launches}")
+    retries = core.capacity_retries - retries
+    log(f"serving path launches: {launches}; {retries} capacity retries: "
+        f"{launches['rans_encode_states']} state pass and "
+        f"{launches['rans_compact']} compactions in the round trip")
     for name, n in launches.items():
         check((n > 0) == (name in SERVING_KERNELS),
               f"kernel {name}: {n} launches on the serving path")
+    check(launches["rans_encode_states"] == 1
+          and launches["rans_compact"] == 1 + retries,
+          "the encode should run one state pass and one compaction per "
+          "capacity tried")
 
     check(len(frames) == tiles and all(is_turbo_frame(f) for f in frames),
           "not every frame is a turbo frame")
@@ -872,14 +1127,47 @@ def phase_end_to_end(torch, model, core, tiles):
     diff = np.abs(codec.decode(buf).astype(np.int32) - rec[0])
     check(np.mean(diff != 0) < 5e-3 and int(diff.max()) <= 1,
           "codec.decode differs from decode_tiles beyond 0.5% / 1 level")
+    round_trip_2048(torch, model, imgs, sym_enc, rec)
     profile_device(torch, lambda: core.decode_tiles(core.encode_tiles(imgs)),
-                   "one more round trip")
+                   "one more round trip", copies=True)
     return launches
 
 
-def profile_device(torch, fn, label):
+def round_trip_2048(torch, model, imgs, sym_enc, rec):
+    """The same tiles through a CAETurboCore of 2048 streams (above the
+    1024 the earlier rANS kernels took): symbols lossless, the
+    reconstruction that of the 1024-stream core within the u8 tolerance."""
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
+    core = CAETurboCore(model, num_streams=2048, device="cuda")
+    core.decode_tiles(core.encode_tiles(imgs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = core.encode_tiles(imgs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rec2 = core.decode_tiles(frames)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.no_grad():
+        sym_dec = core.symbols_from_frames(frames, 2048, 512, 512)
+    check(torch.equal(sym_dec, sym_enc), "2048 streams: decoded symbols "
+          "differ from the encoded ones")
+    diff = np.abs(rec2.astype(np.int32) - rec)
+    check(np.mean(diff != 0) < 5e-3 and int(diff.max()) <= 1,
+          "2048 streams: reconstruction differs from 1024 streams'")
+    mpix = imgs.shape[0] * 512 * 512 / 1e6
+    bpp = 8.0 * sum(len(f) for f in frames) / (imgs.shape[0] * 512 * 512)
+    log(f"end to end at 2048 streams: symbols lossless, {bpp:.4f} bpp, "
+        f"{core.capacity_retries} capacity retries over two round trips; "
+        f"encode {mpix / (t1 - t0):.3f} MP/s ({(t1 - t0) * 1e3:.1f} ms), "
+        f"decode {mpix / (t2 - t1):.3f} MP/s ({(t2 - t1) * 1e3:.1f} ms)")
+
+
+def profile_device(torch, fn, label, copies=False):
     """Device time by operation over one more call of ``fn``, and the share
-    of the wall time the device was busy; returns the busy seconds."""
+    of the wall time the device was busy; with ``copies``, the host<->device
+    copies' time, count and bytes from the trace.  Returns the busy
+    seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -902,7 +1190,32 @@ def profile_device(torch, fn, label):
         f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%)")
     for us, count, key in rows[:15]:
         log(f"  {us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
+    if copies:
+        copy_rows(prof)
     return busy
+
+
+def copy_rows(prof):
+    """Host<->device copies of a profile, from its trace (the bytes are
+    only there): ms, count and bytes by direction."""
+    path = os.path.join(ROOT, "build", "profile_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    rows = {}
+    for evt in events:
+        name = evt.get("name", "")
+        if evt.get("cat") != "gpu_memcpy" or ("HtoD" not in name
+                                               and "DtoH" not in name):
+            continue
+        row = rows.setdefault(name, [0.0, 0, 0])
+        row[0] += evt.get("dur", 0.0) / 1e3
+        row[1] += 1
+        row[2] += int(evt.get("args", {}).get("bytes", 0))
+    for name, (ms, count, nbytes) in sorted(rows.items()):
+        log(f"  copies {name}: {ms:.3f} ms, {count}x, {nbytes} bytes")
 
 
 # -- phase 4 -----------------------------------------------------------------

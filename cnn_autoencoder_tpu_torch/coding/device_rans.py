@@ -7,10 +7,12 @@ streams share one queue per tile in decode order.  Escapes (symbols outside
 a channel's table) are not coded: callers count them and refuse the batch.
 
 ``encode_interleaved`` / ``decode_interleaved`` keep the contract of the JAX
-package's ``encode_device_interleaved`` / ``decode_device_interleaved``;
-they run the kernels of ``ops/kernels/rans_kernel.py`` on CUDA tensors and
-the plain versions there on CPU tensors.  The legacy per-stream layout
-(frame v3) is not ported.
+package's ``encode_device_interleaved`` / ``decode_device_interleaved``
+(uint16 words and queues); they run the kernels of
+``ops/kernels/rans_kernel.py`` on CUDA tensors and the plain versions there
+on CPU tensors.  ``encode_states`` and ``rans_compact`` are the encode's
+two passes, for callers that may compact one state pass at several
+capacities.  The legacy per-stream layout (frame v3) is not ported.
 """
 
 from typing import Dict, NamedTuple, Sequence, Tuple
@@ -18,8 +20,9 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.kernels.rans_kernel import (PRECISION, PROB_SCALE, pack_dec_lut,
-                                       rans_decode, rans_encode)
+from ..ops.kernels.rans_kernel import (PRECISION, PROB_SCALE, EncodeState,
+                                       pack_dec_lut, rans_compact,
+                                       rans_decode, rans_encode_states)
 from .cdf import pmf_to_quantized_cdf
 
 
@@ -156,19 +159,26 @@ def unpack_streams(sym_ts: torch.Tensor, n: int) -> torch.Tensor:
     return sym_ts.reshape(sym_ts.shape[0], -1)[:, :n]
 
 
+def encode_states(symbols: torch.Tensor, channel_map: torch.Tensor,
+                  tables: DeviceTables) -> EncodeState:
+    """The encode's state pass over (B, T, S) int32 symbols."""
+    return rans_encode_states(symbols.contiguous(), channel_map, tables.freq,
+                              tables.start, tables.offset)
+
+
 def encode_interleaved(symbols: torch.Tensor, channel_map: torch.Tensor,
                        tables: DeviceTables, capacity: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Encode (B, T, S) int32 symbols -> ((B, capacity) int32 words in
-    decode order, (B,) total words).  The caller checks escapes and
+    """Encode (B, T, S) int32 symbols -> ((B, capacity) uint16 words in
+    decode order, (B,) int32 total words).  The caller checks escapes and
     ``totals <= capacity``."""
-    return rans_encode(symbols.contiguous(), channel_map, tables.freq,
-                       tables.start, tables.offset, capacity)
+    return rans_compact(encode_states(symbols, channel_map, tables),
+                        capacity)
 
 
 def decode_interleaved(queues: torch.Tensor, channel_map: torch.Tensor,
                        tables: DeviceTables, num_steps: int) -> torch.Tensor:
-    """Decode (B, Q) int32 word queues -> (B, T, S) int32 symbols.  Reads
+    """Decode (B, Q) uint16 word queues -> (B, T, S) int32 symbols.  Reads
     past a (corrupt or truncated) queue's end take its last word: garbage
     out, no out-of-bounds read."""
     lut = pack_dec_lut(tables.freq, tables.start, tables.slot)

@@ -162,23 +162,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-// Wait for the phase of parity `parity` of mbarrier bar to complete; a
-// copy that never lands traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  for (uint32_t tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == (1u << 22)) __trap();
-  }
-}
-
 // Bytes of the prep buffer: per 128-channel chunk, 9 ceil(Cin / 32) conv
 // slices (three-pass or, for bf16 x, one-pass entries), then, after every
 // chunk's conv slices, ceil(Cout / 32) pool slices per chunk.

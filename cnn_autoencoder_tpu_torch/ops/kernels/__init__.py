@@ -13,9 +13,10 @@ def kernel_wrappers():
     ``kernel_name``."""
     from .conv_gdn_kernel import conv_gdn_cuda, conv_gdn_train_cuda
     from .gdn_kernel import gdn_cuda, gdn_train_bwd_cuda, gdn_train_fwd_cuda
-    from .rans_kernel import decode_interleaved_cuda, encode_interleaved_cuda
+    from .rans_kernel import (compact_cuda, decode_interleaved_cuda,
+                              encode_states_cuda)
     return (gdn_cuda, gdn_train_fwd_cuda, gdn_train_bwd_cuda, conv_gdn_cuda,
-            conv_gdn_train_cuda, encode_interleaved_cuda,
+            conv_gdn_train_cuda, encode_states_cuda, compact_cuda,
             decode_interleaved_cuda)
 
 

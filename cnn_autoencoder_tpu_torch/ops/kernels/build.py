@@ -36,12 +36,15 @@ SIGNATURES = {
     "cae_conv_gdn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _P],
     "cae_conv_gdn_workspace": [_L, _I, _I, _I, _I],
-    "cae_rans_encode": [_P, _P, _P, _P, _P, _I, _I, _P, _L, _P, _P, _I,
-                        _I, _P],
-    "cae_rans_decode": [_P, _I, _L, _P, _P, _P, _I, _I, _P],
+    "cae_rans_encode_chunks": [_I, _I],
+    "cae_rans_encode_states": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                               _P, _P, _P, _P],
+    "cae_rans_compact": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _P, _P],
+    "cae_rans_decode": [_P, _I, _L, _P, _P, _I, _P, _P, _I, _I, _P],
 }
 # launchers that return something other than a cudaError_t (int)
-RESTYPES = {"cae_conv_gdn_workspace": ctypes.c_int64}
+RESTYPES = {"cae_conv_gdn_workspace": ctypes.c_int64,
+            "cae_rans_encode_chunks": ctypes.c_int64}
 
 _lib = None
 build_log = ""

@@ -20,10 +20,11 @@ import numpy as np
 import torch
 
 from ..coding.device_rans import (bake_device_tables, decode_interleaved,
-                                  encode_interleaved,
-                                  expected_bits_per_symbol, pack_streams,
-                                  stream_channel_map, unpack_streams)
+                                  encode_states, expected_bits_per_symbol,
+                                  pack_streams, stream_channel_map,
+                                  unpack_streams)
 from ..models.entropy import medians_fn
+from ..ops.kernels.rans_kernel import rans_compact
 from ..models.factory import autoencoder_from_state_dict
 from ..utils.device import resolve_device
 from .codecs import (Codec, check_frame_hw, latent_hw, ndarray_copy,
@@ -72,6 +73,7 @@ class CAETurboCore:
         self.tables = tables.to(self.device)
         self._med = torch.from_numpy(self.medians).to(self.device)
         self._ch_maps = {}
+        self.capacity_retries = 0  # compactions re-run at a larger capacity
 
     # -- geometry -----------------------------------------------------------
 
@@ -115,30 +117,48 @@ class CAETurboCore:
     def frames_from_symbols(self, sym_cm: torch.Tensor,
                             true_hw: Sequence[Tuple[int, int]]
                             ) -> List[bytes]:
-        """Entropy-code a (B, C, lh, lw) symbol batch into frames."""
+        """Entropy-code a (B, C, lh, lw) symbol batch into frames: one state
+        pass, then one compaction and one device-to-host copy (escape count,
+        totals and uint16 words together) per capacity tried."""
         bsz, _, lh, lw = sym_cm.shape
-        n_esc = int(self.escapes(sym_cm).sum())
-        if n_esc:
-            raise ValueError(
-                f"{n_esc} latent symbols fall outside the coding tables "
-                "(escapes); the host 'cae' coder that codes such batches is "
-                "not ported yet")
         s = self.num_streams
         t = self._steps(lh, lw, s)
-        packed = pack_streams(sym_cm.reshape(bsz, -1), s)
-        ch_map = self._ch_map(lh, lw, s)
+        esc = self.escapes(sym_cm).sum()
+        state = encode_states(pack_streams(sym_cm.reshape(bsz, -1), s),
+                              self._ch_map(lh, lw, s), self.tables)
         # first capacity from the tables' entropy (+12% headroom); double on
         # overflow.  The worst case (one word per symbol) always fits.
         capacity = 2 * s + 64 + int(t * s * self.expected_bits / 16.0 * 1.12)
         worst = 2 * s + t * s
         while True:
             cap = min(capacity, worst)
-            bufs, totals = encode_interleaved(packed, ch_map, self.tables,
-                                              cap)
-            bufs_np, totals_np = bufs.cpu().numpy(), totals.cpu().numpy()
-            if int(totals_np.max()) <= cap:
-                return self._frame(bufs_np, totals_np, true_hw)
+            n_esc, totals, words = self._compact_fetch(state, esc, cap)
+            if n_esc:
+                raise ValueError(
+                    f"{n_esc} latent symbols fall outside the coding tables "
+                    "(escapes); the host 'cae' coder that codes such batches "
+                    "is not ported yet")
+            if int(totals.max()) <= cap:
+                return self._frame(words, totals, true_hw)
+            self.capacity_retries += 1
             capacity *= 2
+
+    def _compact_fetch(self, state, esc: torch.Tensor, cap: int):
+        """Compact ``state`` at ``cap`` into one device buffer holding the
+        escape count and the totals (int32) before the (B, cap) uint16
+        words, and copy it to the host at once.  Returns (escape count,
+        totals, words) as host arrays."""
+        bsz = state.words.shape[0]
+        head = 2 * (bsz + 1)  # uint16 slots of the int32 head
+        buf = torch.empty(head + bsz * cap, dtype=torch.uint16,
+                          device=self.device)
+        counts = buf[:head].view(torch.int32)
+        rans_compact(state, cap, out=(buf[head:].view(bsz, cap), counts[1:]))
+        counts[0] = esc
+        host = buf.cpu().numpy()
+        counts_h = host[:head].view(np.int32)
+        return (int(counts_h[0]), counts_h[1:],
+                host[head:].reshape(bsz, cap))
 
     def _frame(self, bufs_np, totals_np, true_hw) -> List[bytes]:
         out = []
@@ -210,7 +230,7 @@ class CAETurboCore:
             totals[i] = nbytes // 2
             payloads.append(payload[:nbytes])
         qcap = max(128, -(-int(totals.max()) // 128) * 128)
-        queues = np.zeros((batch, qcap), np.int32)
+        queues = np.zeros((batch, qcap), np.uint16)
         for i, payload in enumerate(payloads):
             queues[i, :totals[i]] = np.frombuffer(payload, "<u2")
         sym_ts = decode_interleaved(torch.from_numpy(queues).to(self.device),

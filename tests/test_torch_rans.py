@@ -1,6 +1,7 @@
 """The port's device rANS (plain versions, on the CPU) against the JAX
 package: baked tables, the XLA scans and the Pallas kernels (interpret
-mode).  Words, totals and decoded symbols must be bit-identical."""
+mode).  Words (uint16), totals and decoded symbols must be bit-identical,
+at stream counts up to the frame's 65535."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -67,11 +68,13 @@ def _encode_both(tables, sym, ch_map, capacity):
     got, got_tot = trans.encode_interleaved(torch.from_numpy(sym),
                                             torch.from_numpy(ch_map),
                                             tables, capacity)
+    assert got.dtype == torch.uint16 and got_tot.dtype == torch.int32
     ref, ref_tot, esc = jrans.encode_device_interleaved(
         jnp.asarray(sym), jnp.asarray(ch_map), _jax_tables(tables), capacity)
     assert int(esc) == 0
-    return (got.numpy(), got_tot.numpy(), np.asarray(ref).astype(np.int32),
-            np.asarray(ref_tot))
+    ref = np.asarray(ref)
+    assert ref.dtype == np.uint16
+    return got.numpy(), got_tot.numpy(), ref, np.asarray(ref_tot)
 
 
 @pytest.mark.parametrize("path", FIXTURES)
@@ -89,8 +92,12 @@ def test_tables_match_jax(path):
 
 
 # (latent h, latent w, streams): stream-aligned planes, a plane that is not
-# a multiple of S (steps span two channels, the tail is padded), one stream
-@pytest.mark.parametrize("lh,lw,s", [(4, 4, 64), (5, 3, 64), (3, 3, 1)])
+# a multiple of S (steps span two channels, the tail is padded), one
+# stream, and more than 1024 streams: S = 2048, S = 3000 (not a multiple of
+# 32, steps spanning many channels) and the frame's largest S (one step)
+@pytest.mark.parametrize("lh,lw,s", [(4, 4, 64), (5, 3, 64), (3, 3, 1),
+                                     (8, 8, 2048), (8, 8, 3000),
+                                     (4, 4, 65535)])
 def test_encode_decode_match_jax_scan(flagship_tables, lh, lw, s):
     tables, jtables = flagship_tables
     c = int(tables.freq.shape[0])
@@ -113,6 +120,8 @@ def test_encode_decode_match_jax_scan(flagship_tables, lh, lw, s):
     np.testing.assert_array_equal(got, ref)
 
     t = ch_map.shape[0]
+    if s > 1024:
+        assert t * s > n and len(set(ch_map[0])) > 1
     dec = trans.decode_interleaved(torch.from_numpy(got),
                                    torch.from_numpy(ch_map), tables, t)
     ref_dec = jrans.decode_device_interleaved(jnp.asarray(ref),
@@ -140,6 +149,95 @@ def test_capacity_overflow_drops_like_jax(flagship_tables):
                                  torch.from_numpy(ch_map), tables, 2 * 64 - 1)
 
 
+def test_compaction_rerun_matches_one_pass_encode(flagship_tables):
+    """One state pass compacted at an overflowing capacity, then again at
+    larger ones: each compaction equals the whole encode (and the JAX scan)
+    at its capacity, and the words that fit do not depend on it."""
+    tables, _ = flagship_tables
+    ch_map = trans.stream_channel_map(48, (4, 4), 64)
+    # uniform over each table: far more words than the tables expect
+    rng = np.random.RandomState(13)
+    sym = (rng.randint(0, 1 << 16, (2,) + ch_map.shape)
+           % tables.length.numpy()[ch_map]
+           + tables.offset.numpy()[ch_map]).astype(np.int32)
+    state = trans.encode_states(torch.from_numpy(sym),
+                                torch.from_numpy(ch_map), tables)
+    assert state.words.dtype == torch.uint16
+    worst = 2 * 64 + ch_map.shape[0] * 64
+    full = None
+    for cap in (2 * 64 + 7, worst // 2, worst):
+        words, totals = tkernel.rans_compact(state, cap)
+        got, got_tot, ref, ref_tot = _encode_both(tables, sym, ch_map, cap)
+        np.testing.assert_array_equal(words.numpy(), got)
+        np.testing.assert_array_equal(totals.numpy(), got_tot)
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got_tot, ref_tot)
+        full = words.numpy() if full is None else full
+        keep = min(cap, 2 * 64 + 7)
+        np.testing.assert_array_equal(words.numpy()[:, :keep],
+                                      full[:, :keep])
+    assert (totals.numpy() > 2 * 64 + 7).all()
+    # into caller-owned tensors, as the codec compacts into its fetch buffer
+    out = (torch.empty((2, worst), dtype=torch.uint16),
+           torch.empty(2, dtype=torch.int32))
+    assert tkernel.rans_compact(state, worst, out=out) is out
+    np.testing.assert_array_equal(out[0].numpy(), words.numpy())
+    np.testing.assert_array_equal(out[1].numpy(), totals.numpy())
+
+
+@pytest.mark.parametrize("lh,lw,s", [(4, 4, 64), (8, 8, 100),
+                                     (64, 64, 3000)])
+def test_state_pass_layout(flagship_tables, lh, lw, s):
+    """The state pass's flags are bit rows, one bit per (step, stream) with
+    zeros past S, and its counts the set bits in each CHUNK_WORDS run of
+    them (the kernel state pass's layout, which its compaction reads)."""
+    tables, _ = flagship_tables
+    ch_map = trans.stream_channel_map(48, (lh, lw), s)
+    sym = _sample(tables, ch_map, 2, s)
+    state = trans.encode_states(torch.from_numpy(sym),
+                                torch.from_numpy(ch_map), tables)
+    t, w = ch_map.shape[0], -(-s // 32)
+    assert state.flags.dtype == state.counts.dtype == torch.int32
+    assert state.flags.shape == (2, t * w)
+    rows = state.flags.numpy().view(np.uint32)
+    bits = (rows[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    bits = bits.reshape(2, t, w * 32)
+    assert not bits[..., s:].any()
+    chunks = -(-t * w // tkernel.CHUNK_WORDS)
+    per_word = np.zeros((2, chunks * tkernel.CHUNK_WORDS), np.int64)
+    per_word[:, :t * w] = bits.reshape(2, t * w, 32).sum(-1)
+    np.testing.assert_array_equal(
+        state.counts.numpy(),
+        per_word.reshape(2, chunks, -1).sum(-1))
+    # the flagged words are the queue after the flush words, in (t, s)
+    # order
+    worst = 2 * s + t * s
+    words, totals = tkernel.rans_compact(state, worst)
+    flagged = bits[..., :s].astype(bool)
+    for i in range(2):
+        assert int(totals[i]) == 2 * s + int(state.counts[i].sum())
+        np.testing.assert_array_equal(
+            words.numpy()[i, 2 * s:int(totals[i])],
+            state.words.numpy()[i][flagged[i]])
+
+
+def test_stream_count_limits():
+    """Any S the frame's u16 field holds is coded; 0 and 65536 are not."""
+    tables = _peaked_tables()
+    for s in (0, 65536):
+        ch = torch.zeros((1, s), dtype=torch.int32)
+        with pytest.raises(ValueError, match="65535"):
+            trans.encode_states(torch.zeros((1, 1, s), dtype=torch.int32),
+                                ch, tables)
+        with pytest.raises(ValueError, match="65535"):
+            trans.decode_interleaved(torch.zeros((1, 8), dtype=torch.uint16),
+                                     ch, tables, 1)
+    with pytest.raises(ValueError, match="uint16"):
+        trans.decode_interleaved(torch.zeros((1, 8), dtype=torch.int32),
+                                 torch.zeros((1, 4), dtype=torch.int32),
+                                 tables, 1)
+
+
 def test_kernels_match_pallas_interpret(flagship_tables):
     """S = 1024, a few single-channel steps: plain encode against the Pallas
     encode kernel, plain decode against the Pallas decode kernel."""
@@ -153,17 +251,19 @@ def test_kernels_match_pallas_interpret(flagship_tables):
         jnp.asarray(sym), jnp.asarray(ch_map), jtables,
         jkernel.pack_enc_tables(jtables), capacity, True)
     np.testing.assert_array_equal(got_tot.numpy(), np.asarray(ref_tot))
+    assert got.dtype == torch.uint16
     np.testing.assert_array_equal(got.numpy(),
-                                  np.asarray(ref).astype(np.int32))
+                                  np.asarray(ref).astype(np.uint16))
 
     lut = tkernel.pack_dec_lut(tables.freq, tables.start, tables.slot)
     np.testing.assert_array_equal(lut.numpy(),
                                   np.asarray(jkernel.pack_dec_lut(jtables)))
     queues = got[:, :-(-capacity // 128) * 128]
     vals = tkernel.rans_decode_plain(queues, torch.from_numpy(ch_map), lut, 4)
+    # the Pallas decode takes the words zero-extended to int32
     ref_vals = jkernel.decode_interleaved_pallas(
-        jnp.asarray(queues.numpy()), jnp.asarray(ch_map[:, 0]),
-        jnp.asarray(lut.numpy()), 4, True)
+        jnp.asarray(queues.numpy().astype(np.int32)),
+        jnp.asarray(ch_map[:, 0]), jnp.asarray(lut.numpy()), 4, True)
     np.testing.assert_array_equal(vals.numpy(), np.asarray(ref_vals))
     np.testing.assert_array_equal(
         vals.numpy() + tables.offset.numpy()[ch_map][None], sym)
@@ -201,7 +301,7 @@ def test_peaked_table_above_2_31_matches_jax():
         jnp.asarray(sym), jnp.asarray(ch_map), jtables,
         jkernel.pack_enc_tables(jtables), capacity, True)
     np.testing.assert_array_equal(got_tot, np.asarray(k_tot))
-    np.testing.assert_array_equal(got, np.asarray(k_ref).astype(np.int32))
+    np.testing.assert_array_equal(got, np.asarray(k_ref).astype(np.uint16))
     dec = trans.decode_interleaved(torch.from_numpy(got),
                                    torch.from_numpy(ch_map), tables, 12)
     np.testing.assert_array_equal(dec.numpy(), sym)
@@ -216,6 +316,7 @@ def test_truncated_queue_decodes_like_jax(flagship_tables):
     words, totals = trans.encode_interleaved(
         torch.from_numpy(sym), torch.from_numpy(ch_map), tables,
         2 * 64 + sym.shape[1] * 64)
+    assert words.dtype == torch.uint16
     for keep in (int(totals.min()) // 2, 3):
         cut = words[:, :keep].contiguous()
         dec = trans.decode_interleaved(cut, torch.from_numpy(ch_map), tables,

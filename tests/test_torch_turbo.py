@@ -103,6 +103,58 @@ def test_round_trip_matches_jax(cores, name, h, w, batch):
         tcore.symbols_from_frames(frames_j, 64, h, w).numpy(), sym_t)
 
 
+@pytest.mark.parametrize("name,streams", [("small", 16), ("small", 1024),
+                                          ("small", 2048),
+                                          ("flagship", 2048)])
+def test_frames_match_jax_at_stream_counts(cores, name, streams):
+    """Frames byte-identical to the JAX codec's at S = 16, 1024 and 2048
+    (above the old kernels' 1024), decoded both ways."""
+    jmodel = cores[name][0].model
+    tmodel = cores[name][1].model
+    jcore = JaxTurboCore(jmodel, num_streams=streams)
+    tcore = CAETurboCore(tmodel, num_streams=streams, device="cpu")
+    tiles = np.stack([_image(64, 64, seed) for seed in (3, 4)])
+    frames_t = tcore.encode_tiles(tiles)
+    assert frames_t == jcore.encode_tiles(tiles)
+    assert all(struct.unpack(">H", f[17:19])[0] == streams
+               for f in frames_t)
+    sym_t = tcore.latent_symbols(tiles).numpy()
+    np.testing.assert_array_equal(
+        tcore.symbols_from_frames(frames_t, streams, 64, 64).numpy(), sym_t)
+    _assert_u8_close(tcore.decode_tiles(frames_t),
+                     jcore.decode_tiles(frames_t))
+
+
+def test_capacity_overflow_recompacts_only(cores, monkeypatch):
+    """A first capacity that overflows: the frames equal those of a first
+    capacity that fits, the state pass ran once per batch, and only the
+    compaction ran again."""
+    from cnn_autoencoder_tpu_torch.storage import turbo_codec
+    _, tcore = cores["small"]
+    tiles = np.stack([_image(64, 64, seed) for seed in (5, 6)])
+    calls = {"encode_states": 0, "rans_compact": 0}
+
+    def counted(name):
+        fn = getattr(turbo_codec, name)
+
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name in calls:
+        monkeypatch.setattr(turbo_codec, name, counted(name))
+    want = tcore.encode_tiles(tiles)
+    assert calls == {"encode_states": 1, "rans_compact": 1}
+    retries = tcore.capacity_retries
+    # an entropy estimate far too low: the first capacity holds little
+    # more than the flush words
+    monkeypatch.setattr(tcore, "expected_bits", 1e-3)
+    assert tcore.encode_tiles(tiles) == want
+    assert calls["encode_states"] == 2 and calls["rans_compact"] > 2
+    assert tcore.capacity_retries - retries == calls["rans_compact"] - 2
+
+
 def test_codec_abi(small_checkpoint):
     codec = ConvolutionalAutoencoderTurbo(small_checkpoint, num_streams=32,
                                           device="cpu")
@@ -203,10 +255,16 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     from cnn_autoencoder_tpu_torch.ops.kernels.gdn_kernel import (
         gdn_cuda, gdn_train_bwd_cuda, gdn_train_fwd_cuda)
     from cnn_autoencoder_tpu_torch.ops.kernels.rans_kernel import (
-        decode_interleaved_cuda, encode_interleaved_cuda)
+        EncodeState, compact_cuda, decode_interleaved_cuda,
+        encode_states_cuda)
     x = torch.zeros(4, 8)
     xb = x.to(torch.bfloat16)
     i = torch.zeros(1, 2, 4, dtype=torch.int32)
+    q = torch.zeros(1, 8, dtype=torch.uint16)
+    state = EncodeState(torch.zeros(1, 2, 4, dtype=torch.uint16),
+                        torch.zeros(1, 2, dtype=torch.int32),
+                        torch.zeros(1, 4, dtype=torch.int32),
+                        torch.zeros(1, 1, dtype=torch.int32))
     conv_args = (torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 8),
                  torch.eye(8), torch.ones(8))
     calls = [lambda: gdn_cuda(x, torch.eye(8), torch.ones(8)),
@@ -214,15 +272,16 @@ def test_kernel_wrappers_take_only_cuda_tensors():
              lambda: gdn_train_bwd_cuda(xb, xb, xb, torch.eye(8)),
              lambda: conv_gdn_cuda(*conv_args),
              lambda: conv_gdn_train_cuda(*conv_args),
-             lambda: encode_interleaved_cuda(i, i[0], i[0], i[0], i[0, 0],
-                                             64),
-             lambda: decode_interleaved_cuda(i[0], i[0], i[0], 2)]
+             lambda: encode_states_cuda(i, i[0], i[0], i[0], i[0, 0]),
+             lambda: compact_cuda(state, 64),
+             lambda: decode_interleaved_cuda(q, i[0], i[0], 2)]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert {fn.kernel_name for fn in kernel_wrappers()} == {
         "gdn_fwd", "gdn_train_fwd", "gdn_train_bwd", "conv_gdn_fwd",
-        "conv_gdn_train_fwd", "rans_encode", "rans_decode"}
+        "conv_gdn_train_fwd", "rans_encode_states", "rans_compact",
+        "rans_decode"}
     assert all(fn.launches == 0 for fn in kernel_wrappers())
 
 
