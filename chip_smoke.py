@@ -8,13 +8,13 @@ Phases, in order; any failure exits non-zero:
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; build the CUDA kernels from ``cnn_autoencoder_tpu_torch/csrc``
    (ptxas registers, spills and shared memory logged for every
-   instantiation), and check in the built library's SASS that K1 and K4 multiply
-   on the tensor cores (HMMA);
-   meanwhile build K1's, K4's and the rANS kernels' probes
+   instantiation), and check in the built library's SASS that K1, K3 and
+   K4 multiply on the tensor cores (HMMA);
+   meanwhile build K1's, K3's, K4's and the rANS kernels' probes
    (``csrc/probes``): K1 with one TF32 pass, the control that must fail
-   K1's accuracy check; K1 and K4 without their device-memory traffic, to
-   time what the SM spends; K4 with one pass for its float32 conv and with
-   every mma operand in registers; K5 and K6's state pass with clock64
+   K1's accuracy check; K1, K3 and K4 without their device-memory traffic,
+   to time what the SM spends; K4 with one pass for its float32 conv and
+   with every mma operand in registers; K5 and K6's state pass with clock64
    marks around their serial loops.
 2. Serving kernels: each kernel's wrapper on card tensors at the shapes the
    serving path gives it (16 tiles of 512^2 through the flagship), held
@@ -42,8 +42,10 @@ Phases, in order; any failure exits non-zero:
    (torch.profiler).
 4. Training kernels: K2, K3 and K4's training variant against their plain
    versions at the training path's shapes (batch 16 of 256^2 through the
-   flagship), float32 and bf16, C = 128 and 48, forward and inverse GDN,
-   then timed.
+   flagship: 262144 and 65536 rows of K2 and K3), float32 and bf16,
+   forward and inverse GDN, K2 and K3 also at C = 3, 48, 128, 130, 256 and
+   512 with ragged and misaligned rows; then timed, K3 beside its probe and
+   beside cuBLAS's bf16 product of the same shape (a yardstick only).
 5. Training end to end: the flagship's RateMSE train step (lambda 0.01,
    encoder, decoder and fact_ent trainable, Adam at lr 1e-4; the
    configuration of ``scripts/bench_train.py``), from the flagship
@@ -105,6 +107,11 @@ K4_PROBES = {"k4_one_pass": ["-DCONV_GDN_PASSES=1"],
              "k4_no_io_one_pass": ["-DCONV_GDN_NO_IO=1",
                                    "-DCONV_GDN_PASSES=1"],
              "k4_no_io_no_lds": ["-DCONV_GDN_NO_IO=1", "-DCONV_GDN_NO_LDS=1"]}
+K3_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
+                               "probes", "gdn_bwd_probe.cu")
+# K3's probe builds and their defines (csrc/gdn_bf16_tc.cu); both count the
+# cycles of each part of a tile
+K3_PROBES = {"k3_laps": [], "k3_no_io": ["-DGDN_BWD_NO_IO=1"]}
 RANS_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
                                  "probes", "rans_probe.cu")
 PROBES = {}  # probe name -> its loaded library (phase 1)
@@ -131,7 +138,7 @@ REPLACES = {
 SOURCES = {
     "gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn_tc.cu",
     "gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
-    "gdn_train_bwd": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
+    "gdn_train_bwd": "cnn_autoencoder_tpu_torch/csrc/gdn_bf16_tc.cu",
     "conv_gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
     "conv_gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
     "rans_encode_states": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
@@ -257,12 +264,14 @@ def phase_device(torch):
 
 
 def start_probes(build):
-    """Start one nvcc for each of K1's, K4's and the rANS kernels' probe
-    builds (into build/probes); returns {name: (process, library path)}."""
+    """Start one nvcc for each of K1's, K3's, K4's and the rANS kernels'
+    probe builds (into build/probes); returns {name: (process, library
+    path)}."""
     out = os.path.join(ROOT, "build", "probes")
     os.makedirs(out, exist_ok=True)
     procs = {}
     builds = ([(name, K1_PROBE_SOURCE, d) for name, d in K1_PROBES.items()]
+              + [(name, K3_PROBE_SOURCE, d) for name, d in K3_PROBES.items()]
               + [(name, K4_PROBE_SOURCE, d) for name, d in K4_PROBES.items()]
               + [("rans_probe", RANS_PROBE_SOURCE, [])])
     for name, source, defines in builds:
@@ -290,6 +299,11 @@ def finish_probes(build, procs):
             lib.cae_rans_probe_read.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                                 ctypes.c_int]
             lib.cae_rans_probe_laps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        elif name in K3_PROBES:
+            for fn in ("cae_gdn_train_bwd", "cae_gdn_train_bwd_workspace"):
+                getattr(lib, fn).argtypes = build.SIGNATURES[fn]
+                getattr(lib, fn).restype = build.RESTYPES.get(fn, ctypes.c_int)
+            lib.cae_gdn_bwd_probe_laps.argtypes = [ctypes.c_void_p]
         elif name in K4_PROBES:
             lib.cae_conv_gdn_fwd.argtypes = build.SIGNATURES[
                 "cae_conv_gdn_fwd"]
@@ -304,20 +318,23 @@ def finish_probes(build, procs):
 
 
 def check_tc_sass(build):
-    """K1's and K4's instantiations in the built library's SASS
+    """K1's, K3's and K4's instantiations in the built library's SASS
     (cuobjdump), each of which must hold HMMA (tensor-core) instructions."""
     lib = build.load_library()._name
     dump = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", lib],
                           capture_output=True, text=True, timeout=300)
     check(dump.returncode == 0, f"cuobjdump failed: {dump.stderr.strip()}")
-    counts = {"gdn_tc_kernel": {}, "conv_gdn_mma_kernel": {}}
+    counts = {"gdn_tc_kernel": {}, "gdn_bwd_tc": {},
+              "conv_gdn_mma_kernel": {}}
     for part in dump.stdout.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
         for kind, found in counts.items():
             if kind in name:
                 found[name] = sum(" HMMA." in line
                                   for line in part.splitlines())
-    for kind, want in (("gdn_tc_kernel", 5), ("conv_gdn_mma_kernel", 6)):
+    # K3: its resident and streamed layouts, each for bf16 and float32 g
+    for kind, want in (("gdn_tc_kernel", 5), ("gdn_bwd_tc", 4),
+                       ("conv_gdn_mma_kernel", 6)):
         found = counts[kind]
         log(f"{kind} SASS: {len(found)} instantiations, HMMA instructions "
             f"{sorted(found.values())}")
@@ -1273,6 +1290,81 @@ def check_gdn_train_case(torch, x, gamma, beta, inverse, label, rng):
     return y_err, dx_err
 
 
+def check_gdn_bwd_misaligned(torch, rng):
+    """K3 on inputs whose rows start 2 bytes past a 16-byte boundary (views
+    into larger buffers), which it stages element by element: held to the
+    plain version with check_gdn_train_case's limits."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
+    rows, c = 131, 128
+    gamma = torch.from_numpy((0.1 * rng.rand(c, c)).astype(np.float32)).cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        def shifted(a, dt):
+            buf = torch.empty(a.size + 8, dtype=dt, device="cuda")
+            view = buf[1:1 + a.size].view(rows, c)
+            view.copy_(torch.from_numpy(a).to(dt))
+            return view
+        g = shifted(rng.randn(rows, c).astype(np.float32), dtype)
+        xb = shifted(rng.randn(rows, c).astype(np.float32), torch.bfloat16)
+        rb = shifted((0.5 + rng.rand(rows, c)).astype(np.float32),
+                     torch.bfloat16)
+        check(g.data_ptr() % 16 != 0 and xb.data_ptr() % 16 != 0,
+              "misaligned K3 case: the views are aligned")
+        for inverse in (False, True):
+            dx, dnb = gk.gdn_train_bwd_cuda(g, xb, rb, gamma, inverse)
+            dx_p, dnb_p = gk.gdn_train_bwd_plain(g, xb, rb, gamma, inverse)
+            torch.cuda.synchronize()
+            label = f"misaligned ({rows}, {c}) {str(dtype)[6:]} " \
+                    f"inverse={inverse}"
+            check(bf16_ulps(dnb, dnb_p) <= 1, f"gdn_train_bwd {label}: dnb "
+                  "differs by more than one bf16 ulp")
+            ok, err = close(dx, dx_p, 2.0 ** -7 if dtype == torch.bfloat16
+                            else 1e-5, 1e-5)
+            check(ok, f"gdn_train_bwd {label}: dx error {err:.3e}")
+            log(f"gdn_train_bwd {label}: dx max abs {err:.3e}")
+
+
+def k3_yardsticks(torch, g, xb, rb, gamma, ms, bms):
+    """K3 at the timed shape beside its probes (the kernel with cycle
+    counts by part of a tile; the same without device-memory traffic, what
+    the SM spends) and beside cuBLAS's bf16 product of the same shape
+    alone (torch.matmul, a yardstick for the log; no single library call
+    computes K3's function)."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import build
+    n, c = g.shape
+    dx = torch.empty_like(g)
+    dnb = torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
+    g32 = gamma.detach().float().contiguous()
+    # thread 0 is in the first of a block's two groups: half the 32-row tiles
+    reps, tiles = 20, -(-n // 64)
+    parts = ("wait for copies", "dnb", "product", "dx")
+    for name in K3_PROBES:
+        lib = PROBES[name]
+        work = torch.empty(lib.cae_gdn_train_bwd_workspace(c),
+                           dtype=torch.uint8, device=g.device)
+        laps = (ctypes.c_ulonglong * 4)()
+
+        def probe():
+            build.check_launch(lib.cae_gdn_train_bwd(
+                g.data_ptr(), xb.data_ptr(), rb.data_ptr(), g32.data_ptr(),
+                dx.data_ptr(), dnb.data_ptr(), work.data_ptr(), n, c, 0,
+                int(g.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream), name)
+
+        build.check_launch(lib.cae_gdn_bwd_probe_laps(laps), name)  # zero
+        probe_ms = cuda_ms(torch, probe, reps)
+        build.check_launch(lib.cae_gdn_bwd_probe_laps(laps), name)
+        per_tile = [v / ((reps + 1) * tiles) for v in laps]
+        log(f"gdn_train_bwd probe {name} {[n, c]} bf16: {probe_ms:.4f} ms; "
+            "cycles a 32-row tile (thread 0 of a block) by part: "
+            + ", ".join(f"{p} {v:.1f}" for p, v in zip(parts, per_tile)))
+    a = torch.randn(n, c, device=g.device).to(torch.bfloat16)
+    b = g32.to(torch.bfloat16)
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(a, b), 20)
+    log(f"gdn_train_bwd {[n, c]} bf16: kernel {ms:.4f} ms; cuBLAS bf16 "
+        f"({n}, {c}) @ ({c}, {c}) alone {mm_ms:.4f} ms (a yardstick); "
+        f"bound {bms:.4f} ms")
+
+
 def check_conv_train_case(torch, x, kernel, gamma, beta, label):
     """K4's training variant against its plain version: y to 1e-4 of
     max |y|, out to 1e-4 of max |out| (float32) or one bf16 ulp plus
@@ -1323,23 +1415,26 @@ def phase_train_kernels(torch, model):
     n = b * (h // 2) ** 2           # rows of down_0 and up_1
     out = {}
     with torch.no_grad():
-        # K2/K3 at the path's shapes: down_0 (forward) and up_1 (inverse)
+        # K2/K3 at the path's shapes: down_0 (forward, n rows), up_0
+        # (inverse, n / 4 rows) and up_1 (inverse, n rows)
         errs = {}
-        for inverse, unit, gdn_name in ((False, model.encoder.down_0,
-                                         "gdn_down"),
-                                        (True, model.decoder.up_1,
-                                         "gdn_up")):
+        for rows, inverse, unit, gdn_name in (
+                (n, False, model.encoder.down_0, "gdn_down"),
+                (n // 4, True, model.decoder.up_0, "gdn_up"),
+                (n, True, model.decoder.up_1, "gdn_up")):
             gamma, beta = getattr(unit, gdn_name).effective_params()
             c = gamma.shape[0]
             for dtype in (torch.bfloat16, torch.float32):
-                x = torch.from_numpy(rng.randn(n, c).astype(np.float32)
+                x = torch.from_numpy(rng.randn(rows, c).astype(np.float32)
                                      * 0.5).cuda().to(dtype)
-                errs[(inverse, dtype)] = check_gdn_train_case(
+                errs[(rows, inverse, dtype)] = check_gdn_train_case(
                     torch, x, gamma, beta, inverse,
-                    f"({n}, {c}) {str(dtype)[6:]} inverse={inverse}", rng)
+                    f"({rows}, {c}) {str(dtype)[6:]} inverse={inverse}", rng)
                 del x
-        # C = 48 (the latent's width), and a ragged C
-        for rows, c in ((1000, 48), (77, 130)):
+        # C = 48 (the latent's width), ragged C and rows (K3's resident
+        # layout up to C = 128, its streamed one above)
+        for rows, c in ((1000, 48), (203, 3), (1001, 128), (77, 130),
+                        (130, 256), (70, 512)):
             gamma = torch.from_numpy((0.1 * rng.rand(c, c))
                                      .astype(np.float32)).cuda()
             beta = torch.from_numpy((1.0 + rng.rand(c))
@@ -1352,6 +1447,7 @@ def phase_train_kernels(torch, model):
                         torch, x, gamma, beta, inverse,
                         f"({rows}, {c}) {str(dtype)[6:]} inverse={inverse}",
                         rng)
+        check_gdn_bwd_misaligned(torch, rng)
 
         # K4 training variant: down_1 at the path's shape, and ragged
         unit = model.encoder.down_1
@@ -1401,7 +1497,7 @@ def phase_train_kernels(torch, model):
         # core_ms: the same operations at the CUDA cores' float32 rate,
         # where these designs compute (the ceiling of the design built)
         out["gdn_train_fwd"] = dict(
-            max_abs_err=errs[(False, torch.bfloat16)][0], ms=ms,
+            max_abs_err=errs[(n, False, torch.bfloat16)][0], ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c],
             core_ms=(2 * nc * c + 5 * nc) / PEAK_F32_S * 1e3)
         ms = cuda_ms(torch, lambda: gk.gdn_train_bwd_cuda(gb, xb, rb, gamma0),
@@ -1411,9 +1507,10 @@ def phase_train_kernels(torch, model):
         bms, by = bound_ms(10 * nc + 4 * c * c,
                            [(2 * nc * c, PEAK_BF16_S), (12 * nc, PEAK_F32_S)])
         out["gdn_train_bwd"] = dict(
-            max_abs_err=errs[(False, torch.bfloat16)][1], ms=ms,
+            max_abs_err=errs[(n, False, torch.bfloat16)][1], ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c],
             core_ms=(2 * nc * c + 12 * nc) / PEAK_F32_S * 1e3)
+        k3_yardsticks(torch, gb, xb, rb, gamma0, ms, bms)
         del xb, gb, rb
 
         for dt, name in ((torch.bfloat16, "bf16"),
@@ -1433,11 +1530,15 @@ def phase_train_kernels(torch, model):
                 max_abs_err=conv_err[dt], ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, shape=list(xt.shape))
         del x32
-    for name in ("gdn_train_fwd", "gdn_train_bwd"):
-        rec = out[name]
-        log(f"{name} {rec['shape']} bf16: kernel {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}), CUDA-core ceiling {rec['core_ms']:.4f} ms")
+    rec = out["gdn_train_fwd"]
+    log(f"gdn_train_fwd {rec['shape']} bf16: kernel {rec['ms']:.4f} ms, "
+        f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), CUDA-core ceiling {rec['core_ms']:.4f} ms")
+    rec = out["gdn_train_bwd"]
+    log(f"gdn_train_bwd {rec['shape']} bf16: kernel {rec['ms']:.4f} ms, "
+        f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), {100 * rec['bound_ms'] / rec['ms']:.1f}% of "
+        "it")
     return out
 
 

@@ -23,6 +23,7 @@ import torch
 from ..ops.kernels.rans_kernel import (PRECISION, PROB_SCALE, EncodeState,
                                        pack_dec_lut, rans_compact,
                                        rans_decode, rans_encode_states)
+from . import xla_f32
 from .cdf import pmf_to_quantized_cdf
 
 
@@ -46,14 +47,10 @@ def bake_device_tables(params: Dict[str, np.ndarray], filters: Sequence[int],
                        extra_support: int = 8) -> DeviceTables:
     """12-bit tables over a widened quantile support (CPU tensors).
 
-    The same arithmetic as the JAX package's ``bake_device_tables``, except
-    that the logit chain runs in float64 (JAX: float32), so the tables do
-    not depend on the host's float32 math library.  The tables of the two
-    packages are then equal unless a pmf lies within about 1e-7 of a
-    quantization boundary; the tests hold them element-equal on the
-    flagship checkpoints."""
-    from ..models.entropy import logits_cumulative
-
+    The JAX package's ``bake_device_tables``, with its logit chain and its
+    logistic computed by ``coding/xla_f32.py`` as XLA's CPU backend and
+    numpy compute them in float32, bit for bit, so the tables of the two
+    packages are element-equal for any parameters."""
     params = {k: np.asarray(v) for k, v in params.items()}
     quantiles = params["quantiles"]
     medians = quantiles[:, 0, 1]
@@ -71,27 +68,10 @@ def bake_device_tables(params: Dict[str, np.ndarray], filters: Sequence[int],
 
     samples = (np.arange(max_length, dtype=np.float32)[:, None]
                + (medians - minima)[None, :])
-    # float64 chain on float32 inputs: CPU float32 transcendentals differ by
-    # an ulp between libraries and instruction sets, and a table that moved
-    # with the host would make frames undecodable elsewhere
-    tparams = {k: torch.from_numpy(np.array(v, np.float32)).double()
-               for k, v in params.items()}
     num_filters = len(filters)
-
-    def chain(v):
-        v32 = torch.from_numpy(v.astype(np.float32)).double()
-        with torch.no_grad():
-            return logits_cumulative(tparams, v32, num_filters).numpy()
-
-    lower, upper = chain(samples - 0.5), chain(samples + 0.5)
-    sign = -np.sign(lower + upper)
-
-    def sig(x):
-        # piecewise-stable: exp only ever sees non-positive arguments
-        e = np.exp(-np.abs(x))
-        return np.where(x >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
-
-    pmf = np.abs(sig(sign * upper) - sig(sign * lower)).T  # (C, L)
+    lower = xla_f32.logits_cumulative(params, samples - 0.5, num_filters)
+    upper = xla_f32.logits_cumulative(params, samples + 0.5, num_filters)
+    pmf = xla_f32.interval_pmf(lower, upper).T  # (C, L)
 
     channels = pmf.shape[0]
     freq = np.zeros((channels, max_length), np.int32)

@@ -1,6 +1,6 @@
-// GDN / IGDN over (N, C) rows, for the H100 (sm_90a): the two training
-// kernels of the bf16 mode (K2 forward, K3 backward).  The serving forward
-// K1 runs on the tensor cores in gdn_tc.cu.
+// GDN / IGDN over (N, C) rows, for the H100 (sm_90a): K2, the forward of
+// the bf16 training mode.  The serving forward K1 runs on the tensor cores
+// in gdn_tc.cu, the bf16 mode's backward K3 in gdn_bf16_tc.cu.
 //
 // K2 replaces cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:
 // _gdn_train_fwd_kernel (pallas_call in _gdn_train_fwd_pallas):
@@ -11,28 +11,18 @@
 // with x^2 and gamma rounded to bf16 and the products summed in float32
 // (what the matrix unit's DEFAULT precision does).
 //
-// K3 replaces gdn_kernel.py:_gdn_train_bwd_kernel (pallas_call in
-// _gdn_train_bwd_pallas).  From the cotangent g and the bf16 residuals
-// xb, rb of K2:
-//   dnorm = -g x r^3 / 2   (IGDN: g x / (2 r)),  dnb = bf16(dnorm)
-//   back[n, i] = sum_o dnb[n, o] * bf16(gamma[o, i])   (float32 sums)
-//   dx = g r + 2 x back
-// writing dx in g's type and dnb as bf16; dgamma and dbeta are
-// contractions over dnb outside the kernel (ops/gdn.py).
-//
-// What bounds them here: the pool is 2 * C FLOP per element against 4 to
+// What bounds it here: the pool is 2 * C FLOP per element against 4 to
 // 12 bytes read and written, so at C = 128 float32 FMAs on the CUDA cores
-// (67 TFLOP/s) bound both, not memory (3.35 TB/s).  With bf16 rows the
-// tensor cores would lift that bound above the byte bound; these kernels
-// stay on the CUDA cores (a first, simple design: bf16 values are exact in
+// (67 TFLOP/s) bound it, not memory (3.35 TB/s).  With bf16 rows the
+// tensor cores would lift that bound above the byte bound; this kernel
+// stays on the CUDA cores (a first, simple design: bf16 values are exact in
 // float32, so the f32 FMAs give the bf16-multiplicand products exactly and
 // sum them in float32).
 //
 // Design: the pool is a small matrix product (rows x C) @ (C x C).  A
 // block of 256 threads owns a 64-row x 64-channel output tile; each thread
 // holds a 4 x 4 register tile, so every pair of values loaded from shared
-// memory feeds 4 FMAs.  The row operand (x^2 for K2, dnb for K3, which is
-// computed from g, xb, rb while it is staged) and the C x C operand are
+// memory feeds 4 FMAs.  The row operand x^2 and the C x C operand are
 // staged through shared memory in 32-channel slices (row operand
 // slice-major with one pad column, so the staging stores hit 32 banks);
 // the C x C operand is read from device memory, where L2 keeps it.  The
@@ -148,76 +138,6 @@ gdn_train_fwd_kernel(const T* __restrict__ x,
   }
 }
 
-// K3.  gamma is untransposed: back[i] = sum_o dnb[o] * gamma[o * c + i].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gdn_bwd_kernel(const T* __restrict__ g, const bf16* __restrict__ xb,
-               const bf16* __restrict__ rb, const float* __restrict__ gamma,
-               T* __restrict__ dx, bf16* __restrict__ dnb, int64_t n, int c,
-               int inverse) {
-  __shared__ float s_dn[kSlice][kRows + 1];
-  __shared__ float s_g[kSlice][kCols];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int col0 = blockIdx.y * kCols;
-  // the blocks of column 0 stage every channel of their rows: they write dnb
-  const bool write_dnb = blockIdx.y == 0;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < c; k0 += kSlice) {
-    for (int e = tid; e < kRows * kSlice; e += kThreads) {
-      const int kk = e % kSlice, r = e / kSlice;
-      const int64_t row = row0 + r;
-      const int ch = k0 + kk;
-      float d = 0.f;
-      if (row < n && ch < c) {
-        const int64_t idx = row * c + ch;
-        const float gv = load(g, idx);
-        const float xv = __bfloat162float(xb[idx]);
-        const float rv = __bfloat162float(rb[idx]);
-        // the same operation order as the TPU kernel, so dnb rounds alike
-        const float dn = inverse ? (0.5f * gv * xv) / rv
-                                 : (-0.5f * gv * xv) * (rv * rv * rv);
-        const bf16 q = __float2bfloat16(dn);
-        if (write_dnb) dnb[idx] = q;
-        d = __bfloat162float(q);
-      }
-      s_dn[kk][r] = d;
-    }
-    for (int e = tid; e < kSlice * kCols; e += kThreads) {
-      const int cc = e % kCols, kk = e / kCols;
-      const int o = k0 + kk, i = col0 + cc;
-      s_g[kk][cc] = (o < c && i < c)
-          ? round_bf16(gamma[static_cast<int64_t>(o) * c + i]) : 0.f;
-    }
-    __syncthreads();
-    tile_fma(s_dn, s_g, tx, ty, acc);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t row = row0 + 4 * ty + i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ch = col0 + tx + 16 * j;
-      if (ch >= c) continue;
-      const int64_t idx = row * c + ch;
-      const float xv = __bfloat162float(xb[idx]);
-      const float rv = __bfloat162float(rb[idx]);
-      store(dx, idx, load(g, idx) * rv + 2.0f * xv * acc[i][j]);
-    }
-  }
-}
-
 dim3 row_grid(int64_t n, int c) {
   return dim3(static_cast<unsigned>((n + kRows - 1) / kRows),
               static_cast<unsigned>((c + kCols - 1) / kCols));
@@ -240,26 +160,5 @@ extern "C" int cae_gdn_train_fwd(const void* x, const float* gamma_t,
     gdn_train_fwd_kernel<float><<<row_grid(n, c), kThreads, 0, stream>>>(
         static_cast<const float*>(x), gamma_t, beta, static_cast<float*>(y),
         r, n, c, inverse);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// g and dx are float32 (is_bf16 = 0) or bf16 (is_bf16 = 1); xb, rb and dnb
-// are bf16.
-extern "C" int cae_gdn_train_bwd(const void* g, const void* xb,
-                                 const void* rb, const float* gamma, void* dx,
-                                 void* dnb, int64_t n, int c, int inverse,
-                                 int is_bf16, cudaStream_t stream) {
-  if (n == 0) return 0;
-  const bf16* x = static_cast<const bf16*>(xb);
-  const bf16* r = static_cast<const bf16*>(rb);
-  bf16* d = static_cast<bf16*>(dnb);
-  if (is_bf16)
-    gdn_bwd_kernel<bf16><<<row_grid(n, c), kThreads, 0, stream>>>(
-        static_cast<const bf16*>(g), x, r, gamma, static_cast<bf16*>(dx), d,
-        n, c, inverse);
-  else
-    gdn_bwd_kernel<float><<<row_grid(n, c), kThreads, 0, stream>>>(
-        static_cast<const float*>(g), x, r, gamma, static_cast<float*>(dx), d,
-        n, c, inverse);
   return static_cast<int>(cudaGetLastError());
 }

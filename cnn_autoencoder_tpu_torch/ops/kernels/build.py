@@ -32,7 +32,8 @@ SIGNATURES = {
     "cae_gdn_fwd": [_P, _P, _P, _P, _L, _I, _I, _P],
     "cae_gdn_root_check": [ctypes.c_uint32, _L, _P, _P],
     "cae_gdn_train_fwd": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
-    "cae_gdn_train_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "cae_gdn_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "cae_gdn_train_bwd_workspace": [_I],
     "cae_conv_gdn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _P],
     "cae_conv_gdn_workspace": [_L, _I, _I, _I, _I],
@@ -44,6 +45,7 @@ SIGNATURES = {
 }
 # launchers that return something other than a cudaError_t (int)
 RESTYPES = {"cae_conv_gdn_workspace": ctypes.c_int64,
+            "cae_gdn_train_bwd_workspace": ctypes.c_int64,
             "cae_rans_encode_chunks": ctypes.c_int64}
 
 _lib = None

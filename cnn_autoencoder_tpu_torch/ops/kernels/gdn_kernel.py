@@ -1,5 +1,6 @@
-"""GDN over (N, C) rows: the CUDA kernels of ``csrc/gdn_tc.cu`` and
-``csrc/gdn.cu`` and their plain PyTorch versions.
+"""GDN over (N, C) rows: the CUDA kernels of ``csrc/gdn_tc.cu``,
+``csrc/gdn.cu`` and ``csrc/gdn_bf16_tc.cu`` and their plain PyTorch
+versions.
 
 * K1 ``gdn_cuda`` replaces ``cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:
   _gdn_kernel``: float32 rows, float32-accurate math on the tensor cores
@@ -12,7 +13,8 @@
 * K2 ``gdn_train_fwd_cuda`` replaces ``_gdn_train_fwd_kernel``: ``y`` in the
   rows' type and the backward residual ``r`` as bf16.
 * K3 ``gdn_train_bwd_cuda`` replaces ``_gdn_train_bwd_kernel``: ``dx`` in the
-  cotangent's type and ``dnb = bf16(dnorm)``.
+  cotangent's type and ``dnb = bf16(dnorm)``, the pool on the bf16 tensor
+  cores (bf16 products are exact in float32; one pass, float32 sums).
 
 The norm pool's precision follows ``norm_pool_precision``.  The dispatchers
 (``fused_gdn``, ``gdn_train_fwd``, ``gdn_train_bwd``) give CPU tensors the
@@ -170,7 +172,6 @@ def gdn_train_bwd_cuda(g: torch.Tensor, xb: torch.Tensor, rb: torch.Tensor,
                        gamma: torch.Tensor, inverse: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3; raises on what it does not take."""
-    _require_cuda("gdn_train_bwd_cuda", g)
     c = g.shape[-1]
     _check_rows("gdn_train_bwd g", g, c, _ROW_DTYPES, g.device)
     for name, t in (("xb", xb), ("rb", rb)):
@@ -180,16 +181,20 @@ def gdn_train_bwd_cuda(g: torch.Tensor, xb: torch.Tensor, rb: torch.Tensor,
             raise ValueError(f"gdn_train_bwd: {name} {tuple(t.shape)} does "
                              f"not match g {tuple(g.shape)}")
     _check_params("gdn_train_bwd", g.device, c, gamma)
+    _require_cuda("gdn_train_bwd_cuda", g)
     n = g.shape[0]
     gamma = gamma.detach().float().contiguous()
     dx = torch.empty_like(g)
     dnb = torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
     lib = load_library()
+    # the kernel's bf16 copy of gamma, transposed and padded
+    work = torch.empty(lib.cae_gdn_train_bwd_workspace(c), dtype=torch.uint8,
+                       device=g.device)
     with torch.cuda.device(g.device):
         err = lib.cae_gdn_train_bwd(
             g.data_ptr(), xb.data_ptr(), rb.data_ptr(), gamma.data_ptr(),
-            dx.data_ptr(), dnb.data_ptr(), n, c, int(inverse),
-            int(g.dtype == torch.bfloat16), stream_handle(g))
+            dx.data_ptr(), dnb.data_ptr(), work.data_ptr(), n, c,
+            int(inverse), int(g.dtype == torch.bfloat16), stream_handle(g))
     check_launch(err, "gdn_train_bwd")
     gdn_train_bwd_cuda.launches += 1
     return dx, dnb
