@@ -8,14 +8,15 @@ Phases, in order; any failure exits non-zero:
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; build the CUDA kernels from ``cnn_autoencoder_tpu_torch/csrc``
    (ptxas registers, spills and shared memory logged for every
-   instantiation), and check in the built library's SASS that K1, K3 and
-   K4 multiply on the tensor cores (HMMA);
-   meanwhile build K1's, K3's, K4's and the rANS kernels' probes
+   instantiation), and check in the built library's SASS that K1, K2, K3
+   and K4 multiply on the tensor cores (HMMA);
+   meanwhile build K1's, K2's, K3's, K4's and the rANS kernels' probes
    (``csrc/probes``): K1 with one TF32 pass, the control that must fail
-   K1's accuracy check; K1, K3 and K4 without their device-memory traffic,
-   to time what the SM spends; K4 with one pass for its float32 conv and
-   with every mma operand in registers; K5 and K6's state pass with clock64
-   marks around their serial loops.
+   K1's accuracy check; K1, K2, K3 and K4 without their device-memory
+   traffic, to time what the SM spends; K2 and K3 with cycle counts by part
+   of a tile; K4 with one pass for its float32 conv and with every mma
+   operand in registers; K5 and K6's state pass with clock64 marks around
+   their serial loops.
 2. Serving kernels: each kernel's wrapper on card tensors at the shapes the
    serving path gives it (16 tiles of 512^2 through the flagship), held
    against its plain PyTorch version on the same inputs, then timed with
@@ -44,8 +45,10 @@ Phases, in order; any failure exits non-zero:
    versions at the training path's shapes (batch 16 of 256^2 through the
    flagship: 262144 and 65536 rows of K2 and K3), float32 and bf16,
    forward and inverse GDN, K2 and K3 also at C = 3, 48, 128, 130, 256 and
-   512 with ragged and misaligned rows; then timed, K3 beside its probe and
-   beside cuBLAS's bf16 product of the same shape (a yardstick only).
+   512 with ragged and misaligned rows, K2 at norms below 2^-100; then
+   timed by CUDA events (K2's device time beside it), K2 and K3 each beside
+   its probes and beside cuBLAS's bf16 product of the same shape (a
+   yardstick only).
 5. Training end to end: the flagship's RateMSE train step (lambda 0.01,
    encoder, decoder and fact_ent trainable, Adam at lr 1e-4; the
    configuration of ``scripts/bench_train.py``), from the flagship
@@ -107,6 +110,11 @@ K4_PROBES = {"k4_one_pass": ["-DCONV_GDN_PASSES=1"],
              "k4_no_io_one_pass": ["-DCONV_GDN_NO_IO=1",
                                    "-DCONV_GDN_PASSES=1"],
              "k4_no_io_no_lds": ["-DCONV_GDN_NO_IO=1", "-DCONV_GDN_NO_LDS=1"]}
+K2_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
+                               "probes", "gdn_fwd_probe.cu")
+# K2's probe builds and their defines (csrc/gdn_fwd_bf16_tc.cu); all count
+# the cycles of each part of a tile
+K2_PROBES = {"k2_laps": [], "k2_no_io": ["-DGDN_FWD_NO_IO=1"]}
 K3_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
                                "probes", "gdn_bwd_probe.cu")
 # K3's probe builds and their defines (csrc/gdn_bf16_tc.cu); both count the
@@ -137,7 +145,7 @@ REPLACES = {
 }
 SOURCES = {
     "gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn_tc.cu",
-    "gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
+    "gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn_fwd_bf16_tc.cu",
     "gdn_train_bwd": "cnn_autoencoder_tpu_torch/csrc/gdn_bf16_tc.cu",
     "conv_gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
     "conv_gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
@@ -255,8 +263,8 @@ def phase_device(torch):
     finally:
         PROBES.update(finish_probes(build, probes))
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {build.build_seconds:.1f} s), K1's, K4's and the rANS "
-        "probes with them")
+        f"(nvcc {build.build_seconds:.1f} s), K1's, K2's, K3's, K4's and the "
+        "rANS probes with them")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas " + line.strip())
@@ -264,13 +272,14 @@ def phase_device(torch):
 
 
 def start_probes(build):
-    """Start one nvcc for each of K1's, K3's, K4's and the rANS kernels'
-    probe builds (into build/probes); returns {name: (process, library
-    path)}."""
+    """Start one nvcc for each of K1's, K2's, K3's, K4's and the rANS
+    kernels' probe builds (into build/probes); returns {name: (process,
+    library path)}."""
     out = os.path.join(ROOT, "build", "probes")
     os.makedirs(out, exist_ok=True)
     procs = {}
     builds = ([(name, K1_PROBE_SOURCE, d) for name, d in K1_PROBES.items()]
+              + [(name, K2_PROBE_SOURCE, d) for name, d in K2_PROBES.items()]
               + [(name, K3_PROBE_SOURCE, d) for name, d in K3_PROBES.items()]
               + [(name, K4_PROBE_SOURCE, d) for name, d in K4_PROBES.items()]
               + [("rans_probe", RANS_PROBE_SOURCE, [])])
@@ -299,10 +308,14 @@ def finish_probes(build, procs):
             lib.cae_rans_probe_read.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                                 ctypes.c_int]
             lib.cae_rans_probe_laps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        elif name in K2_PROBES:
+            lib.cae_gdn_train_fwd.argtypes = build.SIGNATURES[
+                "cae_gdn_train_fwd"]
+            lib.cae_gdn_fwd_probe_laps.argtypes = [ctypes.c_void_p]
+            lib.cae_gdn_fwd_probe_groups.argtypes = []
         elif name in K3_PROBES:
-            for fn in ("cae_gdn_train_bwd", "cae_gdn_train_bwd_workspace"):
-                getattr(lib, fn).argtypes = build.SIGNATURES[fn]
-                getattr(lib, fn).restype = build.RESTYPES.get(fn, ctypes.c_int)
+            lib.cae_gdn_train_bwd.argtypes = build.SIGNATURES[
+                "cae_gdn_train_bwd"]
             lib.cae_gdn_bwd_probe_laps.argtypes = [ctypes.c_void_p]
         elif name in K4_PROBES:
             lib.cae_conv_gdn_fwd.argtypes = build.SIGNATURES[
@@ -318,13 +331,13 @@ def finish_probes(build, procs):
 
 
 def check_tc_sass(build):
-    """K1's, K3's and K4's instantiations in the built library's SASS
+    """K1's, K2's, K3's and K4's instantiations in the built library's SASS
     (cuobjdump), each of which must hold HMMA (tensor-core) instructions."""
     lib = build.load_library()._name
     dump = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", lib],
                           capture_output=True, text=True, timeout=300)
     check(dump.returncode == 0, f"cuobjdump failed: {dump.stderr.strip()}")
-    counts = {"gdn_tc_kernel": {}, "gdn_bwd_tc": {},
+    counts = {"gdn_tc_kernel": {}, "gdn_fwd_tc": {}, "gdn_bwd_tc": {},
               "conv_gdn_mma_kernel": {}}
     for part in dump.stdout.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
@@ -332,9 +345,10 @@ def check_tc_sass(build):
             if kind in name:
                 found[name] = sum(" HMMA." in line
                                   for line in part.splitlines())
-    # K3: its resident and streamed layouts, each for bf16 and float32 g
-    for kind, want in (("gdn_tc_kernel", 5), ("gdn_bwd_tc", 4),
-                       ("conv_gdn_mma_kernel", 6)):
+    # K2: its resident and streamed layouts, each for GDN and IGDN; K3: its
+    # resident and streamed layouts, each for bf16 and float32 g
+    for kind, want in (("gdn_tc_kernel", 5), ("gdn_fwd_tc", 4),
+                       ("gdn_bwd_tc", 4), ("conv_gdn_mma_kernel", 6)):
         found = counts[kind]
         log(f"{kind} SASS: {len(found)} instantiations, HMMA instructions "
             f"{sorted(found.values())}")
@@ -1181,7 +1195,8 @@ def round_trip_2048(torch, model, imgs, sym_enc, rec):
 
 
 def profile_device(torch, fn, label, copies=False):
-    """Device time by operation over one more call of ``fn``, and the share
+    """Device time by operation over one more call of ``fn`` (the 15
+    largest rows and every row of the port's own kernels), and the share
     of the wall time the device was busy; with ``copies``, the host<->device
     copies' time, count and bytes from the trace.  Returns the busy
     seconds."""
@@ -1206,6 +1221,13 @@ def profile_device(torch, fn, label, copies=False):
     log(f"profile of {label}: wall {wall * 1e3:.3f} ms, device busy "
         f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%)")
     for us, count, key in rows[:15]:
+        log(f"  {us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
+    # the port's own kernels (csrc/, anonymous namespaces) below those rows
+    ours = [r for r in rows[15:] if "(anonymous namespace)::" in r[2]
+            and "at::native" not in r[2]]
+    if ours:
+        log("  ... the port's kernels below them:")
+    for us, count, key in ours:
         log(f"  {us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
     if copies:
         copy_rows(prof)
@@ -1255,12 +1277,9 @@ def close(got, ref, rel, slack):
     return ok, float(err.max())
 
 
-def check_gdn_train_case(torch, x, gamma, beta, inverse, label, rng):
-    """K2 then K3 on the same rows, each against its plain version:
-    y to 1e-5 relative (float32) or one bf16 ulp, r and dnb to one bf16
-    ulp, dx to one bf16 ulp (2^-7 relative) or 1e-5 relative, plus 1e-5 of
-    max |dx| for the sums' order.  Returns the max abs errors of y and
-    dx."""
+def check_gdn_fwd_case(torch, x, gamma, beta, inverse, label):
+    """K2 against its plain version: y to 1e-5 relative (float32) or one
+    bf16 ulp, r to one bf16 ulp.  Returns (max abs error of y, r)."""
     from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
     bf16 = x.dtype == torch.bfloat16
     y, rb = gk.gdn_train_fwd_cuda(x, gamma, beta, inverse)
@@ -1274,6 +1293,17 @@ def check_gdn_train_case(torch, x, gamma, beta, inverse, label, rng):
     check(ok, f"gdn_train_fwd {label}: y error {y_err:.3e}")
     check(bf16_ulps(rb, rb_p) <= 1, f"gdn_train_fwd {label}: r differs "
           "by more than one bf16 ulp")
+    return y_err, rb
+
+
+def check_gdn_train_case(torch, x, gamma, beta, inverse, label, rng):
+    """K2 then K3 on the same rows, each against its plain version: K2 by
+    check_gdn_fwd_case, dnb to one bf16 ulp, dx to one bf16 ulp (2^-7
+    relative) or 1e-5 relative, plus 1e-5 of max |dx| for the sums' order.
+    Returns the max abs errors of y and dx."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
+    bf16 = x.dtype == torch.bfloat16
+    y_err, rb = check_gdn_fwd_case(torch, x, gamma, beta, inverse, label)
     g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).cuda()
     g = g.to(x.dtype)
     xb = x.to(torch.bfloat16)
@@ -1290,76 +1320,128 @@ def check_gdn_train_case(torch, x, gamma, beta, inverse, label, rng):
     return y_err, dx_err
 
 
-def check_gdn_bwd_misaligned(torch, rng):
-    """K3 on inputs whose rows start 2 bytes past a 16-byte boundary (views
-    into larger buffers), which it stages element by element: held to the
-    plain version with check_gdn_train_case's limits."""
+def check_gdn_train_misaligned(torch, rng):
+    """K2 and K3 on inputs whose rows start one element past a 16-byte
+    boundary (views into larger buffers), which they stage element by
+    element: held to their plain versions with check_gdn_train_case's
+    limits."""
     from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
     rows, c = 131, 128
     gamma = torch.from_numpy((0.1 * rng.rand(c, c)).astype(np.float32)).cuda()
+    beta = torch.from_numpy((1.0 + rng.rand(c)).astype(np.float32)).cuda()
+
+    def shifted(a, dt):
+        buf = torch.empty(a.size + 8, dtype=dt, device="cuda")
+        view = buf[1:1 + a.size].view(rows, c)
+        view.copy_(torch.from_numpy(a).to(dt))
+        return view
+
     for dtype in (torch.bfloat16, torch.float32):
-        def shifted(a, dt):
-            buf = torch.empty(a.size + 8, dtype=dt, device="cuda")
-            view = buf[1:1 + a.size].view(rows, c)
-            view.copy_(torch.from_numpy(a).to(dt))
-            return view
+        bf16 = dtype == torch.bfloat16
+        x = shifted(rng.randn(rows, c).astype(np.float32), dtype)
         g = shifted(rng.randn(rows, c).astype(np.float32), dtype)
         xb = shifted(rng.randn(rows, c).astype(np.float32), torch.bfloat16)
         rb = shifted((0.5 + rng.rand(rows, c)).astype(np.float32),
                      torch.bfloat16)
-        check(g.data_ptr() % 16 != 0 and xb.data_ptr() % 16 != 0,
-              "misaligned K3 case: the views are aligned")
+        check(x.data_ptr() % 16 != 0 and g.data_ptr() % 16 != 0
+              and xb.data_ptr() % 16 != 0,
+              "misaligned K2/K3 case: the views are aligned")
         for inverse in (False, True):
+            label = f"misaligned ({rows}, {c}) {str(dtype)[6:]} " \
+                    f"inverse={inverse}"
+            y_err, _ = check_gdn_fwd_case(torch, x, gamma, beta, inverse,
+                                          label)
             dx, dnb = gk.gdn_train_bwd_cuda(g, xb, rb, gamma, inverse)
             dx_p, dnb_p = gk.gdn_train_bwd_plain(g, xb, rb, gamma, inverse)
             torch.cuda.synchronize()
-            label = f"misaligned ({rows}, {c}) {str(dtype)[6:]} " \
-                    f"inverse={inverse}"
             check(bf16_ulps(dnb, dnb_p) <= 1, f"gdn_train_bwd {label}: dnb "
                   "differs by more than one bf16 ulp")
-            ok, err = close(dx, dx_p, 2.0 ** -7 if dtype == torch.bfloat16
-                            else 1e-5, 1e-5)
+            ok, err = close(dx, dx_p, 2.0 ** -7 if bf16 else 1e-5, 1e-5)
             check(ok, f"gdn_train_bwd {label}: dx error {err:.3e}")
-            log(f"gdn_train_bwd {label}: dx max abs {err:.3e}")
+            log(f"gdn_train_fwd/bwd {label}: y max abs {y_err:.3e}, dx max "
+                f"abs {err:.3e}")
 
 
-def k3_yardsticks(torch, g, xb, rb, gamma, ms, bms):
+def time_probes(torch, kernel, probes, call, laps_fn, parts, tiles, shape):
+    """Each probe build of ``probes`` (``call(lib, name)`` launches it once)
+    timed by CUDA events, with the clock64 cycles of each part of a tile
+    that its ``laps_fn`` reads and zeroes (thread 0 of a block, over
+    ``tiles`` tiles a launch); returns {name: ms}."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import build
+    reps, times = 20, {}
+    for name in probes:
+        lib = PROBES[name]
+        laps = (ctypes.c_ulonglong * 4)()
+        read = getattr(lib, laps_fn)
+        build.check_launch(read(laps), name)  # zero
+        times[name] = cuda_ms(torch, lambda: call(lib, name), reps)
+        build.check_launch(read(laps), name)
+        per_tile = [v / ((reps + 1) * tiles) for v in laps]
+        log(f"{kernel} probe {name} {shape} bf16: {times[name]:.4f} ms; "
+            "cycles a 32-row tile (thread 0 of a block) by part: "
+            + ", ".join(f"{p} {v:.1f}" for p, v in zip(parts, per_tile)))
+    return times
+
+
+def k2_yardsticks(torch, xb, gamma, beta, ms, dev_ms, bms, mm_ms):
+    """K2 at the timed shape (CUDA events around the wrapper ``ms``, the
+    device time of its kernels ``dev_ms``) beside its probes (the kernel
+    with cycle counts by part of a tile; the same without device-memory
+    traffic, what the SM spends) and beside cuBLAS's bf16 product of the
+    same shape alone (``mm_ms``)."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import build
+    n, c = xb.shape
+    y = torch.empty_like(xb)
+    rb = torch.empty_like(xb)
+    g32 = gamma.detach().float().contiguous()
+    b32 = beta.detach().float().contiguous()
+    work = torch.empty(build.load_library().cae_gdn_train_fwd_workspace(c),
+                       dtype=torch.uint8, device=xb.device)
+
+    def call(lib, name):
+        build.check_launch(lib.cae_gdn_train_fwd(
+            xb.data_ptr(), g32.data_ptr(), b32.data_ptr(), y.data_ptr(),
+            rb.data_ptr(), work.data_ptr(), n, c, 0,
+            torch.cuda.current_stream().cuda_stream), name)
+
+    # thread 0 is in the first of a block's groups: one tile in as many as
+    # the probe's resident block holds
+    groups = PROBES["k2_laps"].cae_gdn_fwd_probe_groups()
+    time_probes(torch, "gdn_train_fwd", K2_PROBES, call,
+                "cae_gdn_fwd_probe_laps",
+                ("wait for copies", "x^2", "product", "epilogue"),
+                -(-n // (32 * groups)), [n, c])
+    log(f"gdn_train_fwd {[n, c]} bf16: kernel {ms:.4f} ms by CUDA events "
+        f"around the wrapper ({dev_ms:.4f} ms device time), "
+        f"{100 * bms / ms:.1f}% of its bound {bms:.4f} ms; cuBLAS bf16 "
+        f"({n}, {c}) @ ({c}, {c}) alone {mm_ms:.4f} ms (a yardstick)")
+
+
+def k3_yardsticks(torch, g, xb, rb, gamma, ms, bms, mm_ms):
     """K3 at the timed shape beside its probes (the kernel with cycle
     counts by part of a tile; the same without device-memory traffic, what
     the SM spends) and beside cuBLAS's bf16 product of the same shape
-    alone (torch.matmul, a yardstick for the log; no single library call
-    computes K3's function)."""
+    alone (``mm_ms``)."""
     from cnn_autoencoder_tpu_torch.ops.kernels import build
     n, c = g.shape
     dx = torch.empty_like(g)
     dnb = torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
     g32 = gamma.detach().float().contiguous()
+    work = torch.empty(build.load_library().cae_gdn_train_bwd_workspace(c),
+                       dtype=torch.uint8, device=g.device)
+
+    def call(lib, name):
+        build.check_launch(lib.cae_gdn_train_bwd(
+            g.data_ptr(), xb.data_ptr(), rb.data_ptr(), g32.data_ptr(),
+            dx.data_ptr(), dnb.data_ptr(), work.data_ptr(), n, c, 0,
+            int(g.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream), name)
+
     # thread 0 is in the first of a block's two groups: half the 32-row tiles
-    reps, tiles = 20, -(-n // 64)
-    parts = ("wait for copies", "dnb", "product", "dx")
-    for name in K3_PROBES:
-        lib = PROBES[name]
-        work = torch.empty(lib.cae_gdn_train_bwd_workspace(c),
-                           dtype=torch.uint8, device=g.device)
-        laps = (ctypes.c_ulonglong * 4)()
-
-        def probe():
-            build.check_launch(lib.cae_gdn_train_bwd(
-                g.data_ptr(), xb.data_ptr(), rb.data_ptr(), g32.data_ptr(),
-                dx.data_ptr(), dnb.data_ptr(), work.data_ptr(), n, c, 0,
-                int(g.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream), name)
-
-        build.check_launch(lib.cae_gdn_bwd_probe_laps(laps), name)  # zero
-        probe_ms = cuda_ms(torch, probe, reps)
-        build.check_launch(lib.cae_gdn_bwd_probe_laps(laps), name)
-        per_tile = [v / ((reps + 1) * tiles) for v in laps]
-        log(f"gdn_train_bwd probe {name} {[n, c]} bf16: {probe_ms:.4f} ms; "
-            "cycles a 32-row tile (thread 0 of a block) by part: "
-            + ", ".join(f"{p} {v:.1f}" for p, v in zip(parts, per_tile)))
-    a = torch.randn(n, c, device=g.device).to(torch.bfloat16)
-    b = g32.to(torch.bfloat16)
-    mm_ms = cuda_ms(torch, lambda: torch.matmul(a, b), 20)
+    time_probes(torch, "gdn_train_bwd", K3_PROBES, call,
+                "cae_gdn_bwd_probe_laps",
+                ("wait for copies", "dnb", "product", "dx"), -(-n // 64),
+                [n, c])
     log(f"gdn_train_bwd {[n, c]} bf16: kernel {ms:.4f} ms; cuBLAS bf16 "
         f"({n}, {c}) @ ({c}, {c}) alone {mm_ms:.4f} ms (a yardstick); "
         f"bound {bms:.4f} ms")
@@ -1433,8 +1515,8 @@ def phase_train_kernels(torch, model):
                 del x
         # C = 48 (the latent's width), ragged C and rows (K3's resident
         # layout up to C = 128, its streamed one above)
-        for rows, c in ((1000, 48), (203, 3), (1001, 128), (77, 130),
-                        (130, 256), (70, 512)):
+        for rows, c in ((1000, 48), (203, 3), (1001, 128), (9, 128),
+                        (77, 130), (130, 256), (70, 512)):
             gamma = torch.from_numpy((0.1 * rng.rand(c, c))
                                      .astype(np.float32)).cuda()
             beta = torch.from_numpy((1.0 + rng.rand(c))
@@ -1447,7 +1529,24 @@ def phase_train_kernels(torch, model):
                         torch, x, gamma, beta, inverse,
                         f"({rows}, {c}) {str(dtype)[6:]} inverse={inverse}",
                         rng)
-        check_gdn_bwd_misaligned(torch, rng)
+        # K2 at norms below the range of its branch-free square root (beta
+        # 1e-35 and rows of zeros), where its IGDN falls back to sqrtf (K3's
+        # function overflows there: r^3 of those rows is past float32)
+        c = 128
+        gamma = torch.from_numpy((0.1 * rng.rand(c, c)).astype(np.float32)) \
+            .cuda()
+        beta = torch.full((c,), 1e-35, device="cuda")
+        x32 = rng.randn(67, c).astype(np.float32)
+        x32[::3] = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            for inverse in (False, True):
+                label = f"(67, {c}) beta 1e-35 {str(dtype)[6:]} " \
+                        f"inverse={inverse}"
+                y_err, _ = check_gdn_fwd_case(
+                    torch, torch.from_numpy(x32).cuda().to(dtype), gamma,
+                    beta, inverse, label)
+                log(f"gdn_train_fwd {label}: y max abs {y_err:.3e}")
+        check_gdn_train_misaligned(torch, rng)
 
         # K4 training variant: down_1 at the path's shape, and ragged
         unit = model.encoder.down_1
@@ -1488,18 +1587,27 @@ def phase_train_kernels(torch, model):
         gb = torch.from_numpy(rng.randn(n, c).astype(np.float32)).cuda() \
             .to(torch.bfloat16)
         nc = n * c
-        ms = cuda_ms(torch, lambda: gk.gdn_train_fwd_cuda(xb, gamma0, beta0),
-                     20)
+        # K2 by CUDA events around the wrapper, as K1, K3 and K4 are timed;
+        # the device time of its prep and main kernel beside it, in the log
+        def k2():
+            return gk.gdn_train_fwd_cuda(xb, gamma0, beta0)
+
+        ms, dev_ms = cuda_ms(torch, k2, 20), device_ms(torch, k2, 20)
         plain_ms = cuda_ms(torch, lambda: gk.gdn_train_fwd_plain(
             xb, gamma0, beta0), 10)
         bms, by = bound_ms(6 * nc + 4 * c * (c + 1),
                            [(2 * nc * c, PEAK_BF16_S), (5 * nc, PEAK_F32_S)])
-        # core_ms: the same operations at the CUDA cores' float32 rate,
-        # where these designs compute (the ceiling of the design built)
         out["gdn_train_fwd"] = dict(
             max_abs_err=errs[(n, False, torch.bfloat16)][0], ms=ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c],
-            core_ms=(2 * nc * c + 5 * nc) / PEAK_F32_S * 1e3)
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c])
+        # cuBLAS's bf16 product of K2's and K3's shape alone: a yardstick
+        # for the log (torch.matmul; no single library call computes
+        # either function)
+        a = torch.randn(n, c, device="cuda").to(torch.bfloat16)
+        b = gamma0.detach().to(torch.bfloat16)
+        mm_ms = cuda_ms(torch, lambda: torch.matmul(a, b), 20)
+        del a
+        k2_yardsticks(torch, xb, gamma0, beta0, ms, dev_ms, bms, mm_ms)
         ms = cuda_ms(torch, lambda: gk.gdn_train_bwd_cuda(gb, xb, rb, gamma0),
                      20)
         plain_ms = cuda_ms(torch, lambda: gk.gdn_train_bwd_plain(
@@ -1508,9 +1616,8 @@ def phase_train_kernels(torch, model):
                            [(2 * nc * c, PEAK_BF16_S), (12 * nc, PEAK_F32_S)])
         out["gdn_train_bwd"] = dict(
             max_abs_err=errs[(n, False, torch.bfloat16)][1], ms=ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c],
-            core_ms=(2 * nc * c + 12 * nc) / PEAK_F32_S * 1e3)
-        k3_yardsticks(torch, gb, xb, rb, gamma0, ms, bms)
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c])
+        k3_yardsticks(torch, gb, xb, rb, gamma0, ms, bms, mm_ms)
         del xb, gb, rb
 
         for dt, name in ((torch.bfloat16, "bf16"),
@@ -1530,15 +1637,12 @@ def phase_train_kernels(torch, model):
                 max_abs_err=conv_err[dt], ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, shape=list(xt.shape))
         del x32
-    rec = out["gdn_train_fwd"]
-    log(f"gdn_train_fwd {rec['shape']} bf16: kernel {rec['ms']:.4f} ms, "
-        f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}), CUDA-core ceiling {rec['core_ms']:.4f} ms")
-    rec = out["gdn_train_bwd"]
-    log(f"gdn_train_bwd {rec['shape']} bf16: kernel {rec['ms']:.4f} ms, "
-        f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}), {100 * rec['bound_ms'] / rec['ms']:.1f}% of "
-        "it")
+    for name in ("gdn_train_fwd", "gdn_train_bwd"):
+        rec = out[name]
+        log(f"{name} {rec['shape']} bf16: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), {100 * rec['bound_ms'] / rec['ms']:.1f}% "
+            "of it")
     return out
 
 

@@ -3,7 +3,8 @@
 //
 // It replaces cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:
 // _gdn_train_bwd_kernel (pallas_call in _gdn_train_bwd_pallas).  From the
-// cotangent g and the bf16 residuals xb, rb of K2 (csrc/gdn.cu):
+// cotangent g and the bf16 residuals xb, rb of K2
+// (csrc/gdn_fwd_bf16_tc.cu):
 //   dnorm = (-0.5 g x) (r r r)   (IGDN: (0.5 g x) / r),  dnb = bf16(dnorm)
 //   back[n, i] = sum_o dnb[n, o] * bf16(gamma[o, i])   (float32 sums)
 //   dx = g r + 2 x back
@@ -56,9 +57,6 @@
 
 #include <algorithm>
 #include <cstdint>
-#include <map>
-#include <mutex>
-#include <tuple>
 
 #include "bf16_mma.cuh"
 #include "smem_copy.cuh"
@@ -80,16 +78,10 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// A group of 8 warps (2 along rows x 4 along C) computes one tile of 32
-// rows at a time; the resident kernel's block holds two groups that take
-// alternate tiles, the streamed kernel's block one.
-constexpr int kGroupThreads = 256;
+// The tile geometry (bf16_mma.cuh): groups of 8 warps on tiles of 32 rows;
+// the resident kernel's block holds two groups that take alternate tiles,
+// the streamed kernel's block one.
 constexpr int kResidentThreads = 2 * kGroupThreads;
-constexpr int kWarpRows = 2;
-constexpr int kWarpCols = 32;          // output channels of a warp (4 tiles)
-constexpr int kRows = 32;              // rows of a tile
-constexpr int kChunk = 128;            // output channels of one product
-constexpr int kSliceK = 64;            // reduction channels of a slice
 constexpr int kBackPitch = kChunk + 8;  // floats per row of the sums
 constexpr bool kNoIO = GDN_BWD_NO_IO;
 
@@ -108,16 +100,6 @@ __device__ __forceinline__ void lap(long long& last, int part) {
     last = now;
   }
 #endif
-}
-
-__host__ __device__ constexpr int round_up(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
-// rows of tile t of n rows
-__device__ __forceinline__ int tile_rows(int64_t n, int64_t t) {
-  const int64_t left = n - t * kRows;
-  return left < kRows ? static_cast<int>(left) : kRows;
 }
 
 __device__ __forceinline__ float dnorm_of(float g, float x, float r,
@@ -156,28 +138,6 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
 __device__ __forceinline__ bool any_nan(const float (&v)[8]) {
   bool nan = false;
 #pragma unroll
@@ -208,21 +168,6 @@ __device__ __forceinline__ void store1(bf16* p, float v) {
   if (!kNoIO || v != v) *p = __float2bfloat16(v);
 }
 
-// gt[i * kp + o] = bf16(gamma[o * c + i]) for i, o < c, zero elsewhere:
-// (np x kp), np and kp whole chunks and slices
-__global__ void gamma_bf16_prep_kernel(const float* __restrict__ gamma,
-                                       bf16* __restrict__ gt, int c, int kp,
-                                       int np) {
-  const int64_t total = static_cast<int64_t>(np) * kp;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int i = static_cast<int>(e / kp), o = static_cast<int>(e % kp);
-    gt[e] = __float2bfloat16(
-        i < c && o < c ? gamma[static_cast<int64_t>(o) * c + i] : 0.f);
-  }
-}
-
 // bytes [0, nbytes) from src (16-byte aligned when aligned) into dst, by
 // the threads gt of a group: 16-byte cp.async copies, the tail (and all of
 // an unaligned span) element by element
@@ -241,12 +186,6 @@ __device__ __forceinline__ void stage_span(T* dst, const T* src, int nbytes,
   for (int e = done / static_cast<int>(sizeof(T)) + gt;
        e < nbytes / static_cast<int>(sizeof(T)); e += kGroupThreads)
     dst[e] = src[e];
-}
-
-// the barrier of the group's 256 threads (named barrier 1 + group)
-__device__ __forceinline__ void group_sync(int group) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(kGroupThreads)
-               : "memory");
 }
 
 // A tile's product over kSteps k-steps: a warp's 16 x 32 block of A (pitch
@@ -505,46 +444,13 @@ int resident_smem(int c, int g_size) {
 constexpr int kStreamedSmem =
     2 * (kRows + kChunk) * (kSliceK + 8) + 4 * kRows * kBackPitch;
 
-// The blocks of `kernel` (threads threads, smem bytes of dynamic shared
-// memory, opted in) that the current device holds at once, queried once per
-// (device, kernel, smem).
-cudaError_t resident_blocks(const void* kernel, int threads, int smem,
-                            int* out) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, const void*, int>, int> cache;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(dev, kernel, smem);
-  const auto found = cache.find(key);
-  if (found != cache.end()) {
-    *out = found->second;
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return err;
-  *out = cache[key] = sms * std::max(per_sm, 1);
-  return cudaSuccess;
-}
-
 template <typename G>
 cudaError_t launch(const G* g, const bf16* xb, const bf16* rb,
                    const float* gamma, G* dx, bf16* dnb, bf16* gt, int64_t n,
                    int c, int inverse, cudaStream_t stream) {
   const bool resident = c <= kChunk;
-  // gamma's K: one whole chunk for the resident layout, whole slices else
-  const int kp = resident ? kChunk : round_up(c, kSliceK);
-  const int np = round_up(c, kChunk);
-  const int64_t prep = static_cast<int64_t>(np) * kp;
-  gamma_bf16_prep_kernel<<<static_cast<unsigned>(
-                               std::min<int64_t>((prep + 255) / 256, 1024)),
-                           256, 0, stream>>>(gamma, gt, c, kp, np);
-  cudaError_t err = cudaGetLastError();
+  const int kp = gamma_bf16_kp(c);
+  cudaError_t err = launch_gamma_bf16_prep(gamma, gt, c, 1, stream);
   if (err != cudaSuccess) return err;
   const int64_t ntiles = (n + kRows - 1) / kRows;
   const void* kernel =
@@ -577,8 +483,7 @@ cudaError_t launch(const G* g, const bf16* xb, const bf16* rb,
 // Bytes of the workspace cae_gdn_train_bwd takes for C channels: the bf16
 // gamma, transposed and padded.
 extern "C" int64_t cae_gdn_train_bwd_workspace(int c) {
-  return static_cast<int64_t>(round_up(c, kChunk)) *
-         (c <= kChunk ? kChunk : round_up(c, kSliceK)) * 2;
+  return gamma_bf16_bytes(c);
 }
 
 // g and dx are float32 (is_bf16 = 0) or bf16 (is_bf16 = 1); xb, rb and dnb

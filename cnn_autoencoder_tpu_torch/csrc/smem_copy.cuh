@@ -1,14 +1,17 @@
 // Shared-memory helpers of the kernels that stage their operands
-// (csrc/gdn_tc.cu, csrc/conv_gdn.cu, csrc/rans.cu): cp.async copies into
-// shared memory, the wait on an mbarrier, and the host's once-per-device
-// opt-in to a kernel's dynamic shared memory.
+// (csrc/gdn_tc.cu, csrc/conv_gdn.cu, csrc/rans.cu, the bf16 GDN kernels):
+// cp.async copies into shared memory, the wait on an mbarrier, and the
+// host's once-per-device opt-in to a kernel's dynamic shared memory and
+// count of the blocks the device holds at once.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <map>
 #include <mutex>
+#include <tuple>
 #include <utility>
 
 namespace {
@@ -83,6 +86,33 @@ inline cudaError_t opt_in_smem(const void* k, int smem) {
                              smem);
   if (err != cudaSuccess) return err;
   done[{dev, k}] = smem;
+  return cudaSuccess;
+}
+
+// The blocks of `kernel` (threads threads, smem bytes of dynamic shared
+// memory, opted in) that the current device holds at once, queried once per
+// (device, kernel, smem).
+inline cudaError_t resident_blocks(const void* kernel, int threads, int smem,
+                                   int* out) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int>, int> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, kernel, smem);
+  const auto found = cache.find(key);
+  if (found != cache.end()) {
+    *out = found->second;
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  *out = cache[key] = sms * std::max(per_sm, 1);
   return cudaSuccess;
 }
 

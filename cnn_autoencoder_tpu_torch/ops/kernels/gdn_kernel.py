@@ -1,6 +1,6 @@
 """GDN over (N, C) rows: the CUDA kernels of ``csrc/gdn_tc.cu``,
-``csrc/gdn.cu`` and ``csrc/gdn_bf16_tc.cu`` and their plain PyTorch
-versions.
+``csrc/gdn_fwd_bf16_tc.cu``, ``csrc/gdn.cu`` and ``csrc/gdn_bf16_tc.cu``
+and their plain PyTorch versions.
 
 * K1 ``gdn_cuda`` replaces ``cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:
   _gdn_kernel``: float32 rows, float32-accurate math on the tensor cores
@@ -11,7 +11,10 @@ versions.
   recomputes the plain float32 GDN and differentiates it, as the JAX
   backward does (it has no kernel there either).
 * K2 ``gdn_train_fwd_cuda`` replaces ``_gdn_train_fwd_kernel``: ``y`` in the
-  rows' type and the backward residual ``r`` as bf16.
+  rows' type and the backward residual ``r`` as bf16.  bf16 rows (the bf16
+  mode's path) take the pool on the bf16 tensor cores (one pass, float32
+  sums, ``gdn_fwd_bf16_tc.cu``); float32 rows, on no path of the port,
+  the CUDA-core kernel of ``gdn.cu`` with a full-float32 pool.
 * K3 ``gdn_train_bwd_cuda`` replaces ``_gdn_train_bwd_kernel``: ``dx`` in the
   cotangent's type and ``dnb = bf16(dnorm)``, the pool on the bf16 tensor
   cores (bf16 products are exact in float32; one pass, float32 sums).
@@ -144,21 +147,30 @@ def gdn_train_fwd_cuda(x2d: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, inverse: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2; raises on what it does not take."""
-    _require_cuda("gdn_train_fwd_cuda", x2d)
     c = x2d.shape[-1]
     _check_rows("gdn_train_fwd x", x2d, c, _ROW_DTYPES, x2d.device)
     _check_params("gdn_train_fwd", x2d.device, c, gamma, beta)
+    _require_cuda("gdn_train_fwd_cuda", x2d)
     n = x2d.shape[0]
-    gamma_t = gamma.detach().float().t().contiguous()
+    gamma = gamma.detach().float().contiguous()
     beta = beta.detach().float().contiguous()
     y = torch.empty_like(x2d)
     rb = torch.empty(x2d.shape, dtype=torch.bfloat16, device=x2d.device)
     lib = load_library()
     with torch.cuda.device(x2d.device):
-        err = lib.cae_gdn_train_fwd(
-            x2d.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            rb.data_ptr(), n, c, int(inverse),
-            int(x2d.dtype == torch.bfloat16), stream_handle(x2d))
+        if x2d.dtype == torch.bfloat16:
+            # the kernel's bf16 copy of gamma, padded
+            work = torch.empty(lib.cae_gdn_train_fwd_workspace(c),
+                               dtype=torch.uint8, device=x2d.device)
+            err = lib.cae_gdn_train_fwd(
+                x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                y.data_ptr(), rb.data_ptr(), work.data_ptr(), n, c,
+                int(inverse), stream_handle(x2d))
+        else:
+            err = lib.cae_gdn_train_fwd_f32(
+                x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                y.data_ptr(), rb.data_ptr(), n, c, int(inverse),
+                stream_handle(x2d))
     check_launch(err, "gdn_train_fwd")
     gdn_train_fwd_cuda.launches += 1
     return y, rb
