@@ -58,7 +58,20 @@ Phases, in order; any failure exits non-zero:
    non-zero; the same steps with the same noise through the plain versions
    on the card, losses held to the kernels' run; then the step time, an
    eval step and the device time by operation of one more step.
-6. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+6. Host coder and every CAE codec: (a) build the host rANS library
+   (``coding/csrc/rans.cpp``, ``g++``) and hold it byte for byte to the
+   plain Python coder on one 64^2 crop's symbols, with and without
+   escapes; (b) the 16 flagship 512^2 tiles through ``CAECodecCore`` (the
+   ``cae`` codec's core): symbols equal to ``CAETurboCore``'s, lossless
+   host coding, reconstructions bit-equal to the turbo decode, encode and
+   decode MP/s with the host coder's ms and bytes a tile; (c) the
+   fallbacks to host frames: one symbol out of its table, a flagship copy
+   with a scaled encoder, six overflowing capacities at S = 16; (d) one
+   decode batch of v4, host and v3 frames and a 500 x 300 tile; (e)
+   ``cae_bn`` on one tile's float latent.  Launch counts are reset after
+   (b)'s warm-up and read just after its timed round trips, and logged on
+   their own: the ``cae`` path launches K1 and K4 and no rANS kernel.
+7. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
    runs of phases 3 and 5), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -153,6 +166,10 @@ SOURCES = {
     "rans_compact": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
     "rans_decode": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
 }
+# the 'cae' codec's round trip (CAECodecCore): the model's GDN and fused
+# conv + GDN layers, no device rANS
+CAE_KERNELS = ("gdn_fwd", "conv_gdn_fwd")
+CAE_ROUNDS = 5      # timed 'cae' round trips in phase 6
 SERVING_KERNELS = ("gdn_fwd", "conv_gdn_fwd", "rans_encode_states",
                    "rans_compact", "rans_decode")
 # launches per train step, by compute mode; every other kernel launches 0
@@ -1059,7 +1076,7 @@ def plain_reconstruct(torch, model, core, tiles_u8, symbols):
             else:
                 check(unit.act is None, f"{name}: activation {unit.act}")
                 x = unit.conv_down(x)
-        sym = torch.round(x - core._med).to(torch.int32)
+        sym = torch.round(x - core.base._med).to(torch.int32)
         sym = sym.permute(0, 3, 1, 2).contiguous()
         bsz, c, lh, lw = sym.shape
         s = core.num_streams
@@ -1074,7 +1091,7 @@ def plain_reconstruct(torch, model, core, tiles_u8, symbols):
         dec = unpack_streams(vals + tab.offset[cmap.long()][None],
                              c * lh * lw).reshape(sym.shape)
         check(torch.equal(dec, sym), "plain rANS round trip lost symbols")
-        y = symbols.permute(0, 2, 3, 1).float() + core._med
+        y = symbols.permute(0, 2, 3, 1).float() + core.base._med
         for name in model.decoder.names:
             unit = getattr(model.decoder, name)
             y = unit.deconv_up(y)
@@ -1779,6 +1796,333 @@ def phase_training(torch):
     return totals
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms for the block: the default ones for
+    the decoder's transposed convolutions add in a varying order, so two
+    decodes of the same symbols differ in a few pixels by one level."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def scaled_checkpoint(factor, path=CHECKPOINT):
+    """A checkpoint's state (the flagship's by default) with the encoder's
+    last conv scaled by ``factor``: its latent leaves the coding tables."""
+    from cnn_autoencoder_tpu_torch.training.checkpoint import load_checkpoint
+    state = dict(load_checkpoint(path))
+    enc = state["encoder"]["params"]
+    last = sorted(enc)[-1]
+    kernel = enc[last]["conv_down"]["kernel"]
+    state["encoder"] = {"params": {**enc, last: {"conv_down": {
+        "kernel": kernel * np.float32(factor)}}}}
+    return state
+
+
+def v3_frame_bytes(bufs, lengths, cap, s, true_hw):
+    """Legacy frame v3 chunks from a v3 writer's (B, S, cap) per-stream word
+    buffers and (B, S) word counts: header, byte-length table, then each
+    stream's words in turn."""
+    import struct
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import (
+        LEGACY_VERSION, TURBO_FLAG)
+    bufs = np.asarray(bufs).astype("<u2")
+    lengths = np.asarray(lengths)
+    check(int(lengths.max()) <= cap, "v3 writer: overflow")
+    out = []
+    for i, (h, w) in enumerate(true_hw):
+        used = np.arange(cap)[None, :] < lengths[i][:, None]
+        out.append(b"".join([struct.pack(">QQ", h | TURBO_FLAG, w),
+                             struct.pack(">BH", LEGACY_VERSION, s),
+                             (lengths[i] * 2).astype(">u4").tobytes(),
+                             bufs[i][used].tobytes()]))
+    return out
+
+
+def v3_frames(core, sym, true_hw, s=None):
+    """Legacy frame v3 of (B, C, lh, lw) symbols over ``s`` streams (the
+    core's by default), built with the port's v3 writer
+    (``encode_device``) as the JAX package's v3 test builds them."""
+    from cnn_autoencoder_tpu_torch.coding.device_rans import (encode_device,
+                                                              pack_streams)
+    b, _, lh, lw = sym.shape
+    s = s or core.num_streams
+    packed = pack_streams(sym.reshape(b, -1), s)
+    cap = 2 * packed.shape[1] + 8
+    bufs, lengths, esc = encode_device(packed, core._ch_map(lh, lw, s),
+                                       core.tables, cap)
+    check(int(esc) == 0, "v3 writer: escapes")
+    return v3_frame_bytes(bufs.cpu().numpy(), lengths.cpu().numpy(), cap, s,
+                          true_hw)
+
+
+def host_coder_check(torch, core):
+    """(a) The host coder built from the repository's source, held byte for
+    byte to the plain Python coder on one 64^2 crop's symbols, with and
+    without escapes."""
+    from cnn_autoencoder_tpu_torch.coding import _rans_py, rans
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import is_turbo_frame
+    t0 = time.perf_counter()
+    rans.load_library()
+    log(f"host coder: built in {rans.build_seconds:.2f} s (load "
+        f"{time.perf_counter() - t0:.2f} s), {rans.num_threads()} OpenMP "
+        f"threads; host CPU {rans.cpu_name()}, {os.cpu_count()} cores")
+    base = core.base
+    sym = core.latent_symbols(image(64, 64, 99)[None]).cpu().numpy()
+    c, lh, lw = sym.shape[1:]
+    idx = np.repeat(np.arange(c, dtype=np.int32), lh * lw)
+    flat = sym.reshape(-1).astype(np.int32)
+    esc = flat.copy()
+    rng = np.random.RandomState(5)
+    at = rng.choice(esc.size, 24, replace=False)
+    esc[at[:8]] = base.offset[idx[at[:8]]] - 1 - rng.randint(0, 500, 8)
+    esc[at[8:16]] = (base.offset[idx[at[8:16]]] + base.cdf_length[idx[at[8:16]]]
+                     + rng.randint(0, 5000, 8))
+    esc[at[16:]] = [-(2 ** 31), 2 ** 31 - 1, -70000, 90000, -1000000,
+                    3000000, -(2 ** 30), 2 ** 30]
+    for label, s in (("in-table", flat), ("escapes", esc)):
+        t0 = time.perf_counter()
+        ours = rans.encode_with_indexes(s, idx, base.cdf, base.cdf_length,
+                                        base.offset)
+        t1 = time.perf_counter()
+        plain = _rans_py.encode_with_indexes(
+            s.tolist(), idx.tolist(), base.cdf.tolist(),
+            base.cdf_length.tolist(), base.offset.tolist())
+        t2 = time.perf_counter()
+        check(ours == plain, f"host coder ({label}): C++ and plain streams "
+              "differ")
+        back = rans.decode_with_indexes(ours, idx, base.cdf, base.cdf_length,
+                                        base.offset)
+        check(np.array_equal(back, s), f"host coder ({label}): round trip "
+              "lost symbols")
+        log(f"host coder ({label}, {s.size} symbols): byte-identical to the "
+            f"plain coder, {len(ours)} bytes; C++ {(t1 - t0) * 1e3:.3f} ms, "
+            f"plain {(t2 - t1) * 1e3:.3f} ms")
+    check(not is_turbo_frame(base.entropy_encode(sym, [(64, 64)])[0]),
+          "a host frame reads as a turbo frame")
+
+
+def cae_round_trip(torch, core, imgs):
+    """(b) The flagship tiles through CAECodecCore on the card: symbols,
+    lossless host coding, reconstructions bit-equal to the turbo decode of
+    the same symbols, and MP/s with the host coder's share.  Launch counts
+    are reset after the warm-up and read just after the timed round trips:
+    the 'cae' path runs K1 and K4 and no rANS kernel."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    base = core.base
+    n = imgs.shape[0]
+    mpix = n * imgs.shape[1] * imgs.shape[2] / 1e6
+    base.decode_tiles(base.encode_tiles(imgs))          # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    enc_s, dec_s = [], []
+    for _ in range(CAE_ROUNDS):
+        t0 = time.perf_counter()
+        frames = base.encode_tiles(imgs)
+        t1 = time.perf_counter()
+        rec = base.decode_tiles(frames)
+        t2 = time.perf_counter()
+        enc_s.append(t1 - t0)
+        dec_s.append(t2 - t1)
+    launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+    log(f"cae path launches over {CAE_ROUNDS} round trips: {launches}")
+    for name, count in launches.items():
+        check((count > 0) == (name in CAE_KERNELS),
+              f"cae path: kernel {name} launched {count} times")
+    # the stages of the same round trip, one at a time, over as many rounds
+    stages = np.zeros(4)
+    for _ in range(CAE_ROUNDS):
+        s0 = time.perf_counter()
+        sym = base.fetch_symbols(base.encode_tiles_device(imgs))
+        s1 = time.perf_counter()
+        again = base.entropy_encode(sym, [imgs.shape[1:3]] * n)
+        s2 = time.perf_counter()
+        sym_d, _ = base.entropy_decode(frames)
+        s3 = time.perf_counter()
+        rec2 = base.decode_tiles_device(sym_d).cpu().numpy()
+        s4 = time.perf_counter()
+        stages += np.diff([s0, s1, s2, s3, s4]) * 1e3 / CAE_ROUNDS
+    check(again == frames, "cae: the staged encode differs")
+    sym_turbo = core.latent_symbols(imgs).cpu().numpy()
+    check(sym.dtype == np.int8 and np.array_equal(sym, sym_turbo),
+          "cae: symbols differ from CAETurboCore.latent_symbols")
+    check(np.array_equal(sym_d, sym), "cae: decoded symbols differ")
+    turbo_frames = core.encode_tiles(imgs)
+    # cuDNN's default transposed convolutions are not deterministic: two
+    # decodes of the same symbols are held to the u8 tolerance, and bit
+    # equality across the codec paths is checked with deterministic cuDNN
+    diff = np.abs(rec2.astype(np.int32) - rec)
+    log(f"cae: two decodes of the same symbols with cuDNN's default "
+        f"algorithms: {int((diff != 0).sum())} of {diff.size} values differ, "
+        f"by at most {int(diff.max())}")
+    check(np.mean(diff != 0) < 5e-3 and int(diff.max()) <= 1,
+          "cae: the staged decode differs beyond 0.5% / 1 level")
+    with deterministic_cudnn(torch):
+        rec = base.decode_tiles(frames)
+        check(np.array_equal(
+            base.decode_tiles_device(sym_d).cpu().numpy(), rec)
+            and np.array_equal(core.decode_tiles(turbo_frames), rec),
+            "cae: reconstructions differ from the turbo decode of the same "
+            "symbols")
+    cae_bytes = sum(len(f) for f in frames) / n
+    turbo_bytes = sum(len(f) for f in turbo_frames) / n
+    enc, dec = np.mean(enc_s), np.mean(dec_s)
+    log(f"cae codec: {n} tiles of {imgs.shape[1]}x{imgs.shape[2]}, symbols "
+        f"equal to the turbo core's, lossless; mean of {CAE_ROUNDS} rounds: "
+        f"encode {mpix / enc:.3f} MP/s ({enc * 1e3:.1f} ms, rounds "
+        f"{min(enc_s) * 1e3:.1f} to {max(enc_s) * 1e3:.1f}), decode "
+        f"{mpix / dec:.3f} MP/s ({dec * 1e3:.1f} ms, rounds "
+        f"{min(dec_s) * 1e3:.1f} to {max(dec_s) * 1e3:.1f}); "
+        "reconstructions bit-equal to the turbo decode")
+    log(f"cae stages, mean of {CAE_ROUNDS} rounds: device encode + int8 "
+        f"fetch {stages[0]:.1f} ms, host rANS encode {stages[1]:.1f} ms, "
+        f"host rANS decode {stages[2]:.1f} ms, upload + device decode + "
+        f"fetch {stages[3]:.1f} ms; {cae_bytes:.1f} bytes a tile "
+        f"({8 * cae_bytes / (imgs.shape[1] * imgs.shape[2]):.4f} bpp) "
+        f"against the turbo frames' {turbo_bytes:.1f}")
+
+
+def fallback_checks(torch, model, core, imgs):
+    """(c) Batches the device coder cannot take: one symbol pushed out of
+    its table, a flagship copy whose encoder's last conv is scaled (whole
+    tiles escape), and six capacities that all overflow at S = 16.  Each
+    writes host frames that decode to the reconstruction of its
+    symbols."""
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import (
+        CAETurboCore, is_turbo_frame)
+
+    def held(label, core, sym, frames, retries=None):
+        hw = [imgs.shape[1:3]] * sym.shape[0]
+        check(not any(is_turbo_frame(f) for f in frames),
+              f"{label}: not every frame is a host frame")
+        check(np.array_equal(core.base.entropy_decode(frames)[0],
+                             sym.cpu().numpy()), f"{label}: lost symbols")
+        with deterministic_cudnn(torch):
+            rec = core.decode_tiles(frames)
+            want = core.reconstruct(sym, *hw[0])
+        check(np.array_equal(rec, want), f"{label}: reconstruction differs "
+              "from that of its symbols")
+        log(f"fallback ({label}): {len(frames)} host frames, "
+            f"{sum(len(f) for f in frames) / len(frames):.1f} bytes a tile, "
+            f"lossless, reconstruction equal"
+            + ("" if retries is None else f"; {retries} capacity retries"))
+
+    hw = [imgs.shape[1:3]] * 2
+    sym = core.latent_symbols(imgs[:2])
+    sym[0, 3, 0, 0] = int(core.tables.offset[3]) - 5
+    before = core.host_fallbacks
+    frames = core.frames_from_symbols(sym, hw)
+    check(core.host_fallbacks == before + 1, "one-symbol escape: no fallback")
+    held("one symbol out", core, sym, frames)
+
+    scaled = CAETurboCore(autoencoder_from_state_dict(
+        scaled_checkpoint(100.0), device="cuda"), num_streams=1024,
+        device="cuda")
+    sym = scaled.latent_symbols(imgs[:2])
+    n_esc = int(scaled.escapes(sym).sum())
+    frames = scaled.encode_tiles(imgs[:2])
+    check(scaled.host_fallbacks == 1, "scaled encoder: no fallback")
+    held(f"scaled encoder, {n_esc} of {sym.numel()} symbols escape",
+         scaled, sym, frames)
+    del scaled
+
+    narrow = CAETurboCore(model, num_streams=16, device="cuda")
+    narrow.expected_bits = 0.0
+    sym = narrow.latent_symbols(imgs[:2])
+    frames = narrow.encode_tiles(imgs[:2])
+    check(narrow.host_fallbacks == 1 and narrow.capacity_retries == 5,
+          f"six capacities at S = 16: {narrow.host_fallbacks} fallbacks, "
+          f"{narrow.capacity_retries} retries")
+    held("six capacities at S = 16", narrow, sym, frames,
+         narrow.capacity_retries)
+
+
+def mixed_batch_check(torch, core, imgs):
+    """(d) One decode batch of v4, host and v3 frames and a 500 x 300 tile:
+    each tile equal to its own format's decode."""
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import is_turbo_frame
+    tiles = imgs[:3]
+    hw = [tiles.shape[1:3]] * 3
+    v4 = core.encode_tiles(tiles)
+    host = core.base.encode_tiles(tiles)
+    v3 = v3_frames(core, core.latent_symbols(tiles), hw)
+    odd = image(500, 300, 77)
+    odd_frame = core.encode_tiles(odd[None])[0]
+    check(all(is_turbo_frame(f) for f in v4 + v3 + [odd_frame])
+          and not any(is_turbo_frame(f) for f in host),
+          "mixed batch: frame formats")
+    batch = [v4[0], host[1], v3[2], odd_frame, host[0], v3[0], v4[1]]
+    t0 = time.perf_counter()
+    core.decode_tiles(batch)
+    ms = (time.perf_counter() - t0) * 1e3
+    groups = {"v4": ([0, 6], [v4[0], v4[1]]), "host": ([1, 4],
+                                                      [host[1], host[0]]),
+              "v3": ([2, 5], [v3[2], v3[0]]), "odd": ([3], [odd_frame])}
+    with deterministic_cudnn(torch):
+        recs = core.decode_tiles(batch)
+        check(isinstance(recs, list) and len(recs) == len(batch),
+              "mixed batch: not a list of 7 tiles")
+        for name, (where, frames) in groups.items():
+            alone = core.decode_tiles(frames)
+            for i, r in zip(where, alone):
+                check(np.array_equal(recs[i], r),
+                      f"mixed batch: tile {i} ({name}) differs from its own "
+                      "format's decode")
+    check(recs[3].shape == (500, 300, 3), "mixed batch: odd tile shape")
+    sym_v3 = core.symbols_from_frames_v3(v3, core.num_streams,
+                                         *tiles.shape[1:3])
+    check(torch.equal(sym_v3, core.latent_symbols(tiles)),
+          "v3 frames: decoded symbols differ")
+    log(f"mixed batch (v4, host, v3 and a 500x300 tile, 7 frames): each "
+        f"tile equal to its own format's decode (deterministic cuDNN), "
+        f"{ms:.1f} ms with the default algorithms; v3 symbols lossless")
+
+
+def bottleneck_check(torch, model, imgs):
+    """(e) 'cae_bn' on one tile's float latent: a lossless round trip past
+    quantization."""
+    from cnn_autoencoder_tpu_torch.storage.cae_codec import \
+        ConvolutionalAutoencoderBottleneck
+    from cnn_autoencoder_tpu_torch.storage.codecs import get_codec
+    with torch.no_grad():
+        y = model.encoder(torch.from_numpy(imgs[:1]).cuda().float() / 255.0)
+    y = y[0].cpu().numpy()
+    codec = ConvolutionalAutoencoderBottleneck(
+        model.channels_bn, fact_ent=model.fact_ent.params())
+    t0 = time.perf_counter()
+    buf = codec.encode(y)
+    t1 = time.perf_counter()
+    out = get_codec(codec.get_config()).decode(buf)
+    t2 = time.perf_counter()
+    want = np.round(y - codec.medians) + codec.medians
+    check(np.array_equal(out, want), "cae_bn: round trip differs from the "
+          "quantized latent")
+    log(f"cae_bn: {y.shape} float latent, {len(buf)} bytes, lossless past "
+        f"quantization; encode {(t1 - t0) * 1e3:.2f} ms, decode "
+        f"{(t2 - t1) * 1e3:.2f} ms")
+
+
+def phase_codecs(torch, model, core):
+    """Phase 6: the host coder and every CAE codec."""
+    t0 = time.perf_counter()
+    host_coder_check(torch, core)
+    imgs = np.stack([image(512, 512, seed) for seed in range(TILES)])
+    cae_round_trip(torch, core, imgs)
+    fallback_checks(torch, model, core, imgs)
+    mixed_batch_check(torch, core, imgs)
+    bottleneck_check(torch, model, imgs)
+    log(f"codec phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1805,6 +2149,7 @@ def main():
         launches[name] += n
     check(all(launches[name] > 0 for name in records),
           f"a kernel was not launched on the main paths: {launches}")
+    phase_codecs(torch, model, core)
 
     kernels = []
     for name, rec in records.items():

@@ -1,10 +1,11 @@
-"""On-device interleaved rANS of cae_tpu frame v4: tables and stream layout.
+"""On-device interleaved rANS of cae_tpu frames: tables and stream layout.
 
 The latent of a tile is split into S interleaved streams (flattened
 channel-major symbol p goes to stream p % S at step p // S), every stream
-runs a word-wise rANS-32/16 with 12-bit probabilities, and the words of all
-streams share one queue per tile in decode order.  Escapes (symbols outside
-a channel's table) are not coded: callers count them and refuse the batch.
+runs a word-wise rANS-32/16 with 12-bit probabilities, and in frame v4 the
+words of all streams share one queue per tile in decode order.  Escapes
+(symbols outside a channel's table) are not coded: callers count them and
+code such a batch with the host coder instead.
 
 ``encode_interleaved`` / ``decode_interleaved`` keep the contract of the JAX
 package's ``encode_device_interleaved`` / ``decode_device_interleaved``
@@ -12,7 +13,12 @@ package's ``encode_device_interleaved`` / ``decode_device_interleaved``
 ``ops/kernels/rans_kernel.py`` on CUDA tensors and the plain versions there
 on CPU tensors.  ``encode_states`` and ``rans_compact`` are the encode's
 two passes, for callers that may compact one state pass at several
-capacities.  The legacy per-stream layout (frame v3) is not ported.
+capacities.
+
+``encode_device`` / ``decode_device`` are the legacy per-stream layout of
+frame v3 (one word buffer per stream and a length table), plain PyTorch on
+any device as the JAX package's are XLA scans: the codec decodes v3 frames
+that older stores hold and writes none; the writer serves tests.
 """
 
 from typing import Dict, NamedTuple, Sequence, Tuple
@@ -20,9 +26,12 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.kernels.rans_kernel import (PRECISION, PROB_SCALE, EncodeState,
+from ..ops.kernels.rans_kernel import (MASK, PRECISION, PROB_SCALE,
+                                       STATE_MIN, EncodeState, _as_uint16,
+                                       _from_uint16, _unpack_flags,
                                        pack_dec_lut, rans_compact,
-                                       rans_decode, rans_encode_states)
+                                       rans_decode, rans_encode_states,
+                                       rans_encode_states_plain)
 from . import xla_f32
 from .cdf import pmf_to_quantized_cdf
 
@@ -164,3 +173,62 @@ def decode_interleaved(queues: torch.Tensor, channel_map: torch.Tensor,
     lut = pack_dec_lut(tables.freq, tables.start, tables.slot)
     vals = rans_decode(queues, channel_map, lut, num_steps)
     return vals + tables.offset[channel_map][None]
+
+
+# -- frame v3: one word buffer per stream -------------------------------------
+
+
+def encode_device(symbols: torch.Tensor, channel_map: torch.Tensor,
+                  tables: DeviceTables, capacity: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Frame v3 writer: (B, T, S) int32 symbols -> ((B, S, capacity) uint16
+    words, (B, S) int32 lengths in words with the 2 flush words, escape
+    count).  Each stream's words lie in its decode order; words past
+    ``capacity`` are dropped.  The caller checks ``escapes == 0`` and
+    ``lengths.max() <= capacity``."""
+    b, t, s = symbols.shape
+    v = symbols - tables.offset[channel_map][None]
+    esc = ((v < 0) | (v >= tables.length[channel_map][None])).sum()
+    state = rans_encode_states_plain(symbols, channel_map, tables.freq,
+                                     tables.start, tables.offset)
+    flags = _unpack_flags(state.flags, t, s).long()          # (B, T, S)
+    # the decoder reads a stream's words forward, one per refill
+    pos = 2 + torch.cumsum(flags, dim=1) - flags
+    pos = torch.where((flags > 0) & (pos < capacity), pos,
+                      torch.full_like(pos, capacity))
+    buf = torch.zeros((b, s, capacity + 1), dtype=torch.int64,
+                      device=symbols.device)
+    buf.scatter_(2, pos.transpose(1, 2),
+                 (_from_uint16(state.words) * flags).transpose(1, 2))
+    x = state.final.long() & 0xFFFFFFFF
+    buf[:, :, 0] = x & 0xFFFF
+    buf[:, :, 1] = x >> 16
+    lengths = (2 + flags.sum(dim=1)).to(torch.int32)
+    return _as_uint16(buf[:, :, :capacity]), lengths, esc
+
+
+def decode_device(bufs: torch.Tensor, channel_map: torch.Tensor,
+                  tables: DeviceTables, num_steps: int) -> torch.Tensor:
+    """Frame v3 reader: (B, S, cap) uint16 word buffers -> (B, T, S) int32
+    symbols: T steps of one LUT gather and one refill over (B, S).  A read
+    past a buffer's end takes its last word (garbage out, no out-of-bounds
+    read)."""
+    b, s, cap = bufs.shape
+    dev = bufs.device
+    words = _from_uint16(bufs)
+    lut = pack_dec_lut(tables.freq, tables.start,
+                       tables.slot).reshape(-1).long() & 0xFFFFFFFF
+    x = words[:, :, 0] | (words[:, :, 1] << 16)
+    pos = torch.full((b, s, 1), 2, dtype=torch.int64, device=dev)
+    out = torch.empty((b, num_steps, s), dtype=torch.int32, device=dev)
+    for t in range(num_steps):
+        cum = x & MASK
+        p = lut[channel_map[t].long()[None] * PROB_SCALE + cum]
+        out[:, t] = (p >> 24).to(torch.int32)
+        x = (((p & MASK) + 1) * (x >> PRECISION) + cum
+             - ((p >> PRECISION) & MASK)) & 0xFFFFFFFF
+        take = torch.gather(words, 2, pos.clamp(max=cap - 1))[..., 0]
+        need = x < STATE_MIN
+        x = torch.where(need, ((x << 16) | take) & 0xFFFFFFFF, x)
+        pos = pos + need[..., None].long()
+    return out + tables.offset[channel_map][None]

@@ -267,15 +267,18 @@ def numpy_exp(x) -> np.ndarray:
     return np.where(nan, x, out).astype(np.float32)
 
 
+def logistic(x) -> np.ndarray:
+    """The JAX package's float32 numpy logistic of table baking
+    (piecewise-stable: ``exp`` only ever sees non-positive arguments)."""
+    x = np.asarray(x, np.float32)
+    e = numpy_exp(-np.abs(x))
+    return np.where(x >= 0, _F32(1) / (_F32(1) + e),
+                    e / (_F32(1) + e)).astype(np.float32)
+
+
 def interval_pmf(lower: np.ndarray, upper: np.ndarray) -> np.ndarray:
     """|σ(s·upper) − σ(s·lower)| with s = −sign(lower + upper), in float32
-    as the JAX package's ``bake_device_tables`` computes it with numpy."""
+    as the JAX package's ``bake_device_tables`` and ``update_cdf_tables``
+    compute it with numpy."""
     sign = -np.sign(lower + upper)
-
-    def sig(x):
-        # piecewise-stable: exp only ever sees non-positive arguments
-        e = numpy_exp(-np.abs(x))
-        return np.where(x >= 0, _F32(1) / (_F32(1) + e),
-                        e / (_F32(1) + e)).astype(np.float32)
-
-    return np.abs(sig(sign * upper) - sig(sign * lower))
+    return np.abs(logistic(sign * upper) - logistic(sign * lower))

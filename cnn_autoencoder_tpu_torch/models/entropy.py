@@ -13,6 +13,9 @@ Training quantizes with additive uniform noise.  The JAX package draws it
 from ``jax.random``; the port draws it from an explicit ``torch.Generator``
 or takes it from the caller, so a test can give both packages the same
 noise.
+
+``update_cdf_tables`` bakes the host coder's 16-bit tables on the host, as
+the JAX package's does, bit for bit (``coding/xla_f32.py``).
 """
 
 import math
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..coding import xla_f32
+from ..coding.cdf import pmf_to_quantized_cdf
 from ..ops.bounds import lower_bound
 
 
@@ -200,3 +205,51 @@ class FactorizedEntropyBottleneck(nn.Module):
         p_y = likelihood_fn(self.params(), y_q, self.num_filters,
                             self.likelihood_bound)
         return y_q, p_y
+
+
+def update_cdf_tables(params, filters: Sequence[int],
+                      precision: int = 16) -> Dict[str, np.ndarray]:
+    """16-bit quantized CDF tables of the host rANS coder ('cae', 'cae_bn'
+    and the 'cae_tpu' escape fallback) from the bottleneck's parameters
+    (numpy arrays or tensors).
+
+    The JAX package's ``update_cdf_tables``: integer support from the
+    learned quantiles, the pmf on it, the tail mass
+    ``σ(lower[0]) + σ(−upper[−1])`` in a last bucket, quantized to
+    ``2**precision``.  The chain and the logistic run through
+    ``coding/xla_f32.py`` in float32 as XLA's CPU backend and numpy compute
+    them there, so the tables are element-equal to the JAX package's.
+
+    Returns ``quantized_cdf`` (C, max_len + 2) int32 (zero padded),
+    ``cdf_length`` (C,) int32 and ``offset`` (C,) int32.
+    """
+    params = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                  else np.asarray(v)) for k, v in params.items()}
+    quantiles = params["quantiles"]                      # (C, 1, 3)
+    medians = quantiles[:, 0, 1]
+    minima = np.clip(np.ceil(medians - quantiles[:, 0, 0]).astype(np.int32),
+                     0, None)
+    maxima = np.clip(np.ceil(quantiles[:, 0, 2] - medians).astype(np.int32),
+                     0, None)
+    pmf_start = medians - minima
+    pmf_length = maxima + minima + 1
+    max_length = int(pmf_length.max())
+    samples = (np.arange(max_length, dtype=np.float32)[:, None]
+               + pmf_start[None, :])                     # (L, C)
+    num_filters = len(filters)
+    lower = xla_f32.logits_cumulative(params, samples - 0.5, num_filters)
+    upper = xla_f32.logits_cumulative(params, samples + 0.5, num_filters)
+    pmf = xla_f32.interval_pmf(lower, upper).T           # (C, L)
+    tail_mass = (xla_f32.logistic(lower[0, :])
+                 + xla_f32.logistic(-upper[-1, :]))      # (C,) float32
+
+    channels = pmf.shape[0]
+    quantized_cdf = np.zeros((channels, max_length + 2), np.int32)
+    for c in range(channels):
+        n = int(pmf_length[c])
+        prob = np.concatenate([pmf[c, :n], [tail_mass[c]]]).astype(np.float64)
+        cdf = pmf_to_quantized_cdf(prob, precision)
+        quantized_cdf[c, :len(cdf)] = cdf
+    return {"quantized_cdf": quantized_cdf,
+            "cdf_length": (pmf_length + 2).astype(np.int32),
+            "offset": (-minima).astype(np.int32)}

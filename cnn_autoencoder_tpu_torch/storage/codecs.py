@@ -1,12 +1,18 @@
-"""Codec ABI and registry (the numcodecs-style surface), plus the CAE
-codecs' shared frame geometry.
+"""Codec ABI and registry (the numcodecs-style surface), the general
+byte codecs, and the CAE codecs' shared frame geometry.
 
 The port keeps a registry of its own: ``encode``/``decode(out=None)``,
 ``get_config``/``from_config`` for zarr metadata, keyed by ``codec_id``.
-Codec configs written by the JAX package (``{"id": "cae_tpu",
-"checkpoint": ..., "num_streams": ...}``) instantiate the port's codec.
+Codec configs written by the JAX package instantiate the port's codec of
+the same id, and the reverse.  The general codecs (zlib, gzip, bz2, lzma,
+blosc) write the bytes the JAX package's write; the CAE and image codecs
+live in their own modules, which ``get_codec`` imports on first use.
 """
 
+import bz2
+import importlib
+import lzma
+import zlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -67,6 +73,12 @@ class Codec:
 
 
 _REGISTRY: Dict[str, type] = {}
+# codec id -> the module that registers it (the JAX registry's map, plus the
+# ids the image codecs register under)
+_LAZY = {"cae": "cae_codec", "cae_bn": "cae_codec", "cae_tpu": "turbo_codec",
+         "jpeg": "image_codecs", "jpeg2k": "image_codecs",
+         "imagecodecs_jpeg": "image_codecs",
+         "imagecodecs_jpeg2k": "image_codecs"}
 
 
 def register_codec(cls, codec_id: Optional[str] = None) -> None:
@@ -80,9 +92,9 @@ def get_codec(config, **kwargs) -> Optional[Codec]:
     if isinstance(config, Codec):
         return config
     codec_id = config["id"]
-    if codec_id == "cae_tpu" and codec_id not in _REGISTRY:
+    if codec_id not in _REGISTRY and codec_id in _LAZY:
         # registers on import; a fresh reader may not have imported it
-        from . import turbo_codec  # noqa: F401
+        importlib.import_module(f".{_LAZY[codec_id]}", __package__)
     if codec_id not in _REGISTRY:
         raise KeyError(f"Codec {codec_id!r} is not registered")
     return _REGISTRY[codec_id].from_config(config, **kwargs)
@@ -96,3 +108,124 @@ def ndarray_copy(src, out):
     src_view = np.ascontiguousarray(src).reshape(-1).view(np.uint8)
     out_view[:src_view.size] = src_view
     return out
+
+
+def ensure_bytes(buf) -> bytes:
+    if isinstance(buf, (bytes, bytearray, memoryview)):
+        return bytes(buf)
+    return np.ascontiguousarray(buf).tobytes()
+
+
+class Zlib(Codec):
+    codec_id = "zlib"
+
+    def __init__(self, level: int = 1):
+        self.level = int(level)
+
+    def encode(self, buf) -> bytes:
+        return zlib.compress(ensure_bytes(buf), self.level)
+
+    def decode(self, buf, out=None):
+        data = np.frombuffer(zlib.decompress(bytes(buf)), np.uint8)
+        return ndarray_copy(data, out)
+
+    def get_config(self):
+        return {"id": self.codec_id, "level": self.level}
+
+
+class GZip(Zlib):
+    codec_id = "gzip"
+
+    def encode(self, buf) -> bytes:
+        co = zlib.compressobj(self.level, zlib.DEFLATED, 16 + zlib.MAX_WBITS)
+        return co.compress(ensure_bytes(buf)) + co.flush()
+
+    def decode(self, buf, out=None):
+        data = np.frombuffer(zlib.decompress(bytes(buf), 16 + zlib.MAX_WBITS),
+                             np.uint8)
+        return ndarray_copy(data, out)
+
+
+class BZ2(Codec):
+    codec_id = "bz2"
+
+    def __init__(self, level: int = 1):
+        self.level = int(level)
+
+    def encode(self, buf) -> bytes:
+        return bz2.compress(ensure_bytes(buf), self.level)
+
+    def decode(self, buf, out=None):
+        return ndarray_copy(np.frombuffer(bz2.decompress(bytes(buf)),
+                                          np.uint8), out)
+
+    def get_config(self):
+        return {"id": self.codec_id, "level": self.level}
+
+
+class LZMACodec(Codec):
+    codec_id = "lzma"
+
+    def __init__(self, preset: int = 1, **_):
+        self.preset = int(preset)
+
+    def encode(self, buf) -> bytes:
+        return lzma.compress(ensure_bytes(buf), preset=self.preset)
+
+    def decode(self, buf, out=None):
+        return ndarray_copy(np.frombuffer(lzma.decompress(bytes(buf)),
+                                          np.uint8), out)
+
+    def get_config(self):
+        return {"id": self.codec_id, "preset": self.preset}
+
+
+class Blosc(Codec):
+    """zarr-compatible blosc chunks.  Through the C ``blosc`` module when it
+    is importable; else through ``blosc_frame.py``, a stdlib blosc1 frame
+    with zlib blocks that c-blosc readers read, in which mode a cname other
+    than zlib becomes zlib (``get_config`` reports what was written)."""
+
+    codec_id = "blosc"
+
+    def __init__(self, cname: str = "zlib", clevel: int = 5, shuffle: int = 1,
+                 blocksize: int = 0):
+        self.cname = cname
+        self.clevel = int(clevel)
+        self.shuffle = int(shuffle)
+        self.blocksize = int(blocksize)
+        try:
+            import blosc
+            self._blosc = blosc
+        except ImportError:
+            self._blosc = None
+        if self._blosc is None and cname != "zlib":
+            self.cname = "zlib"
+
+    def encode(self, buf) -> bytes:
+        data = ensure_bytes(buf)
+        if self._blosc is not None:
+            return self._blosc.compress(data, typesize=1, cname=self.cname,
+                                        clevel=self.clevel,
+                                        shuffle=self.shuffle)
+        from . import blosc_frame
+        return blosc_frame.compress(data, typesize=1, clevel=self.clevel,
+                                    shuffle=self.shuffle,
+                                    blocksize=self.blocksize)
+
+    def decode(self, buf, out=None):
+        if self._blosc is not None:
+            data = np.frombuffer(self._blosc.decompress(bytes(buf)), np.uint8)
+        else:
+            from . import blosc_frame
+            data = np.frombuffer(blosc_frame.decompress(buf), np.uint8)
+        return ndarray_copy(data, out)
+
+    def get_config(self):
+        return {"id": self.codec_id, "cname": self.cname,
+                "clevel": self.clevel, "shuffle": self.shuffle,
+                "blocksize": self.blocksize}
+
+
+for _cls in (Zlib, GZip, BZ2, LZMACodec, Blosc):
+    register_codec(_cls)

@@ -1,16 +1,21 @@
 """'cae_tpu' turbo codec: CAE analysis, quantization and rANS coding all on
-the device, frame v4.
+the device.
 
 Bitstream (per chunk, self-framed), byte-identical to the JAX package's:
-  '>QQ' true (h, w) pixels, with bit 63 of h set (the turbo marker)
-  '>BH' version 4, num_streams S
-  '>I'  payload bytes, then one little-endian u16 word queue in decode
+  '>QQ' true (h, w) pixels, with bit 63 of h set (the turbo marker; a host
+        'cae' frame's h is a real height, so the formats never collide)
+  '>BH' version, num_streams S
+  v4:   '>I' payload bytes, then one little-endian u16 word queue in decode
         order (2 flush words per stream, stream-major, then refills in
         (step, stream) order)
+  v3:   '>I' * S per-stream byte lengths, then the streams' little-endian
+        u16 words one after the other (legacy: read, never written)
 
-Three behaviours of the JAX codec are not ported yet and raise instead:
-a batch with escapes (the JAX codec writes host 'cae' frames for it),
-host-format frames, and legacy v3 frames.
+A batch the device coder cannot take, because a symbol falls outside its
+channel's table (an escape) or because no capacity of six fits its words,
+is written as host 'cae' frames (``storage/cae_codec.py``), as the JAX codec
+writes it.  A store may therefore mix turbo and host frames, and
+``decode_tiles`` reads the format of every buffer on its own.
 """
 
 import struct
@@ -19,20 +24,21 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..coding.device_rans import (bake_device_tables, decode_interleaved,
-                                  encode_states, expected_bits_per_symbol,
-                                  pack_streams, stream_channel_map,
-                                  unpack_streams)
-from ..models.entropy import medians_fn
-from ..ops.kernels.rans_kernel import rans_compact
+from ..coding.device_rans import (bake_device_tables, decode_device,
+                                  decode_interleaved, encode_states,
+                                  expected_bits_per_symbol, pack_streams,
+                                  stream_channel_map, unpack_streams)
 from ..models.factory import autoencoder_from_state_dict
-from ..utils.device import resolve_device
-from .codecs import (Codec, check_frame_hw, latent_hw, ndarray_copy,
-                     padded_hw, register_codec)
+from ..ops.kernels.rans_kernel import rans_compact
+from .cae_codec import CAECodecCore, host_frame_hw
+from .codecs import (Codec, check_frame_hw, ndarray_copy,
+                     register_codec)
 
 VERSION = 4
 LEGACY_VERSION = 3
+HOST_FORMAT = 0    # the version key of host 'cae' frames in decode_tiles
 DEFAULT_STREAMS = 1024
+CAPACITY_TRIES = 6  # capacities tried before the host coder takes a batch
 TURBO_FLAG = 1 << 63   # set on the big-endian h field of turbo frames
 
 
@@ -41,28 +47,20 @@ def is_turbo_frame(raw: bytes) -> bool:
     return len(raw) >= 16 and (raw[0] & 0x80) != 0
 
 
-def _reflect_index(n: int, size: int) -> np.ndarray:
-    """Indices that reflect-pad a length-n axis to ``size`` (numpy's
-    'reflect' mode, the JAX package's padding of odd tiles)."""
-    return np.pad(np.arange(n), (0, size - n), mode="reflect")
-
-
 class CAETurboCore:
-    """Batched device encode/decode of tiles for one CAE model."""
+    """Batched device encode/decode of tiles for one CAE model; ``base`` is
+    the host-format core of the same model, which writes the batches the
+    device coder cannot take and reads host frames."""
 
     def __init__(self, model, num_streams: int = DEFAULT_STREAMS,
                  device=None):
-        self.device = resolve_device(device)
         if not 1 <= num_streams <= 0xFFFF:
             raise ValueError(f"num_streams {num_streams} does not fit the "
                              "frame's u16 field")
-        self.model = model.to(self.device).eval()
-        self.level = model.compression_level
-        self.channels_bn = model.channels_bn
+        self.base = CAECodecCore(model, device=device)
         self.num_streams = num_streams
         fe = {k: v.detach().cpu().numpy()
               for k, v in model.fact_ent.params().items()}
-        self.medians = np.asarray(medians_fn(fe), np.float32)
         tables = bake_device_tables(fe, model.filters)
         # stream padding codes symbol 0, so it must be in every table
         zero = -tables.offset.numpy()
@@ -71,9 +69,21 @@ class CAETurboCore:
                              "channel; stream padding would be uncodable")
         self.expected_bits = expected_bits_per_symbol(tables)
         self.tables = tables.to(self.device)
-        self._med = torch.from_numpy(self.medians).to(self.device)
         self._ch_maps = {}
         self.capacity_retries = 0  # compactions re-run at a larger capacity
+        self.host_fallbacks = 0    # batches written as host 'cae' frames
+
+    @property
+    def model(self):
+        return self.base.model
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    @property
+    def channels_bn(self) -> int:
+        return self.base.channels_bn
 
     # -- geometry -----------------------------------------------------------
 
@@ -87,26 +97,15 @@ class CAETurboCore:
     def _steps(self, lh: int, lw: int, s: int) -> int:
         return -(-self.channels_bn * lh * lw // s)
 
+    def _latent_hw(self, th: int, tw: int) -> Tuple[int, int]:
+        return self.base.latent_hw(*self.base.padded_hw(th, tw))
+
     # -- encode -------------------------------------------------------------
 
-    @torch.no_grad()
     def latent_symbols(self, tiles_u8) -> torch.Tensor:
         """(B, H, W, 3) uint8 -> (B, C, lh, lw) int32 quantized latent
-        ``round(y - medians)``, channel-major, on the device.  Tiles whose
-        sides are not multiples of 2**level are reflect-padded."""
-        if not torch.is_tensor(tiles_u8):
-            tiles_u8 = torch.from_numpy(np.ascontiguousarray(tiles_u8))
-        x = tiles_u8.to(self.device)
-        _, h, w, _ = x.shape
-        x = x.float() / 255.0
-        ph, pw = padded_hw(h, w, self.level)
-        if (ph, pw) != (h, w):
-            iy = torch.from_numpy(_reflect_index(h, ph)).to(self.device)
-            ix = torch.from_numpy(_reflect_index(w, pw)).to(self.device)
-            x = x[:, iy][:, :, ix]
-        y = self.model.encoder(x)
-        sym = torch.round(y - self._med).to(torch.int32)
-        return sym.permute(0, 3, 1, 2).contiguous()
+        ``round(y - medians)``, channel-major, on the device."""
+        return self.base.latent_symbols(tiles_u8)
 
     def escapes(self, sym_cm: torch.Tensor) -> torch.Tensor:
         """Per-tile count of symbols outside their channel's table."""
@@ -119,29 +118,33 @@ class CAETurboCore:
                             ) -> List[bytes]:
         """Entropy-code a (B, C, lh, lw) symbol batch into frames: one state
         pass, then one compaction and one device-to-host copy (escape count,
-        totals and uint16 words together) per capacity tried."""
+        totals and uint16 words together) per capacity tried.  Escapes, or
+        six capacities that all overflow, send the batch to the host coder,
+        which codes the same symbols."""
         bsz, _, lh, lw = sym_cm.shape
         s = self.num_streams
         t = self._steps(lh, lw, s)
         esc = self.escapes(sym_cm).sum()
         state = encode_states(pack_streams(sym_cm.reshape(bsz, -1), s),
                               self._ch_map(lh, lw, s), self.tables)
-        # first capacity from the tables' entropy (+12% headroom); double on
-        # overflow.  The worst case (one word per symbol) always fits.
+        # the first capacity from the tables' entropy (+12% headroom), then
+        # doubling, as the JAX codec tries them; none needs to exceed one
+        # word per symbol
         capacity = 2 * s + 64 + int(t * s * self.expected_bits / 16.0 * 1.12)
         worst = 2 * s + t * s
-        while True:
+        for attempt in range(CAPACITY_TRIES):
+            if attempt:
+                self.capacity_retries += 1
+                capacity *= 2
             cap = min(capacity, worst)
             n_esc, totals, words = self._compact_fetch(state, esc, cap)
             if n_esc:
-                raise ValueError(
-                    f"{n_esc} latent symbols fall outside the coding tables "
-                    "(escapes); the host 'cae' coder that codes such batches "
-                    "is not ported yet")
+                break
             if int(totals.max()) <= cap:
                 return self._frame(words, totals, true_hw)
-            self.capacity_retries += 1
-            capacity *= 2
+        self.host_fallbacks += 1
+        sym = self.base.fetch_symbols(self.base.narrow_symbols(sym_cm))
+        return self.base.entropy_encode(sym, true_hw)
 
     def _compact_fetch(self, state, esc: torch.Tensor, cap: int):
         """Compact ``state`` at ``cap`` into one device buffer holding the
@@ -183,39 +186,32 @@ class CAETurboCore:
     # -- decode -------------------------------------------------------------
 
     @staticmethod
-    def _parse_header(raw: bytes) -> Tuple[int, int, int]:
-        """(S, true h, true w) of a v4 turbo frame; raises ValueError on
-        anything else."""
-        if len(raw) < 16:
-            raise ValueError(
-                f"corrupt frame: {len(raw)} bytes is shorter than the "
-                "16-byte header")
+    def _parse_header(raw: bytes) -> Tuple[int, int, int, int]:
+        """(version, S, true h, true w) of a frame, version ``HOST_FORMAT``
+        and S 0 for a host 'cae' frame; raises ValueError on anything
+        else."""
         if not is_turbo_frame(raw):
-            raise ValueError(
-                "host-format ('cae') frame: the host coder is not ported yet")
+            return (HOST_FORMAT, 0) + host_frame_hw(raw)
         h_field, tw = struct.unpack(">QQ", raw[:16])
         th = h_field & ~TURBO_FLAG
         check_frame_hw(th, tw)
         if len(raw) < 23:
+            # both versions need (version u8, S u16) and one more u32
             raise ValueError(
                 f"corrupt cae_tpu frame: truncated header ({len(raw)} bytes)")
         version, s = struct.unpack(">BH", raw[16:19])
-        if version == LEGACY_VERSION:
-            raise ValueError("cae_tpu frame version 3 (legacy per-stream "
-                             "layout): its decoder is not ported yet")
-        if version != VERSION:
+        if version not in (VERSION, LEGACY_VERSION):
             raise ValueError(f"cae_tpu frame version {version} unsupported "
-                             f"(expected {VERSION})")
+                             f"(expected {LEGACY_VERSION} or {VERSION})")
         if s < 1:
             raise ValueError("corrupt cae_tpu frame: zero stream count")
-        return s, th, tw
+        return version, s, th, tw
 
     def symbols_from_frames(self, raws: Sequence[bytes], s: int, th: int,
                             tw: int) -> torch.Tensor:
         """Decode same-geometry v4 frames -> (B, C, lh, lw) int32 symbols
         on the device."""
-        ph, pw = padded_hw(th, tw, self.level)
-        lh, lw = latent_hw(ph, pw, self.level)
+        lh, lw = self._latent_hw(th, tw)
         t = self._steps(lh, lw, s)
         batch = len(raws)
         totals = np.zeros(batch, np.int64)  # in 16-bit words
@@ -238,29 +234,86 @@ class CAETurboCore:
         flat = unpack_streams(sym_ts, self.channels_bn * lh * lw)
         return flat.reshape(batch, self.channels_bn, lh, lw)
 
-    @torch.no_grad()
+    def symbols_from_frames_v3(self, raws: Sequence[bytes], s: int, th: int,
+                               tw: int) -> torch.Tensor:
+        """Decode same-geometry legacy v3 frames (a length table, then
+        per-stream words) -> (B, C, lh, lw) int32 symbols on the device.
+        The untrusted length table is checked against the payload before it
+        sizes any allocation."""
+        lh, lw = self._latent_hw(th, tw)
+        t = self._steps(lh, lw, s)
+        batch = len(raws)
+        lengths = np.zeros((batch, s), np.int64)  # in 16-bit words
+        payloads = []
+        for i, raw in enumerate(raws):
+            table = raw[19:19 + 4 * s]
+            if len(table) < 4 * s:
+                raise ValueError(
+                    f"corrupt cae_tpu frame: v3 length table truncated "
+                    f"({len(table)} of {4 * s} bytes)")
+            ln = np.frombuffer(table, ">u4").astype(np.int64) // 2
+            payload = raw[19 + 4 * s:]
+            need = int(ln.sum())
+            if len(payload) < 2 * need or len(payload) % 2:
+                raise ValueError(
+                    f"corrupt cae_tpu frame: payload holds {len(payload)} "
+                    f"bytes, header declares {2 * need}")
+            lengths[i] = ln
+            payloads.append(payload)
+        longest = int(lengths.max())
+        # legit v3 streams are near-balanced: a table with one huge entry
+        # passes the payload check above yet would size a (batch, S,
+        # longest) buffer far past the words present
+        words_present = int(lengths.sum())
+        if s * longest > 16 * max(words_present, 2 * s + 64):
+            raise ValueError(
+                "corrupt cae_tpu frame: v3 length table implausibly skewed "
+                f"(max stream {longest} words x {s} streams vs "
+                f"{words_present} words present)")
+        cap = max(64, longest)
+        bufs = np.zeros((batch, s, cap), np.uint16)
+        cols = np.arange(cap)
+        for i in range(batch):
+            flat = np.frombuffer(payloads[i], "<u2")
+            mask = cols[None, :] < lengths[i][:, None]          # (S, cap)
+            bufs[i][mask] = flat[:int(lengths[i].sum())]
+        sym_ts = decode_device(torch.from_numpy(bufs).to(self.device),
+                               self._ch_map(lh, lw, s), self.tables, t)
+        flat = unpack_streams(sym_ts, self.channels_bn * lh * lw)
+        return flat.reshape(batch, self.channels_bn, lh, lw)
+
     def reconstruct(self, sym_cm: torch.Tensor, th: int, tw: int
                     ) -> np.ndarray:
         """(B, C, lh, lw) symbols -> (B, th, tw, 3) uint8 pixels (host)."""
-        y = sym_cm.permute(0, 2, 3, 1).float() + self._med
-        x_r, _ = self.model.decoder(y)
-        rec = torch.clamp(x_r[0] * 255.0, 0, 255).to(torch.uint8)
+        rec = self.base.decode_tiles_device(sym_cm)
         return rec[:, :th, :tw, :].cpu().numpy()
 
+    def _decode_group(self, version: int, s: int, th: int, tw: int,
+                      raws: List[bytes]) -> np.ndarray:
+        if version == HOST_FORMAT:
+            return self.base.decode_tiles(raws)
+        if version == VERSION:
+            sym = self.symbols_from_frames(raws, s, th, tw)
+        else:
+            sym = self.symbols_from_frames_v3(raws, s, th, tw)
+        return self.reconstruct(sym, th, tw)
+
     def decode_tiles(self, bufs: List[bytes]):
-        """Decode a batch of frames.  Returns a stacked (B, h, w, 3) uint8
-        array when all tiles share a shape, else a list of arrays."""
+        """Decode a batch of frames, each turbo v4, turbo v3 or host format
+        on its own (a writer's fallback is per batch, and reader batches
+        need not align with writer batches).  Returns a stacked (B, h, w, 3)
+        uint8 array when all tiles share a shape, else a list of arrays, in
+        the order of ``bufs``."""
         n = len(bufs)
         if n == 0:
             return np.zeros((0, 0, 0, 3), np.uint8)
-        groups = {}  # (s, th, tw) -> [(index, raw)]
+        groups = {}  # (version, s, th, tw) -> [(index, raw)]
         for i, raw in enumerate(bufs):
             raw = bytes(raw)
             groups.setdefault(self._parse_header(raw), []).append((i, raw))
         recs: List[Optional[np.ndarray]] = [None] * n
-        for (s, th, tw), group in groups.items():
-            sym = self.symbols_from_frames([r for _, r in group], s, th, tw)
-            rec = self.reconstruct(sym, th, tw)
+        for key, group in groups.items():
+            rec = self._decode_group(*key, [r for _, r in group])
             if len(groups) == 1:
                 return rec
             for (i, _), r in zip(group, rec):

@@ -17,8 +17,11 @@ import pytest
 from cnn_autoencoder_tpu.coding import device_rans as jrans
 from cnn_autoencoder_tpu.models.entropy import \
     logits_cumulative as jax_logits_cumulative
+from cnn_autoencoder_tpu.models.entropy import \
+    update_cdf_tables as jax_update_cdf_tables
 from cnn_autoencoder_tpu_torch.coding import device_rans as trans
 from cnn_autoencoder_tpu_torch.coding import xla_f32
+from cnn_autoencoder_tpu_torch.models.entropy import update_cdf_tables
 from cnn_autoencoder_tpu_torch.training.checkpoint import load_checkpoint
 
 FIXTURES = ["benchmarks/bench_flagship.msgpack",
@@ -26,6 +29,7 @@ FIXTURES = ["benchmarks/bench_flagship.msgpack",
             "benchmarks/bench_flagship_lam05.msgpack"]
 FILTERS = (3, 3, 3, 3)
 TABLE_KEYS = ("freq", "start", "slot", "offset", "length")
+HOST_KEYS = ("quantized_cdf", "cdf_length", "offset")
 
 
 def _params(path):
@@ -174,3 +178,52 @@ def test_tables_equal_on_seeded_bottlenecks(scale, models):
         if n:
             differing[seed] = n
     assert differing == {}, differing
+
+
+def _host_table_mismatches(params) -> int:
+    """Differing host-table entries; -1 where both packages refuse the
+    bottleneck alike (a channel whose pmf and tail mass round to zero: the
+    host tables, unlike the device tables, are not renormalized)."""
+    try:
+        ref = jax_update_cdf_tables(params, FILTERS)
+    except ValueError as exc:
+        with pytest.raises(ValueError, match=str(exc)):
+            update_cdf_tables(params, FILTERS)
+        return -1
+    got = update_cdf_tables(params, FILTERS)
+    n = 0
+    for k in HOST_KEYS:
+        assert got[k].shape == ref[k].shape and got[k].dtype == ref[k].dtype
+        n += int((got[k] != ref[k]).sum())
+    return n
+
+
+@pytest.mark.parametrize("path", FIXTURES)
+def test_host_tables_equal_on_fixtures(path):
+    """The host coder's 16-bit tables ('cae', 'cae_bn', the 'cae_tpu'
+    escape fallback) element-equal to the JAX package's
+    ``update_cdf_tables``, from numpy parameters or tensors."""
+    import torch
+    params = _params(path)
+    assert _host_table_mismatches(params) == 0
+    got = update_cdf_tables({k: torch.from_numpy(v)
+                             for k, v in params.items()}, FILTERS)
+    ref = jax_update_cdf_tables(params, FILTERS)
+    for k in HOST_KEYS:
+        np.testing.assert_array_equal(got[k], ref[k])
+
+
+@pytest.mark.parametrize("scale,models", [(0.3, 300), (1.0, 100)])
+def test_host_tables_equal_on_seeded_bottlenecks(scale, models):
+    """Element-equal host tables over the seeded bottlenecks of
+    ``test_tables_equal_on_seeded_bottlenecks``, or the same refusal: at
+    scale 1.0, 39 of the 100 make both packages raise."""
+    base = _params(FIXTURES[0])
+    differing, refused = {}, 0
+    for seed in range(models):
+        n = _host_table_mismatches(_perturbed(base, seed, scale))
+        refused += n < 0
+        if n > 0:
+            differing[seed] = n
+    assert differing == {}, differing
+    assert refused < models // 2

@@ -1,7 +1,8 @@
 """The slice as a whole: the port's 'cae_tpu' codec (plain versions, on the
-CPU) against the JAX package's.  Equal symbols, byte-identical frames,
-decode across the two packages both ways, the codec ABI, and what the port
-refuses."""
+CPU) against the JAX package's.  Equal symbols, byte-identical frames (v4,
+and the host frames of the escape and capacity fallbacks), decode across
+the two packages both ways (v4, v3, host and mixed batches), the codec
+ABI, and corrupt frames."""
 
 import os
 import struct
@@ -28,6 +29,8 @@ from cnn_autoencoder_tpu_torch.models.factory import \
 from cnn_autoencoder_tpu_torch.storage.codecs import get_codec
 from cnn_autoencoder_tpu_torch.storage.turbo_codec import (
     TURBO_FLAG, CAETurboCore, ConvolutionalAutoencoderTurbo, is_turbo_frame)
+
+from chip_smoke import scaled_checkpoint, v3_frame_bytes, v3_frames
 
 FLAGSHIP = "benchmarks/bench_flagship.msgpack"
 
@@ -201,9 +204,9 @@ def _corruptions(frame):
     return [
         ("short", frame[:10]),
         ("truncated header", frame[:20]),
-        ("host format", struct.pack(">QQ", 32, 32) + frame[16:]),
         ("implausible size", bytes(bad_h)),
-        ("version 3", frame[:16] + struct.pack(">BH", 3, s) + frame[19:]),
+        ("implausible host size", struct.pack(">QQ", 1 << 40, 32)
+         + frame[16:]),
         ("version 9", frame[:16] + struct.pack(">BH", 9, s) + frame[19:]),
         ("zero streams", frame[:16] + struct.pack(">BH", 4, 0)
          + frame[19:]),
@@ -222,19 +225,183 @@ def test_corrupt_frames_raise(cores):
 
 
 def test_escapes_raise(cores, small_checkpoint):
-    _, tcore = cores["small"]
-    sym = tcore.latent_symbols(_image(32, 32)[None])
+    """A batch with escapes no longer raises: it is written as host 'cae'
+    frames byte-identical to the JAX core's, which decode in both packages
+    (the port's fallback codes the symbols it holds; the JAX core runs its
+    encoder again)."""
+    jcore, tcore = cores["small"]
+    tiles = np.stack([_image(32, 32, seed) for seed in (0, 1)])
+    sym = tcore.latent_symbols(tiles)
     sym[0, 3, 0, 0] = int(tcore.tables.offset[3]) - 5
-    with pytest.raises(ValueError, match="escapes"):
-        tcore.frames_from_symbols(sym, [(32, 32)])
+    sym[1, 5, 2, 1] = 5000
+    before = tcore.host_fallbacks
+    frames = tcore.frames_from_symbols(sym, [(32, 32)] * 2)
+    assert tcore.host_fallbacks == before + 1
+    assert not any(is_turbo_frame(f) for f in frames)
+    assert frames == jcore.base.entropy_encode(sym.numpy(), [(32, 32)] * 2)
+    np.testing.assert_array_equal(tcore.base.entropy_decode(frames)[0],
+                                  sym.numpy())
 
-    # a model whose latent leaves every table
-    model = autoencoder_from_state_dict(small_checkpoint, device="cpu")
-    with torch.no_grad():
-        model.encoder.down_1.conv_down.weight.mul_(1e3)
-    core = CAETurboCore(model, num_streams=32, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        core.encode_tiles(_image(32, 32)[None])
+    # a model whose latent leaves the tables: whole tiles escape
+    state = scaled_checkpoint(100.0, small_checkpoint)
+    jscaled = JaxTurboCore(jax_from_state_dict(state), num_streams=32)
+    core = CAETurboCore(autoencoder_from_state_dict(state, device="cpu"),
+                        num_streams=32, device="cpu")
+    frames = core.encode_tiles(tiles)
+    assert core.host_fallbacks == 1 and core.capacity_retries == 0
+    want = jscaled.encode_tiles(tiles)
+    assert not any(is_turbo_frame(f) for f in want)
+    assert frames == want
+    rec = core.decode_tiles(frames)
+    _assert_u8_close(rec, jscaled.decode_tiles(frames))
+    np.testing.assert_array_equal(rec, core.base.decode_tiles(frames))
+
+
+def test_six_capacities_then_host_frames(cores):
+    """With the entropy estimate at 0 the first capacity is 2S + 64 words
+    and six doublings stay below what the tiles need: the JAX core writes
+    host frames, and so does the port, byte for byte."""
+    jcore0, tcore0 = cores["small"]
+    jcore = JaxTurboCore(jcore0.model, num_streams=16)
+    tcore = CAETurboCore(tcore0.model, num_streams=16, device="cpu")
+    jcore.expected_bits = tcore.expected_bits = 0.0
+    tiles = np.stack([_image(128, 128, seed) for seed in (7, 8)])
+    want = jcore.encode_tiles(tiles)
+    assert not any(is_turbo_frame(f) for f in want)
+    frames = tcore.encode_tiles(tiles)
+    assert frames == want
+    assert tcore.capacity_retries == 5 and tcore.host_fallbacks == 1
+    # the same tiles fit a real first capacity
+    tcore.expected_bits = tcore0.expected_bits
+    assert all(is_turbo_frame(f) for f in tcore.encode_tiles(tiles))
+    _assert_u8_close(tcore.decode_tiles(frames), jcore.decode_tiles(frames))
+
+
+def _v3_frames(core, tiles, s):
+    """Frame v3 of ``tiles`` built as the JAX package's v3 test builds it:
+    the encoder's symbols, ``encode_device`` (per-stream buffers) and the
+    length table.  ``core`` is a JAX or a port core."""
+    hw = [tiles.shape[1:3]] * len(tiles)
+    if not isinstance(core, JaxTurboCore):
+        return v3_frames(core, core.latent_symbols(tiles), hw, s)
+    from cnn_autoencoder_tpu.coding.device_rans import (encode_device,
+                                                        pack_streams)
+    sym = core.base.fetch_symbols(core.base.encode_tiles_device(
+        jnp.asarray(tiles)))
+    b, _, lh, lw = sym.shape
+    packed = pack_streams(jnp.asarray(sym.reshape(b, -1)), s)
+    cap = 2 * packed.shape[1] + 8
+    bufs, lengths, esc = encode_device(packed, core._get_ch_map(lh, lw, s),
+                                       core.tables, cap)
+    assert int(esc) == 0
+    return v3_frame_bytes(bufs, lengths, cap, s, hw)
+
+
+@pytest.mark.parametrize("name,h,w,s", [("small", 32, 32, 64),
+                                        ("small", 50, 38, 100),
+                                        ("flagship", 64, 64, 1024)])
+def test_jax_v3_frames_decode(cores, name, h, w, s):
+    """v3 frames the JAX package builds decode in the port to the
+    reconstruction of their v4 twins; the port's v3 writer builds the same
+    bytes, and the JAX package decodes them."""
+    jcore, tcore = cores[name]
+    tiles = np.stack([_image(h, w, seed) for seed in (2, 3)])
+    v3 = _v3_frames(JaxTurboCore(jcore.model, num_streams=s), tiles, s)
+    assert _v3_frames(tcore, tiles, s) == v3
+    v4 = tcore.encode_tiles(tiles)
+    np.testing.assert_array_equal(
+        tcore.symbols_from_frames_v3(v3, s, h, w),
+        tcore.latent_symbols(tiles))
+    np.testing.assert_array_equal(tcore.decode_tiles(v3),
+                                  tcore.decode_tiles(v4))
+    _assert_u8_close(jcore.decode_tiles(v3), tcore.decode_tiles(v3))
+
+
+def test_mixed_formats_decode_in_order(cores):
+    """One decode batch of v4, host, v3 and other-size frames comes back in
+    index order, each tile as its own format decodes alone, and as the JAX
+    core decodes the batch."""
+    jcore, tcore = cores["small"]
+    a = np.stack([_image(32, 32, seed) for seed in (4, 5)])
+    b = _image(40, 24, seed=6)[None]
+    v4 = tcore.encode_tiles(a)
+    host = tcore.base.encode_tiles(a)
+    v3 = _v3_frames(tcore, a, 64)
+    other = tcore.encode_tiles(b)
+    batch = [v4[0], host[1], v3[0], other[0], host[0], v3[1], v4[1]]
+    recs = tcore.decode_tiles(batch)
+    assert isinstance(recs, list) and len(recs) == len(batch)
+    alone = [tcore.decode_tiles([f])[0] for f in batch]
+    for got, want in zip(recs, alone):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(recs, jcore.decode_tiles(batch)):
+        _assert_u8_close(got, want)
+    # one size: stacked, in order
+    same = [host[1], v3[0], v4[1]]
+    stacked = tcore.decode_tiles(same)
+    assert isinstance(stacked, np.ndarray) and stacked.shape == (3, 32, 32, 3)
+    np.testing.assert_array_equal(stacked, np.stack(
+        [alone[1], alone[2], alone[6]]))
+
+
+def test_v3_guards(cores):
+    """The v3 reader checks its untrusted length table before it sizes a
+    buffer: a truncated table, a table past the payload, an odd payload
+    and a skewed table raise; balanced short streams decode."""
+    _, tcore = cores["small"]
+
+    def frame(s, table, payload, h=64, w=64):
+        return (struct.pack(">QQ", h | TURBO_FLAG, w)
+                + struct.pack(">BH", 3, s) + table + payload)
+
+    bad = {
+        "truncated": frame(1024, b"\x00" * 16, b""),
+        "corrupt": frame(8, struct.pack(">8I", 0xFFFFFFF0, *[0] * 7),
+                         b"\x00" * 64),
+        "corrupt odd": frame(2, struct.pack(">2I", 2, 2), b"\x00" * 5),
+        "skew": frame(1024, struct.pack(">I", 8192) + b"\x00" * 4092,
+                      b"\x00" * 8192),
+    }
+    for match, buf in bad.items():
+        with pytest.raises(ValueError, match=match.split()[0]):
+            tcore.decode_tiles([buf])
+    s, words = 1024, 3
+    ok = frame(s, struct.pack(">%dI" % s, *([2 * words] * s)),
+               b"\x00" * (2 * words * s))
+    assert tcore.decode_tiles([ok]).shape == (1, 64, 64, 3)
+
+
+@pytest.mark.parametrize("lh,lw,s,cap", [(4, 4, 64, 40), (3, 5, 100, 8),
+                                         (8, 8, 1024, 24)])
+def test_encode_decode_device_match_jax(lh, lw, s, cap):
+    """The port's v3 writer and reader equal the JAX package's on seeded
+    symbols (flagship tables), escapes and overflowing capacities
+    included."""
+    from cnn_autoencoder_tpu.coding import device_rans as jrans
+    from cnn_autoencoder_tpu_torch.coding import device_rans as trans
+    from cnn_autoencoder_tpu_torch.training.checkpoint import load_checkpoint
+    params = {k: np.asarray(v) for k, v in
+              load_checkpoint(FLAGSHIP)["fact_ent"]["params"].items()}
+    jt = jrans.bake_device_tables(params, (3, 3, 3, 3))
+    tt = trans.bake_device_tables(params, (3, 3, 3, 3))
+    cmap = trans.stream_channel_map(48, (lh, lw), s)
+    off, length = tt.offset.numpy()[cmap], tt.length.numpy()[cmap]
+    rng = np.random.RandomState(lh * s)
+    sym = np.stack([off + length // 3 + rng.randint(0, 1 + length // 3)
+                    for _ in range(2)]).astype(np.int32)
+    sym[0, 0, 0] = off[0, 0] - 3
+    bj, lj, ej = jrans.encode_device(jnp.asarray(sym), jnp.asarray(cmap),
+                                     jt, cap)
+    bt, lt, et = trans.encode_device(torch.from_numpy(sym),
+                                     torch.from_numpy(cmap), tt, cap)
+    assert bt.dtype == torch.uint16
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
+    assert int(et) == int(ej) == 1
+    t = cmap.shape[0]
+    np.testing.assert_array_equal(
+        trans.decode_device(bt, torch.from_numpy(cmap), tt, t).numpy(),
+        np.asarray(jrans.decode_device(bj, jnp.asarray(cmap), jt, t)))
 
 
 def test_default_device_without_card_raises(small_checkpoint, monkeypatch):
@@ -287,7 +454,9 @@ def test_kernel_wrappers_take_only_cuda_tensors():
 
 def test_port_imports_without_jax():
     """The port (and chip_smoke.py) import with JAX blocked and load no
-    module of the JAX package."""
+    module of the JAX package; every module is imported (the host coder,
+    the CAE, general and image codecs among them) and none builds or loads
+    a library at import."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -299,6 +468,13 @@ def test_port_imports_without_jax():
         "bad = [m for m in sys.modules if m == 'cnn_autoencoder_tpu'\n"
         "       or m.startswith('cnn_autoencoder_tpu.')]\n"
         "assert not bad, bad\n"
+        "need = ['coding.rans', 'coding._rans_py', 'storage.cae_codec',\n"
+        "        'storage.blosc_frame', 'storage.image_codecs']\n"
+        "assert all(p.__name__ + '.' + m in sys.modules for m in need)\n"
+        "from cnn_autoencoder_tpu_torch.coding import rans\n"
+        "from cnn_autoencoder_tpu_torch.ops.kernels import build\n"
+        "assert rans._lib is None and build._lib is None\n"
+        "assert 'PIL' not in sys.modules\n"
         "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
