@@ -1,7 +1,8 @@
-// K2, the GDN / IGDN forward of the bf16 training mode, on the H100's bf16
-// tensor cores (sm_90a).
+// K2, the GDN / IGDN forward of the bf16 training mode, and K1 on bf16
+// rows, the bf16 serving mode's GDN, on the H100's bf16 tensor cores
+// (sm_90a).
 //
-// It replaces cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:
+// K2 replaces cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:
 // _gdn_train_fwd_kernel (pallas_call in _gdn_train_fwd_pallas).  From bf16
 // rows x (N, C), gamma (C, C) and beta (C,), both float32:
 //   norm[n, o] = beta[o] + sum_i bf16(x[n, i]^2) * bf16(gamma[o, i])
@@ -10,6 +11,11 @@
 // rounded to bf16, the products summed in float32.  rb is the backward's
 // residual (K3, csrc/gdn_bf16_tc.cu).  Float32 rows take the CUDA-core
 // kernel of csrc/gdn.cu, with its full-float32 pool.
+//
+// K1 on bf16 rows (cae_gdn_fwd_bf16) replaces _gdn_kernel (pallas_call in
+// _gdn_pallas) given bf16 blocks: the same y, without rb.  It is the same
+// kernels instantiated with kWantR = false, which leaves out the r tile,
+// its staging and its stores; float32 rows of K1 take csrc/gdn_tc.cu.
 //
 // What bounds it: at C = 128 the pool is 2 C = 256 operations per element
 // against 6 bytes read and written once (x in, y and r out).  Both
@@ -151,13 +157,16 @@ __device__ __forceinline__ void store_one(bf16* p, float a) {
 }
 
 // bytes of one group's shared memory in the resident layout: A, the r
-// tile and kStages padded tiles of x
+// tile (where r is wanted) and kStages padded tiles of x
+template <bool kWantR>
 __host__ __device__ constexpr int group_smem() {
-  return (2 + kStages) * kRows * kLd * 2;
+  return (1 + kWantR + kStages) * kRows * kLd * 2;
 }
 
-constexpr int kResidentSmem =
-    kChunk * kLd * 2 + kChunk * 4 + kGroups * group_smem();
+template <bool kWantR>
+constexpr int resident_smem() {
+  return kChunk * kLd * 2 + kChunk * 4 + kGroups * group_smem<kWantR>();
+}
 constexpr int kStreamedSmem = (kRows + kChunk) * (kSliceK + 8) * 2;
 
 // rows [0, rows) of x (pitch c; 16-byte aligned when aligned) into the
@@ -206,8 +215,9 @@ __device__ __forceinline__ void unstage_rows(bf16* dst, const bf16* src,
 
 // C <= 128, K padded to kChunk.  Shared memory: gamma [kChunk][kLd] bf16,
 // beta [kChunk] float, then for each of the kGroups groups A [kRows][kLd],
-// r [kRows][kLd] and kStages stage buffers of x [kRows][kLd], all bf16.
-template <bool kInverse>
+// r [kRows][kLd] (kWantR only) and kStages stage buffers of x
+// [kRows][kLd], all bf16.
+template <bool kInverse, bool kWantR>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 gdn_fwd_tc_resident(const bf16* __restrict__ x, const bf16* __restrict__ gb,
                     const float* __restrict__ beta, bf16* __restrict__ y,
@@ -221,9 +231,9 @@ gdn_fwd_tc_resident(const bf16* __restrict__ x, const bf16* __restrict__ gb,
   bf16* s_gamma = reinterpret_cast<bf16*>(smem);
   float* s_beta = reinterpret_cast<float*>(s_gamma + kChunk * kLd);
   bf16* s_a = reinterpret_cast<bf16*>(s_beta + kChunk) +
-              group * group_smem() / 2;
-  bf16* s_r = s_a + kTile;
-  bf16* s_stage = s_a + 2 * kTile;
+              group * group_smem<kWantR>() / 2;
+  bf16* s_r = s_a + kTile;  // kWantR only
+  bf16* s_stage = s_a + (1 + kWantR) * kTile;
 
   // gamma and beta once per block, before any group starts
   for (int q = threadIdx.x; q < kChunk * kRowChunks; q += kBlockThreads) {
@@ -236,7 +246,8 @@ gdn_fwd_tc_resident(const bf16* __restrict__ x, const bf16* __restrict__ gb,
     s_beta[o] = o < c ? beta[o] : 1.f;
   // A and the stage buffers start zero: channels past C stay zero, and rows
   // past a ragged tile's end hold finite values
-  for (int q = gtid; q < (2 + kStages) * kTile / 8; q += kGroupThreads)
+  for (int q = gtid; q < (1 + kWantR + kStages) * kTile / 8;
+       q += kGroupThreads)
     reinterpret_cast<uint4*>(s_a)[q] = make_uint4(0u, 0u, 0u, 0u);
   cp_async_wait<0>();
   __syncthreads();
@@ -320,10 +331,11 @@ gdn_fwd_tc_resident(const bf16* __restrict__ x, const bf16* __restrict__ gb,
           bf16* rs = s_r + row * kLd + col;
           if (c % 2 == 0 || col + 1 < c) {
             *reinterpret_cast<bf162*>(xs) = __floats2bfloat162_rn(y0, y1);
-            *reinterpret_cast<bf162*>(rs) = __floats2bfloat162_rn(r0, r1);
+            if (kWantR)
+              *reinterpret_cast<bf162*>(rs) = __floats2bfloat162_rn(r0, r1);
           } else {
             *xs = __float2bfloat16(y0);
-            *rs = __float2bfloat16(r0);
+            if (kWantR) *rs = __float2bfloat16(r0);
           }
         }
       }
@@ -331,7 +343,7 @@ gdn_fwd_tc_resident(const bf16* __restrict__ x, const bf16* __restrict__ gb,
     group_sync(group);
     if (!kNoIO) {
       unstage_rows(y + base, sx, rows, c, gtid);
-      unstage_rows(rb + base, s_r, rows, c, gtid);
+      if (kWantR) unstage_rows(rb + base, s_r, rows, c, gtid);
     }
     lap(last, 3);
     buf = (buf + 1) % kStages;
@@ -341,7 +353,7 @@ gdn_fwd_tc_resident(const bf16* __restrict__ x, const bf16* __restrict__ gb,
 
 // C > 128, one group a block.  Shared memory: A [kRows][kSliceK + 8] bf16,
 // gamma [kChunk][kSliceK + 8] bf16.
-template <bool kInverse>
+template <bool kInverse, bool kWantR>
 __global__ void __launch_bounds__(kGroupThreads)
 gdn_fwd_tc_streamed(const bf16* __restrict__ x, const bf16* __restrict__ gb,
                     const float* __restrict__ beta, bf16* __restrict__ y,
@@ -407,14 +419,15 @@ gdn_fwd_tc_streamed(const bf16* __restrict__ x, const bf16* __restrict__ gb,
             const int64_t e = t * kRows * c + row * c + o;
             const float r = acc[j][2 * hr + h];
             store_one(y + e, __bfloat162float(x[e]) * r);
-            store_one(rb + e, r);
+            if (kWantR) store_one(rb + e, r);
           }
       }
     }
   }
 }
 
-template <bool kInverse>
+// rb is written only with kWantR (null without)
+template <bool kInverse, bool kWantR>
 cudaError_t launch(const bf16* x, const float* gamma, const float* beta,
                    bf16* y, bf16* rb, bf16* gb, int64_t n, int c,
                    cudaStream_t stream) {
@@ -423,10 +436,12 @@ cudaError_t launch(const bf16* x, const float* gamma, const float* beta,
   const bool resident = c <= kChunk;
   const int64_t ntiles = (n + kRows - 1) / kRows;
   const void* kernel =
-      resident ? reinterpret_cast<const void*>(gdn_fwd_tc_resident<kInverse>)
-               : reinterpret_cast<const void*>(gdn_fwd_tc_streamed<kInverse>);
+      resident ? reinterpret_cast<const void*>(
+                     gdn_fwd_tc_resident<kInverse, kWantR>)
+               : reinterpret_cast<const void*>(
+                     gdn_fwd_tc_streamed<kInverse, kWantR>);
   const int threads = resident ? kBlockThreads : kGroupThreads;
-  const int smem = resident ? kResidentSmem : kStreamedSmem;
+  const int smem = resident ? resident_smem<kWantR>() : kStreamedSmem;
   int blocks = 0;
   err = opt_in_smem(kernel, smem);
   if (err == cudaSuccess) err = resident_blocks(kernel, threads, smem, &blocks);
@@ -436,10 +451,10 @@ cudaError_t launch(const bf16* x, const float* gamma, const float* beta,
       resident ? (ntiles + kGroups - 1) / kGroups : ntiles, blocks));
   if (resident) {
     const int aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    gdn_fwd_tc_resident<kInverse><<<grid, threads, smem, stream>>>(
+    gdn_fwd_tc_resident<kInverse, kWantR><<<grid, threads, smem, stream>>>(
         x, gb, beta, y, rb, n, c, aligned);
   } else {
-    gdn_fwd_tc_streamed<kInverse><<<grid, threads, smem, stream>>>(
+    gdn_fwd_tc_streamed<kInverse, kWantR><<<grid, threads, smem, stream>>>(
         x, gb, beta, y, rb, n, c, gamma_bf16_kp(c));
   }
   return cudaGetLastError();
@@ -469,7 +484,35 @@ extern "C" int cae_gdn_train_fwd(const void* x, const float* gamma,
   bf16* r = static_cast<bf16*>(rb);
   bf16* gb = static_cast<bf16*>(work);
   const cudaError_t err =
-      inverse ? launch<true>(xb, gamma, beta, yb, r, gb, n, c, stream)
-              : launch<false>(xb, gamma, beta, yb, r, gb, n, c, stream);
+      inverse ? launch<true, true>(xb, gamma, beta, yb, r, gb, n, c, stream)
+              : launch<false, true>(xb, gamma, beta, yb, r, gb, n, c, stream);
+  return static_cast<int>(err);
+}
+
+// Bytes of the workspace cae_gdn_fwd_bf16 takes for C channels: the bf16
+// gamma, padded.
+extern "C" int64_t cae_gdn_fwd_bf16_workspace(int c) {
+  return gamma_bf16_bytes(c);
+}
+
+// K1 on bf16 rows: y alone.  x and y are bf16 (N, C) rows, y 16-byte
+// aligned; gamma is float32 (C, C), beta float32 (C,); work holds
+// cae_gdn_fwd_bf16_workspace(c) bytes, 16-byte aligned.
+extern "C" int cae_gdn_fwd_bf16(const void* x, const float* gamma,
+                                const float* beta, void* y, void* work,
+                                int64_t n, int c, int inverse,
+                                cudaStream_t stream) {
+  if (n == 0 || c == 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(work)) %
+          16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* yb = static_cast<bf16*>(y);
+  bf16* gb = static_cast<bf16*>(work);
+  const cudaError_t err =
+      inverse
+          ? launch<true, false>(xb, gamma, beta, yb, nullptr, gb, n, c, stream)
+          : launch<false, false>(xb, gamma, beta, yb, nullptr, gb, n, c,
+                                 stream);
   return static_cast<int>(err);
 }

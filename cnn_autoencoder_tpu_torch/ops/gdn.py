@@ -5,14 +5,18 @@ multiply).  Parameters are stored reparameterized (``ops.bounds``), as in the
 JAX package, so checkpoint values carry over as stored.
 
 The layer routes by the activations' dtype, which is how the port states
-the JAX package's compute mode (``convops.set_default_precision`` there):
+the JAX package's compute mode (``convops.set_default_precision``), and by
+whether a gradient is wanted:
 
 * float32: ``fused_gdn`` (K1 forward; the backward differentiates the
-  recomputed plain float32 GDN), the norm pool in full float32;
-* bf16: ``gdn_mixed`` (K2 forward, K3 backward), the JAX package's
-  ``ops/gdn.py:gdn_mixed`` with the training kernels on: bf16 residuals,
-  the pool at ``norm_pool_precision``, ``dgamma`` and ``dbeta`` as
-  contractions over the kernel's bf16 ``dnb``.
+  recomputed plain GDN), the norm pool in full float32;
+* bf16, no gradient wanted (bf16 serving): ``fused_gdn`` on bf16 rows (K1
+  on bf16 rows), the pool at ``norm_pool_precision``, as the JAX package
+  serves bf16 through its ``fused_gdn`` (``ops/gdn.py:172-180`` there);
+* bf16 with a gradient (bf16 training): ``gdn_mixed`` (K2 forward, K3
+  backward), the JAX package's ``ops/gdn.py:gdn_mixed`` with the training
+  kernels on: bf16 residuals, the pool at ``norm_pool_precision``,
+  ``dgamma`` and ``dbeta`` as contractions over the kernel's bf16 ``dnb``.
 """
 
 import torch
@@ -77,7 +81,9 @@ class GDN(nn.Module):
         gamma, beta = self.effective_params()
         c = x.shape[-1]
         rows = x.reshape(-1, c).contiguous()
-        if x.dtype == torch.bfloat16:
+        wants_grad = torch.is_grad_enabled() and (
+            rows.requires_grad or gamma.requires_grad or beta.requires_grad)
+        if x.dtype == torch.bfloat16 and wants_grad:
             out = gdn_mixed(rows, gamma, beta, self.inverse)
         else:
             out = fused_gdn(rows, gamma, beta, self.inverse)

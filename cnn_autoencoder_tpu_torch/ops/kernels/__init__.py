@@ -12,12 +12,13 @@ def kernel_wrappers():
     """The CUDA wrappers of every kernel, each with ``launches`` and
     ``kernel_name``."""
     from .conv_gdn_kernel import conv_gdn_cuda, conv_gdn_train_cuda
-    from .gdn_kernel import gdn_cuda, gdn_train_bwd_cuda, gdn_train_fwd_cuda
+    from .gdn_kernel import (gdn_bf16_cuda, gdn_cuda, gdn_train_bwd_cuda,
+                             gdn_train_fwd_cuda)
     from .rans_kernel import (compact_cuda, decode_interleaved_cuda,
                               encode_states_cuda)
-    return (gdn_cuda, gdn_train_fwd_cuda, gdn_train_bwd_cuda, conv_gdn_cuda,
-            conv_gdn_train_cuda, encode_states_cuda, compact_cuda,
-            decode_interleaved_cuda)
+    return (gdn_cuda, gdn_bf16_cuda, gdn_train_fwd_cuda, gdn_train_bwd_cuda,
+            conv_gdn_cuda, conv_gdn_train_cuda, encode_states_cuda,
+            compact_cuda, decode_interleaved_cuda)
 
 
 def reset_launch_counts() -> None:

@@ -31,6 +31,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "cae_gdn_fwd": [_P, _P, _P, _P, _L, _I, _I, _P],
     "cae_gdn_root_check": [ctypes.c_uint32, _L, _P, _P],
+    "cae_gdn_fwd_bf16": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "cae_gdn_fwd_bf16_workspace": [_I],
     "cae_gdn_train_fwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     "cae_gdn_train_fwd_workspace": [_I],
     "cae_gdn_train_fwd_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
@@ -47,6 +49,7 @@ SIGNATURES = {
 }
 # launchers that return something other than a cudaError_t (int)
 RESTYPES = {"cae_conv_gdn_workspace": ctypes.c_int64,
+            "cae_gdn_fwd_bf16_workspace": ctypes.c_int64,
             "cae_gdn_train_fwd_workspace": ctypes.c_int64,
             "cae_gdn_train_bwd_workspace": ctypes.c_int64,
             "cae_rans_encode_chunks": ctypes.c_int64}

@@ -3,13 +3,17 @@
 and their plain PyTorch versions.
 
 * K1 ``gdn_cuda`` replaces ``cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:
-  _gdn_kernel``: float32 rows, float32-accurate math on the tensor cores
-  (three TF32 passes over hi/lo parts of x^2 and gamma, split in the
-  kernel).  ``fused_gdn`` is its differentiable entry (the JAX
-  ``fused_gdn`` custom VJP): the forward is the kernel on the card and
-  ``gdn_plain`` on the CPU; the backward
-  recomputes the plain float32 GDN and differentiates it, as the JAX
-  backward does (it has no kernel there either).
+  _gdn_kernel``, the serving GDN, and takes the rows' type as the JAX
+  kernel takes its blocks'.  Float32 rows: float32-accurate math on the
+  tensor cores (three TF32 passes over hi/lo parts of x^2 and gamma, split
+  in the kernel, ``gdn_tc.cu``).  bf16 rows (``gdn_bf16_cuda``, the bf16
+  serving mode's GDN): the pool at ``norm_pool_precision``, one bf16
+  tensor-core pass with float32 sums, from K2's kernels without the
+  residual (``gdn_fwd_bf16_tc.cu``).  ``fused_gdn`` is its differentiable
+  entry (the JAX ``fused_gdn`` custom VJP): the forward is the kernel on
+  the card and ``gdn_plain`` on the CPU; the backward recomputes the plain
+  GDN and differentiates it, as the JAX backward does (it has no kernel
+  there either).
 * K2 ``gdn_train_fwd_cuda`` replaces ``_gdn_train_fwd_kernel``: ``y`` in the
   rows' type and the backward residual ``r`` as bf16.  bf16 rows (the bf16
   mode's path) take the pool on the bf16 tensor cores (one pass, float32
@@ -56,9 +60,10 @@ def _norm(x32: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def gdn_plain(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               inverse: bool = False) -> torch.Tensor:
     """y = x * (beta + x^2 gamma^T)^(-1/2) (inverse: ^(+1/2)); float32 math,
-    one rounding to x's dtype."""
+    the pool at ``norm_pool_precision(x2d.dtype)``, one rounding to x's
+    dtype."""
     x32 = x2d.float()
-    norm = _norm(x32, gamma, beta, torch.float32)
+    norm = _norm(x32, gamma, beta, norm_pool_precision(x2d.dtype))
     r = torch.sqrt(norm) if inverse else torch.rsqrt(norm)
     return (x32 * r).to(x2d.dtype)
 
@@ -120,11 +125,13 @@ def _require_cuda(name, t):
 
 def gdn_cuda(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              inverse: bool = False) -> torch.Tensor:
-    """K1; raises on what it does not take."""
+    """K1 on float32 or bf16 rows; raises on what it does not take."""
     c = x2d.shape[-1]
-    _check_rows("gdn kernel x", x2d, c, (torch.float32,), x2d.device)
+    _check_rows("gdn kernel x", x2d, c, _ROW_DTYPES, x2d.device)
     _check_params("gdn kernel", x2d.device, c, gamma, beta)
     _require_cuda("gdn_cuda", x2d)
+    if x2d.dtype == torch.bfloat16:
+        return gdn_bf16_cuda(x2d, gamma, beta, inverse)
     n = x2d.shape[0]
     gamma = gamma.detach().float().contiguous()
     beta = beta.detach().float().contiguous()
@@ -141,6 +148,35 @@ def gdn_cuda(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 gdn_cuda.launches = 0
 gdn_cuda.kernel_name = "gdn_fwd"
+
+
+def gdn_bf16_cuda(x2d: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """K1 on bf16 rows; raises on what it does not take."""
+    c = x2d.shape[-1]
+    _check_rows("gdn kernel x", x2d, c, (torch.bfloat16,), x2d.device)
+    _check_params("gdn kernel", x2d.device, c, gamma, beta)
+    _require_cuda("gdn_bf16_cuda", x2d)
+    n = x2d.shape[0]
+    gamma = gamma.detach().float().contiguous()
+    beta = beta.detach().float().contiguous()
+    out = torch.empty_like(x2d)
+    lib = load_library()
+    with torch.cuda.device(x2d.device):
+        # the kernel's bf16 copy of gamma, padded
+        work = torch.empty(lib.cae_gdn_fwd_bf16_workspace(c),
+                           dtype=torch.uint8, device=x2d.device)
+        err = lib.cae_gdn_fwd_bf16(x2d.data_ptr(), gamma.data_ptr(),
+                                   beta.data_ptr(), out.data_ptr(),
+                                   work.data_ptr(), n, c, int(inverse),
+                                   stream_handle(x2d))
+    check_launch(err, "gdn_fwd_bf16")
+    gdn_bf16_cuda.launches += 1
+    return out
+
+
+gdn_bf16_cuda.launches = 0
+gdn_bf16_cuda.kernel_name = "gdn_fwd_bf16"
 
 
 def gdn_train_fwd_cuda(x2d: torch.Tensor, gamma: torch.Tensor,
@@ -233,8 +269,8 @@ def gdn_train_bwd(g, xb, rb, gamma, inverse: bool = False):
 
 
 class _FusedGDN(torch.autograd.Function):
-    """K1 forward; backward by autograd of the recomputed plain float32
-    GDN (the JAX ``_fused_gdn_bwd``)."""
+    """K1 forward; backward by autograd of the recomputed plain GDN (the
+    JAX ``_fused_gdn_bwd``)."""
 
     @staticmethod
     def forward(ctx, x2d, gamma, beta, inverse):
@@ -259,6 +295,6 @@ class _FusedGDN(torch.autograd.Function):
 
 def fused_gdn(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               inverse: bool = False) -> torch.Tensor:
-    """Differentiable GDN over float32 (N, C) rows: K1 on the card, the
-    plain version on the CPU, the plain float32 GDN's gradient."""
+    """Differentiable GDN over float32 or bf16 (N, C) rows: K1 on the card,
+    the plain version on the CPU, the plain GDN's gradient."""
     return _FusedGDN.apply(x2d, gamma, beta, inverse)

@@ -12,6 +12,12 @@ narrowest lossless upload of decoded symbols and the decoder on the device.
 Tiles whose sides are not multiples of ``2**compression_level`` are
 reflect-padded before encoding and cropped after decoding.  The 'cae_tpu'
 codec writes these frames for a batch its device coder cannot take.
+
+The model runs at a compute type fixed when the core is built: float32, or
+bf16 activations end to end (``ops.convops.set_default_precision("bf16")``
+or CAE_TPU_PRECISION=bf16), as the JAX codec casts them at the model's
+boundary.  Frames do not depend on it: a frame written at either decodes at
+either, in either package.
 """
 
 import base64
@@ -24,6 +30,7 @@ import torch
 from ..coding import rans
 from ..models.entropy import medians_fn, update_cdf_tables
 from ..models.factory import autoencoder_from_state_dict
+from ..ops.convops import get_activations_dtype
 from ..training.checkpoint import msgpack_restore, msgpack_serialize
 from ..utils.device import resolve_device
 from .codecs import (Codec, check_frame_hw, latent_hw, ndarray_copy,
@@ -66,11 +73,17 @@ def _channel_indexes(c: int, h: int, w: int) -> np.ndarray:
 
 
 class CAECodecCore:
-    """Batched encode/decode of tiles for one CAE model, float32, on
-    ``device`` (``None``: the card)."""
+    """Batched encode/decode of tiles for one CAE model on ``device``
+    (``None``: the card), with activations in ``compute_dtype`` (float32 or
+    bf16; ``None``: ``get_activations_dtype()`` now)."""
 
-    def __init__(self, model, device=None):
+    def __init__(self, model, device=None, compute_dtype=None):
         self.device = resolve_device(device)
+        self.compute_dtype = (get_activations_dtype() if compute_dtype is None
+                              else compute_dtype)
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {self.compute_dtype}: the codec "
+                             "runs float32 or bf16")
         self.model = model.to(self.device).eval()
         self.level = model.compression_level
         self.channels_bn = model.channels_bn
@@ -97,7 +110,8 @@ class CAECodecCore:
     def latent_symbols(self, tiles_u8) -> torch.Tensor:
         """(B, H, W, 3) uint8 (numpy or tensor) -> (B, C, lh, lw) int32
         quantized latent ``round(y - medians)``, channel-major, on the
-        device."""
+        device; y in the compute type, the medians and the difference in
+        float32."""
         if not torch.is_tensor(tiles_u8):
             tiles_u8 = torch.from_numpy(np.ascontiguousarray(tiles_u8))
         x = tiles_u8.to(self.device)
@@ -108,7 +122,7 @@ class CAECodecCore:
             iy = torch.from_numpy(reflect_index(h, ph)).to(self.device)
             ix = torch.from_numpy(reflect_index(w, pw)).to(self.device)
             x = x[:, iy][:, :, ix]
-        y = self.model.encoder(x)
+        y = self.model.encoder(x.to(self.compute_dtype))
         sym = torch.round(y - self._med).to(torch.int32)
         return sym.permute(0, 3, 1, 2).contiguous()
 
@@ -150,10 +164,10 @@ class CAECodecCore:
 
     @torch.no_grad()
     def decode_latents_device(self, y, rec_level: int = -1) -> torch.Tensor:
-        """Decode float NHWC latents (medians included) to uint8 on the
-        device.  ``rec_level`` -1 or the model's level reconstructs at full
-        scale; a coarser level needs a multiscale decoder, which the port
-        does not have yet, and raises."""
+        """Decode float NHWC latents (medians included; cast to the compute
+        type here) to uint8 on the device.  ``rec_level`` -1 or the model's
+        level reconstructs at full scale; a coarser level needs a multiscale
+        decoder, which the port does not have yet, and raises."""
         if rec_level not in (-1, self.level):
             raise ValueError(
                 "Partial reconstruction at this level needs a "
@@ -163,9 +177,10 @@ class CAECodecCore:
         return self._synthesize(y.to(self.device, torch.float32))
 
     def _synthesize(self, y: torch.Tensor) -> torch.Tensor:
-        x_r, _ = self.model.decoder(y)
+        """Float32 latents -> uint8 reconstructions."""
+        x_r, _ = self.model.decoder(y.to(self.compute_dtype))
         # clip, then truncate to uint8, as the JAX codec converts
-        return torch.clamp(x_r[0] * 255.0, 0, 255).to(torch.uint8)
+        return torch.clamp(x_r[0].float() * 255.0, 0, 255).to(torch.uint8)
 
     # -- host steps ---------------------------------------------------------
 
@@ -218,7 +233,8 @@ class CAECodecCore:
 class ConvolutionalAutoencoder(Codec):
     """zarr codec id 'cae': a pixel chunk <-> a host CAE frame.
     ``offset`` pads the chunk by that many edge pixels before encoding and
-    crops them after decoding."""
+    crops them after decoding.  It serves at the precision set when it is
+    built (``ops.convops.set_default_precision``)."""
 
     codec_id = "cae"
 

@@ -50,14 +50,16 @@ def is_turbo_frame(raw: bytes) -> bool:
 class CAETurboCore:
     """Batched device encode/decode of tiles for one CAE model; ``base`` is
     the host-format core of the same model, which writes the batches the
-    device coder cannot take and reads host frames."""
+    device coder cannot take and reads host frames.  ``compute_dtype`` is
+    the model's activation type, as ``CAECodecCore`` takes it."""
 
     def __init__(self, model, num_streams: int = DEFAULT_STREAMS,
-                 device=None):
+                 device=None, compute_dtype=None):
         if not 1 <= num_streams <= 0xFFFF:
             raise ValueError(f"num_streams {num_streams} does not fit the "
                              "frame's u16 field")
-        self.base = CAECodecCore(model, device=device)
+        self.base = CAECodecCore(model, device=device,
+                                 compute_dtype=compute_dtype)
         self.num_streams = num_streams
         fe = {k: v.detach().cpu().numpy()
               for k, v in model.fact_ent.params().items()}
@@ -324,7 +326,9 @@ class CAETurboCore:
 
 
 class ConvolutionalAutoencoderTurbo(Codec):
-    """zarr codec id 'cae_tpu' (device-coded bitstream)."""
+    """zarr codec id 'cae_tpu' (device-coded bitstream), serving at the
+    precision set when it is built (``ops.convops.set_default_precision``).
+    """
 
     codec_id = "cae_tpu"
 

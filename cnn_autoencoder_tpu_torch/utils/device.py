@@ -18,18 +18,21 @@ def resolve_device(device=None) -> torch.device:
 
 @contextlib.contextmanager
 def full_f32():
-    """Run convolutions and matmuls in full float32.
+    """Run convolutions and matmuls with full float32 products and sums.
 
     cuDNN computes float32 convolutions in TF32 by default (about three
     decimal digits), which would break parity with the JAX package's
-    HIGHEST precision.  This turns TF32 off for the block and restores the
+    HIGHEST precision, and cuBLAS may reduce the partial sums of a bf16
+    product in bf16.  This turns both off for the block and restores the
     previous settings after it."""
-    conv, mm = torch.backends.cudnn.allow_tf32, \
-        torch.backends.cuda.matmul.allow_tf32
+    matmul = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = mm
+        (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = saved

@@ -122,18 +122,22 @@ def test_three_tf32_passes_hold_float32(inverse):
             assert rel <= ok, rel
 
 
-@pytest.mark.parametrize("case", ["cpu", "bf16", "strided", "gamma"])
+@pytest.mark.parametrize("case", ["cpu", "bf16", "float16", "strided",
+                                  "gamma"])
 def test_gdn_cuda_refuses(case):
     """The K1 wrapper raises ValueError on what it does not take, before it
-    needs a card: CPU rows, bf16 rows, non-contiguous rows, a gamma that
-    does not match C."""
+    needs a card: CPU rows (float32, and bf16, which it takes on the card),
+    rows of another type, non-contiguous rows, a gamma that does not match
+    C."""
     c = 8
-    x = torch.ones((4, c), dtype=torch.bfloat16 if case == "bf16"
-                   else torch.float32)
+    dtype = {"bf16": torch.bfloat16, "float16": torch.float16}.get(
+        case, torch.float32)
+    x = torch.ones((4, c), dtype=dtype)
     if case == "strided":
         x = torch.ones((c, 4)).t()
     gamma, beta = torch.zeros((c, c + (case == "gamma"))), torch.ones(c)
-    match = {"cpu": "CUDA tensors", "bf16": "rows of",
-             "strided": "contiguous", "gamma": "do not match"}[case]
+    match = {"cpu": "CUDA tensors", "bf16": "CUDA tensors",
+             "float16": "rows of", "strided": "contiguous",
+             "gamma": "do not match"}[case]
     with pytest.raises(ValueError, match=match):
         gdn_cuda(x, gamma, beta)

@@ -420,7 +420,7 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     from cnn_autoencoder_tpu_torch.ops.kernels.conv_gdn_kernel import (
         conv_gdn_cuda, conv_gdn_train_cuda)
     from cnn_autoencoder_tpu_torch.ops.kernels.gdn_kernel import (
-        gdn_cuda, gdn_train_bwd_cuda, gdn_train_fwd_cuda)
+        gdn_bf16_cuda, gdn_cuda, gdn_train_bwd_cuda, gdn_train_fwd_cuda)
     from cnn_autoencoder_tpu_torch.ops.kernels.rans_kernel import (
         EncodeState, compact_cuda, decode_interleaved_cuda,
         encode_states_cuda)
@@ -435,6 +435,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     conv_args = (torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 8),
                  torch.eye(8), torch.ones(8))
     calls = [lambda: gdn_cuda(x, torch.eye(8), torch.ones(8)),
+             lambda: gdn_cuda(xb, torch.eye(8), torch.ones(8)),
+             lambda: gdn_bf16_cuda(xb, torch.eye(8), torch.ones(8)),
              lambda: gdn_train_fwd_cuda(xb, torch.eye(8), torch.ones(8)),
              lambda: gdn_train_bwd_cuda(xb, xb, xb, torch.eye(8)),
              lambda: conv_gdn_cuda(*conv_args),
@@ -446,7 +448,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert {fn.kernel_name for fn in kernel_wrappers()} == {
-        "gdn_fwd", "gdn_train_fwd", "gdn_train_bwd", "conv_gdn_fwd",
+        "gdn_fwd", "gdn_fwd_bf16", "gdn_train_fwd", "gdn_train_bwd",
+        "conv_gdn_fwd",
         "conv_gdn_train_fwd", "rans_encode_states", "rans_compact",
         "rans_decode"}
     assert all(fn.launches == 0 for fn in kernel_wrappers())
