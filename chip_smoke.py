@@ -88,7 +88,28 @@ Phases, in order; any failure exits non-zero:
    (b)'s warm-up and read just after its timed round trips, and logged on
    their own: the ``cae`` path launches K1 and K4 and no rANS kernel.
    Nothing sets cuDNN's deterministic switch outside phase 3's timings.
-7. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+7. The slide: a 4096^2 synthetic slide (``synth_histology``, the port's
+   copy of ``bench.py:127``) written as a port zarr store (YXC, 512^2
+   chunks, raw), in float32 and again in bf16: (a) ``cae_tpu`` through
+   ``compress_pixels_to_cae_turbo`` and ``decompress_cae_turbo_array`` (4
+   batches of 16 tiles on the pipeline's worker threads), every chunk equal
+   to ``CAETurboCore.encode_tiles`` of the same batches called serially on
+   one thread and the image bit-equal to ``decode_tiles`` of those frames,
+   then ``roundtrip_cae_turbo`` to the same bytes and image; (b) ``cae``
+   through ``compress_pixels_to_cae`` and ``decompress_cae_array`` with the
+   same checks against ``CAECodecCore``, then again with the halo
+   ``offset = 2**level``; (c) ``cae_bn`` on a 1024^2 crop with a latent
+   halo of 2; (d) the compress and decompress CLIs as subprocesses
+   (``-cod CAETPU`` and ``-cod CAE``, zarr in and out), their stores
+   byte-equal to (a)'s and (b)'s and their images to the pipeline's
+   decodes.  Launch counts are reset before each timed compress +
+   decompress pass and read after it, logged on their own line and held
+   to 4 batches' worth (K1 12, K4 4; ``cae_tpu`` also K6 4 state passes and
+   4 compactions plus one per capacity retry, K5 4); they do not enter the
+   ``kernels`` line.  Encode and decode MP/s, PSNR, bpp, the round trip's
+   MP/s and ``GLOBAL_TIMER.report()`` are printed beside the card's name
+   and power limit.
+8. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
    runs of phases 3 and 5), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -295,7 +316,9 @@ def phase_device(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -2354,6 +2377,339 @@ def phase_codecs(torch, model, core, core16):
     log(f"codec phase: {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+SLIDE = 4096        # side of the synthetic slide
+SLIDE_PATCH = 512   # its chunks and the pipeline's tiles
+SLIDE_BATCHES = 4   # default_batch_tiles(512, n_tiles=64) = 16 tiles a batch
+CARD = ""           # nvidia-smi's name and power limit, set in phase 1
+
+
+def synth_histology(h, w, seed=0):
+    """Smooth low-frequency tissue-like structure + stain noise: the port's
+    copy of the JAX package's ``bench.py:127`` (this script imports no JAX)."""
+    rng = np.random.RandomState(seed)
+    small = rng.rand(h // 64 + 2, w // 64 + 2, 3)
+    idx_y = (np.arange(h) / 64.0)
+    idx_x = (np.arange(w) / 64.0)
+    y0 = idx_y.astype(np.int32)
+    x0 = idx_x.astype(np.int32)
+    fy = (idx_y - y0)[:, None, None]
+    fx = (idx_x - x0)[None, :, None]
+    a = small[y0][:, x0]
+    b = small[y0][:, x0 + 1]
+    c = small[y0 + 1][:, x0]
+    d = small[y0 + 1][:, x0 + 1]
+    img = (a * (1 - fy) * (1 - fx) + b * (1 - fy) * fx
+           + c * fy * (1 - fx) + d * fy * fx)
+    img = img * 120 + 110 + rng.randn(h, w, 3) * 6
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def psnr_db(rec, ref):
+    mse = np.mean((rec.astype(np.float64) - ref) ** 2)
+    return 10 * np.log10(255.0 ** 2 / mse)
+
+
+def slide_chunks(arr):
+    return {ij: arr.read_chunk_raw(ij) for ij in arr.chunk_ids()}
+
+
+def serial_batches(img, p, batch, hal=0):
+    """(grid ids, (B, p + 2 hal, p + 2 hal, 3) tiles) of each batch in the
+    pipeline's order and padding, each tile with a halo of ``hal`` real
+    neighbouring pixels (zeros past the image)."""
+    h, w, c = img.shape
+    grid = [(i, j) for i in range(-(-h // p)) for j in range(-(-w // p))]
+    pe = p + 2 * hal
+    out = []
+    for k in range(0, len(grid), batch):
+        ids = grid[k:k + batch]
+        tiles = np.zeros((batch, pe, pe, c), np.uint8)
+        for t, (i, j) in enumerate(ids):
+            y0, x0 = i * p - hal, j * p - hal
+            ys, xs = max(0, y0), max(0, x0)
+            ye, xe = min(h, y0 + pe), min(w, x0 + pe)
+            tiles[t, ys - y0:ye - y0, xs - x0:xe - x0] = img[ys:ye, xs:xe]
+        tiles[len(ids):] = tiles[len(ids) - 1]
+        out.append((ids, tiles))
+    return out
+
+
+def stitch(shape, ids_recs, p, hal=0):
+    out = np.zeros(shape, np.uint8)
+    for ids, rec in ids_recs:
+        for (i, j), r in zip(ids, rec):
+            if hal:
+                r = r[hal:-hal, hal:-hal]
+            blk = out[i * p:(i + 1) * p, j * p:(j + 1) * p]
+            blk[...] = r[:blk.shape[0], :blk.shape[1]]
+    return out
+
+
+def slide_launches(torch, label, expect, retries):
+    """Read the launch counts of the pass just run, log them on their own
+    line and hold them to ``expect`` ({kernel: count}; every other kernel
+    0; ``rans_compact`` one more per capacity retry)."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import kernel_wrappers
+    launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+    log(f"slide {label} launches: {launches} ({retries} capacity retries)")
+    for name, n in launches.items():
+        want = expect.get(name, 0)
+        if name == "rans_compact" and want:
+            want += retries
+        check(n == want, f"slide {label}: kernel {name} launched {n} times, "
+              f"expected {want}")
+    return launches
+
+
+def stage_report(timer, t0, t1, t2):
+    """``GLOBAL_TIMER.report()`` of a compress pass [t0, t1) and a
+    decompress pass [t1, t2), with the share of each pass that some
+    thread spent inside one of its stages."""
+    return (f"{timer.report()}; in stages "
+            f"{timer.busy_fraction(('compress/',), t0, t1):.3f} of the "
+            f"compress, {timer.busy_fraction(('decompress/',), t1, t2):.3f} "
+            "of the decompress")
+
+
+def slide_turbo(torch, core, img, work, mode):
+    """(a) The slide through ``compress_pixels_to_cae_turbo`` and
+    ``decompress_cae_turbo_array``: chunks equal to ``encode_tiles`` of the
+    same batches called serially on one thread, the stitched image bit-equal
+    to ``decode_tiles`` of those frames, launches counted over the timed
+    pass; then ``roundtrip_cae_turbo`` to the same bytes and image."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import reset_launch_counts
+    from cnn_autoencoder_tpu_torch.pipeline.tiles import (
+        compress_pixels_to_cae_turbo, decompress_cae_turbo_array,
+        default_batch_tiles, roundtrip_cae_turbo)
+    from cnn_autoencoder_tpu_torch.utils.profiling import GLOBAL_TIMER
+    p = SLIDE_PATCH
+    n_tiles = (SLIDE // p) ** 2
+    batch = default_batch_tiles(p, core, n_tiles)
+    check(batch * SLIDE_BATCHES == n_tiles, f"batch {batch} for {n_tiles} "
+          "tiles")
+    serial = serial_batches(img, p, batch)
+    frames, recs = {}, []
+    for ids, tiles in serial:      # one thread, in order: the reference
+        bufs = core.encode_tiles(tiles)
+        frames.update({(i, j, 0): b for (i, j), b in zip(ids, bufs)})
+        recs.append((ids, core.decode_tiles(bufs)))
+    rec_serial = stitch(img.shape, recs, p)
+    torch.cuda.synchronize()
+
+    gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
+    retries, fallbacks = core.capacity_retries, core.host_fallbacks
+    GLOBAL_TIMER.reset()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    arr = compress_pixels_to_cae_turbo(core, img, os.path.join(
+        work, f"tpu_{mode}.zarr"), patch_size=p, checkpoint_id=CHECKPOINT)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rec = decompress_cae_turbo_array(arr, core=core)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    retries = core.capacity_retries - retries
+    check(core.host_fallbacks == fallbacks, f"cae_tpu ({mode}): a batch "
+          "fell back to host frames")
+    n = SLIDE_BATCHES
+    slide_launches(torch, f"cae_tpu ({mode}) compress + decompress", {
+        gdn: 3 * n, "conv_gdn_fwd": n, "rans_encode_states": n,
+        "rans_compact": n, "rans_decode": n}, retries)
+    report = stage_report(GLOBAL_TIMER, t0, t1, t2)
+    chunks = slide_chunks(arr)
+    check(chunks == frames, f"cae_tpu ({mode}): pipeline chunks differ from "
+          "encode_tiles called serially")
+    check(np.array_equal(rec, rec_serial), f"cae_tpu ({mode}): pipeline "
+          "image differs from decode_tiles of the serial frames")
+
+    t3 = time.perf_counter()
+    arr_rt, rec_rt = roundtrip_cae_turbo(core, img, os.path.join(
+        work, f"tpu_rt_{mode}.zarr"), patch_size=p, checkpoint_id=CHECKPOINT)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    check(slide_chunks(arr_rt) == chunks and np.array_equal(rec_rt, rec),
+          f"cae_tpu ({mode}): roundtrip_cae_turbo differs from compress "
+          "then decompress")
+    mpix = SLIDE * SLIDE / 1e6
+    bpp = 8.0 * sum(len(b) for b in chunks.values()) / (SLIDE * SLIDE)
+    log(f"slide cae_tpu ({mode}) [{CARD}]: {SLIDE}^2 in {n} batches of "
+        f"{batch} x {p}^2; chunks equal to serial encode_tiles, image "
+        f"bit-equal to serial decode_tiles; PSNR {psnr_db(rec, img):.3f} dB,"
+        f" {bpp:.4f} bpp; encode {mpix / (t1 - t0):.3f} MP/s "
+        f"({(t1 - t0) * 1e3:.1f} ms), decode {mpix / (t2 - t1):.3f} MP/s "
+        f"({(t2 - t1) * 1e3:.1f} ms); roundtrip_cae_turbo "
+        f"{mpix / (t4 - t3):.3f} MP/s ({(t4 - t3) * 1e3:.1f} ms), same "
+        "bytes and image")
+    log(f"slide cae_tpu ({mode}) GLOBAL_TIMER [{CARD}]: {report}")
+    return arr.path, rec
+
+
+def slide_cae(torch, core, img, work, mode, hal):
+    """(b) The slide through ``compress_pixels_to_cae`` (``offset`` = hal)
+    and ``decompress_cae_array``, held to ``encode_tiles`` / ``decode_tiles``
+    of the same batches called serially; launches counted over the pass."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import reset_launch_counts
+    from cnn_autoencoder_tpu_torch.pipeline.tiles import (
+        compress_pixels_to_cae, decompress_cae_array, default_batch_tiles)
+    from cnn_autoencoder_tpu_torch.utils.profiling import GLOBAL_TIMER
+    base = core.base
+    p = SLIDE_PATCH
+    batch = default_batch_tiles(p, base, (SLIDE // p) ** 2)
+    frames, recs = {}, []
+    for ids, tiles in serial_batches(img, p, batch, hal):
+        bufs = base.encode_tiles(tiles)
+        frames.update({(i, j, 0): b for (i, j), b in zip(ids, bufs)})
+        recs.append((ids, base.decode_tiles(bufs[:len(ids)])))
+    rec_serial = stitch(img.shape, recs, p, hal)
+    torch.cuda.synchronize()
+
+    GLOBAL_TIMER.reset()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    arr = compress_pixels_to_cae(base, img, os.path.join(
+        work, f"cae_{mode}_{hal}.zarr"), patch_size=p,
+        checkpoint_id=CHECKPOINT, offset=hal)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rec = decompress_cae_array(arr, core=base)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = SLIDE_BATCHES
+    gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
+    slide_launches(torch, f"cae ({mode}, offset {hal}) compress + "
+                   "decompress", {gdn: 3 * n, "conv_gdn_fwd": n}, 0)
+    report = stage_report(GLOBAL_TIMER, t0, t1, t2)
+    chunks = slide_chunks(arr)
+    check(chunks == frames, f"cae ({mode}, offset {hal}): pipeline chunks "
+          "differ from encode_tiles called serially")
+    check(np.array_equal(rec, rec_serial), f"cae ({mode}, offset {hal}): "
+          "pipeline image differs from decode_tiles of the serial frames")
+    mpix = SLIDE * SLIDE / 1e6
+    bpp = 8.0 * sum(len(b) for b in chunks.values()) / (SLIDE * SLIDE)
+    log(f"slide cae ({mode}, offset {hal}) [{CARD}]: chunks equal to serial "
+        f"encode_tiles, image bit-equal to serial decode_tiles; PSNR "
+        f"{psnr_db(rec, img):.3f} dB, {bpp:.4f} bpp; encode "
+        f"{mpix / (t1 - t0):.3f} MP/s ({(t1 - t0) * 1e3:.1f} ms), decode "
+        f"{mpix / (t2 - t1):.3f} MP/s ({(t2 - t1) * 1e3:.1f} ms)")
+    log(f"slide cae ({mode}, offset {hal}) GLOBAL_TIMER [{CARD}]: {report}")
+    return arr.path, rec
+
+
+def slide_bottleneck(torch, core, img, work, mode, rec_cae):
+    """(c) 'cae_bn' on a 1024^2 crop: ``compress_pixels_to_bottleneck``
+    stores the latents of ``CAECodecCore.latents`` losslessly past
+    quantization; ``decompress_latents_to_pixels`` with a latent halo of 2
+    gives the crop's size and a PSNR within 0.5 dB of the 'cae' path's on
+    the same pixels (``rec_cae``, the slide's 'cae' reconstruction)."""
+    from cnn_autoencoder_tpu_torch.pipeline.tiles import (
+        compress_pixels_to_bottleneck, decompress_latents_to_pixels)
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    base = core.base
+    p = SLIDE_PATCH
+    crop = np.ascontiguousarray(img[:2 * p, :2 * p])
+    t0 = time.perf_counter()
+    arr = compress_pixels_to_bottleneck(base, crop, os.path.join(
+        work, f"bn_{mode}.zarr"), patch_size=p)
+    t1 = time.perf_counter()
+    out = decompress_latents_to_pixels(
+        base, zarrlib.open(arr.path, device="cuda"), os.path.join(
+            work, f"bn_rec_{mode}.zarr"), "rec/0", batch_tiles=4, halo=2)
+    rec = out[...]
+    t2 = time.perf_counter()
+    med = base.medians
+    for (i, j, _) in arr.chunk_ids():
+        tile = crop[i * p:(i + 1) * p, j * p:(j + 1) * p][None]
+        y = base.latents(tile)[0].cpu().numpy()
+        check(np.array_equal(arr.read_chunk((i, j, 0)),
+                             np.round(y - med) + med),
+              f"cae_bn ({mode}): chunk {(i, j)} is not the tile's quantized "
+              "latent")
+    check(rec.shape == crop.shape, f"cae_bn ({mode}): {rec.shape}")
+    p_bn, p_cae = psnr_db(rec, crop), psnr_db(rec_cae[:2 * p, :2 * p], crop)
+    check(abs(p_bn - p_cae) <= 0.5, f"cae_bn ({mode}): PSNR {p_bn:.3f} dB "
+          f"against the cae path's {p_cae:.3f}")
+    log(f"slide cae_bn ({mode}) [{CARD}]: {2 * p}^2 crop, 4 latent chunks "
+        f"equal to the tiles' quantized latents; halo 2 decode PSNR "
+        f"{p_bn:.3f} dB (cae path {p_cae:.3f}); compress "
+        f"{(t1 - t0) * 1e3:.1f} ms, decompress {(t2 - t1) * 1e3:.1f} ms")
+
+
+def run_cli(args, env, label):
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m"] + args, cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"{label} exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def slide_clis(torch, slide_path, stores, work):
+    """(d) ``python -m cnn_autoencoder_tpu_torch.cli.compress`` and
+    ``... .cli.decompress`` as subprocesses, zarr in and zarr out, in each
+    precision: each compressed store's chunks byte-equal to the pipeline's
+    store of (a) / (b), and each decompressed image bit-equal to the
+    pipeline's decode."""
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    for (codec, mode), (ref_path, ref_rec) in stores.items():
+        env = dict(os.environ, CAE_TPU_PRECISION=(
+            "highest" if mode == "float32" else "bf16"))
+        out = os.path.join(work, f"cli_{codec}_{mode}.zarr")
+        secs = run_cli(["cnn_autoencoder_tpu_torch.cli.compress", "-dd",
+                        slide_path, "-o", out, "-if", "zarr", "-cod", codec,
+                        "-chk", CHECKPOINT, "-ps", str(SLIDE_PATCH), "-da",
+                        "YXC", "-dg", "0/0", "-ld", work], env,
+                       f"compress CLI ({codec}, {mode})")
+        got = slide_chunks(zarrlib.open(out)["0/0"])
+        want = slide_chunks(zarrlib.open(ref_path))
+        check(got == want, f"compress CLI ({codec}, {mode}): chunks differ "
+              "from the pipeline's store")
+        line = (f"CLI {codec} ({mode}) [{CARD}]: compress subprocess "
+                f"{secs:.1f} s, {len(got)} chunks byte-equal to the "
+                "pipeline's")
+        rec_dir = os.path.join(work, f"cli_rec_{codec}_{mode}.zarr")
+        secs = run_cli(["cnn_autoencoder_tpu_torch.cli.decompress", "-dd",
+                        out, "-o", rec_dir, "-of", "zarr", "-dg", "0/0",
+                        "-ld", work], env, f"decompress CLI ({codec}, {mode})")
+        rec = zarrlib.open(rec_dir)["decompressed/0/0"][...]
+        check(np.array_equal(rec, ref_rec), f"decompress CLI ({codec}, "
+              f"{mode}): image differs from the pipeline's decode")
+        log(line + f"; decompress subprocess {secs:.1f} s, image bit-equal "
+            "to the pipeline's decode")
+
+
+def phase_slide(torch, core, core16):
+    """Phase 7: a 4096^2 synthetic slide, stored as a port zarr store (YXC,
+    512^2 chunks, raw), through the pipeline and the CLIs, in float32
+    (``core``) and bf16 (``core16``)."""
+    import shutil
+
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase7")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        img = synth_histology(SLIDE, SLIDE, seed=0)
+        slide_path = os.path.join(work, "slide.zarr")
+        arr = zarrlib.Group.create(slide_path).create_dataset(
+            "0/0", shape=img.shape, chunks=(SLIDE_PATCH, SLIDE_PATCH, 3),
+            dtype=np.uint8, compressor=None)
+        arr[...] = img
+        stores = {}
+        for mode, c in (("float32", core), ("bf16", core16)):
+            stores["CAETPU", mode] = slide_turbo(torch, c, img, work, mode)
+            stores["CAE", mode] = slide_cae(torch, c, img, work, mode, 0)
+            slide_cae(torch, c, img, work, mode, 2 ** c.base.level)
+            slide_bottleneck(torch, c, img, work, mode,
+                             stores["CAE", mode][1])
+        slide_clis(torch, slide_path, stores, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"slide phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2381,6 +2737,7 @@ def main():
     check(all(launches[name] > 0 for name in records),
           f"a kernel was not launched on the main paths: {launches}")
     phase_codecs(torch, model, core, core16)
+    phase_slide(torch, core, core16)
 
     kernels = []
     for name, rec in records.items():

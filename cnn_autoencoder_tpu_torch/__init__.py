@@ -10,9 +10,13 @@ bf16, and every codec id of the JAX package's registry: ``cae`` and
 ``cae_bn`` on the host rANS coder (C++ under ``coding/csrc``, built with
 ``g++`` at first use), ``cae_tpu`` with device rANS (frames v4 and v3, and
 host frames for the batches the device coder cannot take), the general byte
-codecs and the PIL image codecs.  The kernels on those paths (GDN, fused
-conv+GDN, rANS encode and decode) are CUDA C++ for ``sm_90a`` under
-``csrc/``; each has a plain PyTorch version beside it that CPU tensors take.
+codecs and the PIL image codecs; the zarr-v2 store (``storage/zarr.py``:
+local, HTTP and S3), the batched tile pipeline (``pipeline/tiles.py``) and
+the compress / decompress CLIs (``python -m
+cnn_autoencoder_tpu_torch.cli.compress`` and ``.cli.decompress``).  The
+kernels on those paths (GDN, fused conv+GDN, rANS encode and decode) are
+CUDA C++ for ``sm_90a`` under ``csrc/``; each has a plain PyTorch version
+beside it that CPU tensors take.
 
 Public entry points take ``device=None``, which means ``"cuda"``; without a
 card that raises ``RuntimeError``.  Pass ``device="cpu"`` explicitly to run

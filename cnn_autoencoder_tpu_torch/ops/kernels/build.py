@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -55,6 +56,7 @@ RESTYPES = {"cae_conv_gdn_workspace": ctypes.c_int64,
             "cae_rans_encode_chunks": ctypes.c_int64}
 
 _lib = None
+_LIB_LOCK = threading.Lock()  # one build and one load for the process
 build_log = ""
 build_seconds = 0.0
 
@@ -132,20 +134,25 @@ def build(out_dir: Path) -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+    """The kernels' shared library, built on first use.  Threads that reach
+    their first launch together (the tile pipeline's workers) wait for one
+    build and one load."""
     global _lib
     if _lib is not None:
         return _lib
-    out_dir = BUILD_ROOT / _source_hash()
-    path = out_dir / LIB_NAME
-    if not path.exists():
-        path = build(out_dir)
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, ctypes.c_int)
-    _lib = lib
+    with _LIB_LOCK:
+        if _lib is not None:
+            return _lib
+        out_dir = BUILD_ROOT / _source_hash()
+        path = out_dir / LIB_NAME
+        if not path.exists():
+            path = build(out_dir)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
+        _lib = lib
     return lib
 
 

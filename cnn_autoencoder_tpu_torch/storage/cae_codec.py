@@ -126,6 +126,17 @@ class CAECodecCore:
         sym = torch.round(y - self._med).to(torch.int32)
         return sym.permute(0, 3, 1, 2).contiguous()
 
+    @torch.no_grad()
+    def latents(self, tiles_u8) -> torch.Tensor:
+        """(B, H, W, 3) uint8 (numpy or tensor), sides multiples of
+        2**level -> (B, lh, lw, C) float32 latents y on the device, computed
+        in the compute type: what a 'cae_bn' store holds (the JAX core's
+        ``_latent``)."""
+        if not torch.is_tensor(tiles_u8):
+            tiles_u8 = torch.from_numpy(np.ascontiguousarray(tiles_u8))
+        x = tiles_u8.to(self.device).float() / 255.0
+        return self.model.encoder(x.to(self.compute_dtype)).float()
+
     @staticmethod
     def narrow_symbols(sym: torch.Tensor):
         """(int8 symbols, overflow count, int32 symbols) of a device batch:
@@ -237,6 +248,7 @@ class ConvolutionalAutoencoder(Codec):
     built (``ops.convops.set_default_precision``)."""
 
     codec_id = "cae"
+    takes_device = True
 
     def __init__(self, checkpoint, device=None, offset: int = 0):
         self.checkpoint = checkpoint if isinstance(checkpoint, str) else None
@@ -280,8 +292,11 @@ class ConvolutionalAutoencoderBottleneck(Codec):
         if fact_ent is not None:
             # fact_ent: the parameter dict, or a dict holding it as 'params'
             params = fact_ent["params"] if "params" in fact_ent else fact_ent
+            # in sorted key order, as the JAX codec's pytree map leaves
+            # them, so both packages write the same config string
             params = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
-                          else np.asarray(v)) for k, v in params.items()}
+                          else np.asarray(v))
+                      for k, v in sorted(params.items())}
             if filters is None:
                 k = sum(1 for key in params if key.startswith("matrix_")) - 1
                 filters = [3] * k

@@ -51,6 +51,9 @@ class Codec:
     """Base codec: subclasses set ``codec_id`` and implement encode/decode."""
 
     codec_id: str = None
+    # the CAE codecs run a model and take ``device`` (a run-time choice that
+    # no stored config carries); the others take no device
+    takes_device: bool = False
 
     def encode(self, buf) -> bytes:
         raise NotImplementedError
@@ -64,8 +67,11 @@ class Codec:
     @classmethod
     def from_config(cls, config: Dict[str, Any], **kwargs) -> "Codec":
         """``kwargs`` (e.g. ``device``) are run-time choices that the stored
-        config does not carry."""
+        config does not carry; ``device`` reaches only a codec that takes
+        one."""
         config = {k: v for k, v in config.items() if k != "id"}
+        if not cls.takes_device:
+            kwargs.pop("device", None)
         return cls(**config, **kwargs)
 
     def __repr__(self):

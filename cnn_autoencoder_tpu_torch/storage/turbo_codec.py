@@ -331,6 +331,7 @@ class ConvolutionalAutoencoderTurbo(Codec):
     """
 
     codec_id = "cae_tpu"
+    takes_device = True
 
     def __init__(self, checkpoint, num_streams: int = DEFAULT_STREAMS,
                  device=None):
