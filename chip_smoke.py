@@ -108,9 +108,33 @@ Phases, in order; any failure exits non-zero:
    4 compactions plus one per capacity retry, K5 4); they do not enter the
    ``kernels`` line.  Encode and decode MP/s, PSNR, bpp, the round trip's
    MP/s and ``GLOBAL_TIMER.report()`` are printed beside the card's name
-   and power limit.
-8. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
-   runs of phases 3 and 5), then the last line
+   and power limit.  (e) The whole-image fused paths
+   (``compress_image_fused`` / ``decompress_image_fused``, chunks of 16
+   tiles): every chunk byte-equal to (b)'s store at offset 0, the decode
+   bit-equal to its decode, launches exactly 4 chunks' worth (K1 12, K4
+   4); encode and decode MP/s beside the pipeline's timed again in the same
+   call, and the device busy share of each fused pass (torch.profiler); in
+   float32 one fused compress under ``utils/profiling.py:trace``, whose
+   file must name K4's and K1's kernels.
+8. The training CLI (``cli/train_cae.py``) on the card at the flagship's
+   width and depth: 2 synthetic 2048^2 train slides and a 1024^2 val slide
+   (``synth_histology``, seeds 11 to 13) as raw zarr stores; (a) ``main``
+   in-process with ``-ds Zarr -chk benchmarks/bench_flagship.msgpack -bs 16
+   -vbs 16 -ps 256 -s 6 -cs 3 -cr RateMSE``, in float32 and in bf16, launch
+   counts reset just before and read just after: exactly K1 and K4
+   ``want_y`` a float32 step, K2, K3 and K4 ``want_y`` a bf16 step, K1 (on
+   bf16 rows in bf16) and K4 a validation batch, over 7 steps and 3
+   validations; (b) the same run through the plain versions on the card,
+   per-step losses within 1e-5 relative (float32) and 2e-2 (bf16); (d)
+   ``last_`` and ``best_`` written, ``last_`` serving a 512^2 tile through
+   ``CAECodecCore``; (e) a resume from the float32 ``last_`` under
+   ``--resume-optimizers``: every slot's count, mu and nu equal to the
+   saved ones bit for bit, then 3 more steps with their launches; (f)
+   ``python -m cnn_autoencoder_tpu_torch.cli.train_cae`` as a subprocess;
+   (g) ms per step and images/s beside phase 5's bare step, the loader's
+   host time a batch and the peak memory.
+9. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3, 5 and 8 (a)), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
@@ -1990,12 +2014,13 @@ def train_setup(torch, compute_dtype, x):
 
 def phase_training(torch):
     """The counted train steps in both modes, the plain comparison, the
-    step time, an eval step and a profile; returns the launch counts."""
+    step time, an eval step and a profile; returns the launch counts and
+    the ms per step of each mode."""
     from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
                                                        reset_launch_counts)
     from cnn_autoencoder_tpu_torch.training.loop import make_eval_step
     x = synthetic_batch(torch)
-    totals = {}
+    totals, step_ms = {}, {}
     for mode, dtype, rtol in (("float32", torch.float32, 1e-5),
                               ("bf16", torch.bfloat16, 2e-2)):
         model, criterion, step = train_setup(torch, dtype, x)
@@ -2035,6 +2060,7 @@ def phase_training(torch):
             step(i)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        step_ms[mode] = ms
         log(f"train {mode}: {ms:.3f} ms per step over {TIMED_STEPS} steps, "
             f"{TRAIN_BATCH / ms * 1e3:.2f} images/s "
             f"(batch {TRAIN_BATCH} x {TRAIN_PATCH}^2); peak memory "
@@ -2064,7 +2090,7 @@ def phase_training(torch):
               f"versions' by {rel:.3e} > {rtol}")
         del plain_step
         torch.cuda.empty_cache()
-    return totals
+    return totals, step_ms
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -2382,6 +2408,7 @@ def phase_codecs(torch, model, core, core16):
 SLIDE = 4096        # side of the synthetic slide
 SLIDE_PATCH = 512   # its chunks and the pipeline's tiles
 SLIDE_BATCHES = 4   # default_batch_tiles(512, n_tiles=64) = 16 tiles a batch
+FUSED_CHUNK = 16    # tiles a chunk of the fused paths: the pipeline's batch
 CARD = ""           # nvidia-smi's name and power limit, set in phase 1
 
 
@@ -2636,6 +2663,150 @@ def slide_bottleneck(torch, core, img, work, mode, rec_cae):
         f"{(t1 - t0) * 1e3:.1f} ms, decompress {(t2 - t1) * 1e3:.1f} ms")
 
 
+def host_copy_times(torch, img):
+    """The pieces of moving the slide's bytes to and from the card, in ms
+    (host clock around work that ends in a synchronize, 3 repetitions
+    each): a fresh host buffer of its size written once (new pages, as the
+    JAX design's padded copy), the same write again (resident pages), the
+    pageable upload of the slide into a new device tensor, of a buffer
+    written just before into a new one, of the slide into one allocated
+    once, a new device tensor of its size after
+    ``empty_cache`` (new device memory), a pinned buffer's allocation and
+    upload, the fetch into a new host tensor and into a resident one."""
+    n = img.nbytes
+    dev = torch.device("cuda")
+    src = torch.from_numpy(np.ascontiguousarray(img).reshape(-1))
+    into_dev = torch.empty(n, dtype=torch.uint8, device=dev)
+    into_host = torch.empty(n, dtype=torch.uint8)
+    into_host.fill_(1)
+    resident = np.ones(n, np.uint8)
+    pinned = []
+
+    def fresh():
+        np.zeros(n, np.uint8)[:] = 7
+
+    def device_alloc():
+        torch.cuda.empty_cache()
+        torch.empty(n, dtype=torch.uint8, device=dev).fill_(3)
+
+    def pin():
+        pinned[:] = [torch.empty(n, dtype=torch.uint8, pin_memory=True)]
+
+    rows = {"host fresh": fresh,
+            "host again": lambda: resident.__setitem__(slice(None), 7),
+            "h2d new": lambda: src.to(dev),
+            "h2d recent": lambda: torch.from_numpy(resident).to(dev),
+            "h2d into": lambda: into_dev.copy_(src),
+            "device alloc": device_alloc,
+            "pin": pin,
+            "h2d pinned": lambda: into_dev.copy_(pinned[0]),
+            "d2h new": lambda: into_dev.cpu(),
+            "d2h into": lambda: into_host.copy_(into_dev)}
+    out = []
+    for name, f in rows.items():
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(f"{name} {', '.join(f'{t:.1f}' for t in ms)}")
+    log(f"host copies of {n} bytes [{CARD}] (ms, 3 repetitions): "
+        + "; ".join(out))
+
+
+def slide_fused(torch, core, img, work, mode, ref_path, ref_rec):
+    """(e) The whole-image fused paths on the slide, ``chunk`` 16: chunks
+    byte-equal to ``compress_pixels_to_cae``'s store of (b) at offset 0
+    (``ref_path``), the decode bit-equal to ``decompress_cae_array``'s
+    (``ref_rec``), launches exactly 4 chunks' worth; encode and decode MP/s
+    beside the pipeline's timed again in this call, the stages of each fused
+    pass and the device busy share of each (its kernels' and copies' time
+    in one more profiled pass over the timed pass); in float32, the pieces
+    of moving the slide's bytes (``host_copy_times``) and one compress
+    under ``trace`` whose file must name K4's and K1's kernels."""
+    import shutil
+
+    from cnn_autoencoder_tpu_torch.ops.kernels import reset_launch_counts
+    from cnn_autoencoder_tpu_torch.pipeline.tiles import (
+        compress_image_fused, compress_pixels_to_cae, decompress_cae_array,
+        decompress_image_fused)
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    from cnn_autoencoder_tpu_torch.utils.profiling import GLOBAL_TIMER, trace
+    base = core.base
+    p, n = SLIDE_PATCH, SLIDE_BATCHES
+    path = os.path.join(work, f"fused_{mode}.zarr")
+
+    def fused_compress():
+        return compress_image_fused(base, img, path, patch_size=p,
+                                    chunk=FUSED_CHUNK,
+                                    checkpoint_id=CHECKPOINT)
+
+    t0 = time.perf_counter()
+    piped = compress_pixels_to_cae(base, img, os.path.join(
+        work, f"fused_ref_{mode}.zarr"), patch_size=p,
+        checkpoint_id=CHECKPOINT)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    decompress_cae_array(piped, core=base)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    GLOBAL_TIMER.reset()
+    reset_launch_counts()
+    t3 = time.perf_counter()
+    arr = fused_compress()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    rec = decompress_image_fused(arr, core=base, chunk=FUSED_CHUNK)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    report = stage_report(GLOBAL_TIMER, t3, t4, t5)
+    gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
+    slide_launches(torch, f"fused ({mode}) compress + decompress",
+                   {gdn: 3 * n, "conv_gdn_fwd": n}, 0)
+    check(slide_chunks(arr) == slide_chunks(zarrlib.open(ref_path)),
+          f"fused ({mode}): chunks differ from compress_pixels_to_cae's")
+    check(np.array_equal(rec, ref_rec), f"fused ({mode}): image differs "
+          "from decompress_cae_array's")
+    busy_c = device_ms(torch, fused_compress, 1) / 1e3
+    busy_d = device_ms(torch, lambda: decompress_image_fused(
+        arr, core=base, chunk=FUSED_CHUNK), 1) / 1e3
+    mpix = SLIDE * SLIDE / 1e6
+    log(f"slide fused ({mode}) [{CARD}]: {SLIDE}^2 in {n} chunks of "
+        f"{FUSED_CHUNK} x {p}^2; chunks byte-equal to "
+        "compress_pixels_to_cae's, image bit-equal to decompress_cae_array's;"
+        f" encode {mpix / (t4 - t3):.3f} MP/s ({(t4 - t3) * 1e3:.1f} ms), "
+        f"decode {mpix / (t5 - t4):.3f} MP/s ({(t5 - t4) * 1e3:.1f} ms); the "
+        f"pipeline in this call {mpix / (t1 - t0):.3f} / "
+        f"{mpix / (t2 - t1):.3f} MP/s; device busy {busy_c * 1e3:.3f} ms a "
+        f"compress ({100 * busy_c / (t4 - t3):.1f} % of the timed pass), "
+        f"{busy_d * 1e3:.3f} ms a decompress "
+        f"({100 * busy_d / (t5 - t4):.1f} %)")
+    log(f"slide fused ({mode}) GLOBAL_TIMER [{CARD}]: {report}")
+    if mode != "float32":
+        return
+    host_copy_times(torch, img)
+    trace_dir = os.path.join(ROOT, "build", "phase7_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    try:
+        with trace(trace_dir):
+            fused_compress()
+            torch.cuda.synchronize()
+        files = os.listdir(trace_dir)
+        check(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+              f"trace wrote {files}")
+        with open(os.path.join(trace_dir, files[0])) as f:
+            text = f.read()
+        names = ("conv_gdn_mma_kernel", "gdn_tc_kernel")
+        check(all(k in text for k in names), f"the trace names none of "
+              f"{[k for k in names if k not in text]}")
+        log(f"trace of one fused compress: {files[0]}, {len(text)} bytes, "
+            f"names {', '.join(names)}")
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+
+
 def run_cli(args, env, label):
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m"] + args, cwd=ROOT, env=env,
@@ -2704,10 +2875,272 @@ def phase_slide(torch, core, core16):
             slide_cae(torch, c, img, work, mode, 2 ** c.base.level)
             slide_bottleneck(torch, c, img, work, mode,
                              stores["CAE", mode][1])
+            slide_fused(torch, c, img, work, mode, *stores["CAE", mode])
         slide_clis(torch, slide_path, stores, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"slide phase: {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+# the training CLI's synthetic slides: (name, side, synth_histology seed)
+CLI_SLIDES = (("train_0", 2048, 11), ("train_1", 2048, 12),
+              ("val_0", 1024, 13))
+CLI_BATCH, CLI_PATCH = 16, 256
+# -s 6 -cs 3 with the default early warm-up of -1: a validation at steps 2
+# and 5 ((step + 1) % 3 == 0), the check before step 7 stops (7 updates of
+# the early-stopping count reach -s 6 only then), so step 7 runs, validates
+# and writes the last checkpoint; the resumed run's -s 2 gives 3 steps and
+# validations at steps 2 and 3
+CLI_STEPS, CLI_VALIDATIONS = 7, 3
+RESUME_STEPS, RESUME_VALIDATIONS = 3, 2
+VAL_BATCHES = 1     # the 1024^2 slide's 16 patches of 256^2
+# launches per validation batch (the eval step: serving variants), by mode
+VAL_LAUNCHES = {"float32": {"gdn_fwd": 3, "conv_gdn_fwd": 1},
+                "bf16": {"gdn_fwd_bf16": 3, "conv_gdn_fwd": 1}}
+
+
+def cli_argv(work, log_dir, steps, extra=()):
+    files = [os.path.join(work, f"{name}.zarr") for name, _, _ in CLI_SLIDES]
+    return (["-ds", "Zarr", "-dd"] + files
+            + ["-dg", "0/0", "-da", "YXC", "-chk", CHECKPOINT, "-bs",
+               str(CLI_BATCH), "-vbs", str(CLI_BATCH), "-ps", str(CLI_PATCH),
+               "-s", str(steps), "-cs", "3", "-cr", "RateMSE", "-act", "GDN",
+               "-trm", "encoder", "decoder", "fact_ent", "-rs", "0",
+               "-esp", "100", "-ld", log_dir] + list(extra))
+
+
+@contextlib.contextmanager
+def recorded_steps(torch, cli):
+    """Record each train step's loss and its time (host clock around the
+    step and a synchronize) while ``cli.main`` runs."""
+    make_step = cli.make_train_step
+    losses, times = [], []
+
+    def recording(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(*sa, **sk):
+            t0 = time.perf_counter()
+            out = step(*sa, **sk)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(out[0]["loss"]))
+            return out
+        return run
+
+    cli.make_train_step = recording
+    try:
+        yield losses, times
+    finally:
+        cli.make_train_step = make_step
+
+
+def cli_run(torch, work, mode, label, steps=CLI_STEPS - 1, extra=()):
+    """One in-process ``main`` of the train CLI on the card, in ``mode``'s
+    precision; returns (log dir, losses, step times, launches, wall s)."""
+    from cnn_autoencoder_tpu_torch.cli import train_cae as cli
+    from cnn_autoencoder_tpu_torch.ops import convops
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.utils.args import get_args
+    from cnn_autoencoder_tpu_torch.utils.loggers import setup_logger
+    log_dir = os.path.join(work, label)
+    args = get_args("autoencoder", "training",
+                    args_list=cli_argv(work, log_dir, steps, extra))
+    setup_logger(args)
+    saved = convops.get_default_precision()
+    convops.set_default_precision("highest" if mode == "float32" else "bf16")
+    try:
+        with recorded_steps(torch, cli) as (losses, times):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # inside plain_versions() the plain functions stand in for the
+            # wrappers and count nothing
+            launches = {fn.kernel_name: fn.launches
+                        for fn in kernel_wrappers()
+                        if hasattr(fn, "kernel_name")}
+    finally:
+        convops.set_default_precision(saved)
+    check(all(np.isfinite(losses)), f"CLI {label}: losses {losses}")
+    return log_dir, list(losses), list(times), launches, wall
+
+
+def cli_expected(mode, steps, validations):
+    want = {}
+    for name, k in STEP_LAUNCHES[mode].items():
+        want[name] = want.get(name, 0) + k * steps
+    for name, k in VAL_LAUNCHES[mode].items():
+        want[name] = want.get(name, 0) + k * validations * VAL_BATCHES
+    return want
+
+
+def cli_checkpoints(log_dir):
+    """{"last" | "best": path} of a run's checkpoints."""
+    out = {}
+    for fn in os.listdir(log_dir):
+        if fn.endswith(".msgpack"):
+            out[fn.split("_")[0]] = os.path.join(log_dir, fn)
+    return out
+
+
+def cli_serves(torch, path, img):
+    """(d) a checkpoint loads into ``CAECodecCore`` on the card and
+    round-trips a 512^2 tile; returns its PSNR."""
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.storage.cae_codec import CAECodecCore
+    core = CAECodecCore(autoencoder_from_state_dict(path, device="cuda"),
+                        device="cuda")
+    tile = img[None, :512, :512]
+    rec = core.decode_tiles(core.encode_tiles(tile))
+    check(rec.shape == tile.shape, f"served tile {rec.shape}")
+    db = psnr_db(rec[0], tile[0])
+    check(np.isfinite(db) and db > 20, f"served tile PSNR {db:.3f} dB")
+    return db
+
+
+def cli_resume(torch, work, last):
+    """(e) restore the slots and schedulers from ``last`` as ``main`` does
+    under ``--resume-optimizers``: count, mu and nu equal to the saved ones,
+    bit for bit; then resume training from it."""
+    from cnn_autoencoder_tpu_torch.cli import train_cae as cli
+    from cnn_autoencoder_tpu_torch.training.checkpoint import load_checkpoint
+    from cnn_autoencoder_tpu_torch.training.optim import optimizer_state_dict
+    from cnn_autoencoder_tpu_torch.utils.args import get_args
+    args = get_args("autoencoder", "training", args_list=cli_argv(
+        work, os.path.join(work, "resume"), 2, ["-chk", last, "-reso",
+                                                 "true"]))
+    model = cli.setup_network(args, device="cuda")
+    optimizers, schedulers, _ = cli.setup_optim(model, args)
+    cli.resume_optimizer(optimizers, schedulers, last, model)
+    saved = load_checkpoint(last)
+
+    def same(a, b, where):
+        if isinstance(a, dict):
+            check(isinstance(b, dict) and set(a) == set(b),
+                  f"resume: keys differ at {where}")
+            for k in a:
+                same(a[k], b[k], f"{where}/{k}")
+        else:
+            check((a is None and b is None) or np.array_equal(a, b),
+                  f"resume: {where} differs from the checkpoint's")
+    counts = set()
+    for name, slot in optimizers.items():
+        same(optimizer_state_dict(slot, model), saved["optimizer_" + name],
+             name)
+        counts.add(slot.count)
+    check(counts == {CLI_STEPS}, f"resume: Adam counts {counts}")
+    del model, optimizers
+    return cli_run(torch, work, "float32", "resume", 2,
+                   ["-chk", last, "-reso", "true"])
+
+
+def write_cli_slides(work):
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    for name, side, seed in CLI_SLIDES:
+        img = synth_histology(side, side, seed=seed)
+        arr = zarrlib.Group.create(os.path.join(work, f"{name}.zarr")) \
+            .create_dataset("0/0", shape=img.shape,
+                            chunks=(CLI_PATCH, CLI_PATCH, 3),
+                            dtype=np.uint8, compressor=None)
+        arr[...] = img
+    return img
+
+
+def loader_time(work):
+    """Host seconds per batch of one pass over the train loader, and its
+    batch count."""
+    from cnn_autoencoder_tpu_torch.data.datautils import get_data
+    from cnn_autoencoder_tpu_torch.utils.args import get_args
+    args = get_args("autoencoder", "training", args_list=cli_argv(
+        work, os.path.join(work, "loader"), 1))
+    train_data, _, _ = get_data(args, device="cuda")
+    t0 = time.perf_counter()
+    n = sum(1 for _ in train_data)
+    return (time.perf_counter() - t0) / n, n
+
+
+def phase_train_cli(torch, step_ms):
+    """Phase 8: the training CLI on the card at the flagship's width and
+    depth; returns the launches of the counted float32 and bf16 runs."""
+    import shutil
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase8")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    totals = {}
+    try:
+        val_img = write_cli_slides(work)
+        per_batch, n_batches = loader_time(work)
+        for mode, rtol in (("float32", 1e-5), ("bf16", 2e-2)):
+            # (a) the counted run, (c) its launches
+            torch.cuda.reset_peak_memory_stats()
+            log_dir, losses, times, launches, wall = cli_run(
+                torch, work, mode, mode)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            want = cli_expected(mode, CLI_STEPS, CLI_VALIDATIONS)
+            log(f"CLI train {mode}: launches {launches}")
+            check(len(losses) == CLI_STEPS, f"CLI {mode}: {len(losses)} "
+                  f"steps, expected {CLI_STEPS}")
+            check(launches == {k: want.get(k, 0) for k in launches},
+                  f"CLI {mode}: launches {launches}, expected {want}")
+            for name, n in launches.items():
+                totals[name] = totals.get(name, 0) + n
+            # (b) the same run through the plain versions
+            with plain_versions():
+                _, plain, _, _, _ = cli_run(torch, work, mode,
+                                            f"{mode}_plain")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+            check(len(plain) == len(losses) and rel <= rtol,
+                  f"CLI {mode}: losses {losses} against the plain versions' "
+                  f"{plain} (max relative {rel:.3e} > {rtol})")
+            # (d) the checkpoints
+            chk = cli_checkpoints(log_dir)
+            check(set(chk) == {"last", "best"}, f"CLI {mode}: {chk}")
+            db = cli_serves(torch, chk["last"], val_img)
+            ms = float(np.mean(times[1:])) * 1e3
+            med = float(np.median(times[1:])) * 1e3
+            log(f"CLI train {mode} [{CARD}]: {CLI_STEPS} steps of "
+                f"{CLI_BATCH} x {CLI_PATCH}^2, {CLI_VALIDATIONS} validations;"
+                f" losses {losses}; step times (ms) "
+                f"{[round(t * 1e3, 3) for t in times]}; plain versions "
+                f"{plain}, max relative "
+                f"{rel:.3e} (limit {rtol}); {ms:.3f} ms per step after the "
+                f"first (train step + synchronize; median {med:.3f}), "
+                f"{CLI_BATCH / ms * 1e3:.2f} images/s, against phase 5's "
+                f"bare step {step_ms[mode]:.3f} ms "
+                f"({CLI_BATCH / step_ms[mode] * 1e3:.2f} images/s); main() "
+                f"{wall:.2f} s in all; peak memory {peak:.2f} GiB; last_ "
+                f"serves a 512^2 tile at {db:.3f} dB")
+        log(f"CLI loader [{CARD}]: {per_batch * 1e3:.1f} ms of host time a "
+            f"batch of {CLI_BATCH} x {CLI_PATCH}^2 ({n_batches} batches "
+            "from 2 raw zarr slides, one pass)")
+        # (e) resume from the float32 run's last_ checkpoint
+        last = cli_checkpoints(os.path.join(work, "float32"))["last"]
+        _, losses, _, launches, _ = cli_resume(torch, work, last)
+        want = cli_expected("float32", RESUME_STEPS, RESUME_VALIDATIONS)
+        check(launches == {k: want.get(k, 0) for k in launches},
+              f"CLI resume: launches {launches}, expected {want}")
+        log(f"CLI resume: count, mu and nu of every slot equal to last_'s; "
+            f"{len(losses)} more steps, losses {losses}")
+        # (f) the real entry point
+        secs = run_cli(["cnn_autoencoder_tpu_torch.cli.train_cae"]
+                       + cli_argv(work, os.path.join(work, "sub"), 1),
+                       dict(os.environ), "train CLI subprocess")
+        check("last" in cli_checkpoints(os.path.join(work, "sub")),
+              "train CLI subprocess wrote no last_ checkpoint")
+        log(f"CLI subprocess: python -m cnn_autoencoder_tpu_torch.cli."
+            f"train_cae, 2 steps, exited 0 in {secs:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"train CLI phase: {time.perf_counter() - t0:.1f} s")
+    return totals
 
 
 def main():
@@ -2732,12 +3165,15 @@ def main():
     records = phase_kernels(torch, model, core, TILES)
     launches, core16 = phase_end_to_end(torch, model, core, TILES)
     records.update(phase_train_kernels(torch, model))
-    for name, n in phase_training(torch).items():
+    train_launches, step_ms = phase_training(torch)
+    for name, n in train_launches.items():
         launches[name] += n
     check(all(launches[name] > 0 for name in records),
           f"a kernel was not launched on the main paths: {launches}")
     phase_codecs(torch, model, core, core16)
     phase_slide(torch, core, core16)
+    for name, n in phase_train_cli(torch, step_ms).items():
+        launches[name] += n
 
     kernels = []
     for name, rec in records.items():

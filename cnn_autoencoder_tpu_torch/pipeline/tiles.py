@@ -25,9 +25,12 @@ Left out, each until the ``ROADMAP.md`` §1 item named:
   item 9;
 * the mesh branch of ``default_batch_tiles``: item 10;
 * ``rec_level`` other than full scale in ``decompress_latents_to_pixels``:
-  item 7 (the port has no multiscale decoder yet);
-* the whole-image fused programs ``compress_image_fused`` /
-  ``decompress_image_fused``: item 1.
+  item 7 (the port has no multiscale decoder yet).
+
+The whole-image fused paths (``compress_image_fused`` /
+``decompress_image_fused``) take an image that fits the card in one upload,
+run the core over chunks of tiles on the card and fetch once, with no
+worker threads.
 """
 
 import os
@@ -37,11 +40,13 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..data.imageio import map_axes_order
 from ..storage import zarr as zarrlib
 from ..storage.cae_codec import (CAECodecCore, ConvolutionalAutoencoder,
-                                 ConvolutionalAutoencoderBottleneck)
+                                 ConvolutionalAutoencoderBottleneck,
+                                 narrowest)
 from ..storage.codecs import Blosc
 from ..storage.turbo_codec import CAETurboCore
 from ..utils.profiling import GLOBAL_TIMER
@@ -618,3 +623,102 @@ def roundtrip_cae_turbo(core: CAETurboCore, src: np.ndarray, out_path: str,
         enc_workers.shutdown()
         dec_workers.shutdown()
     return arr, out
+
+
+# --- whole-image fused paths -------------------------------------------------
+
+
+def _pad_to_chunks(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Repeat the last item of ``x`` until its length is a multiple of
+    ``chunk``, so every chunk runs at one shape."""
+    pad = (-x.shape[0]) % chunk
+    if not pad:
+        return x
+    return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+
+
+def compress_image_fused(core: CAECodecCore, src: np.ndarray, out_path: str,
+                         data_group: str = "0/0", patch_size: int = 512,
+                         chunk: int = 16,
+                         checkpoint_id: Optional[str] = None
+                         ) -> zarrlib.Array:
+    """Whole-image compress (JAX ``tiles.py:1036``): one upload of the
+    image, zero-padded to whole tiles and cut into tiles on the device, the
+    core's encode over chunks of ``chunk`` tiles (the last padded with its
+    last tile), one fetch of the symbols, the host coder, one 'cae' chunk
+    per tile.  The JAX package pads on the host; here the padding is made
+    on the device, so the host allocates no padded copy of the image.  Its
+    stages are recorded in ``GLOBAL_TIMER`` under the pipeline's names."""
+    h, w, c = src.shape
+    p = min(patch_size, max(h, w))
+    grid_h, grid_w = -(-h // p), -(-w // p)
+    mp = h * w / 1e6
+
+    with GLOBAL_TIMER.stage("compress/h2d+dispatch", mp):
+        GLOBAL_TIMER.add_link_bytes("h2d", src.nbytes)
+        img = torch.zeros((grid_h * p, grid_w * p, c), dtype=torch.uint8,
+                          device=core.device)
+        img[:h, :w] = torch.from_numpy(np.ascontiguousarray(src)).to(
+            core.device)
+        tiles = img.reshape(grid_h, p, grid_w, p, c) \
+            .permute(0, 2, 1, 3, 4).reshape(-1, p, p, c)
+        n = tiles.shape[0]
+        sym = torch.cat([core.latent_symbols(group) for group in
+                         _pad_to_chunks(tiles, chunk).split(chunk)])[:n]
+    with GLOBAL_TIMER.stage("compress/d2h_sym", mp):
+        sym_np = core.fetch_symbols(core.narrow_symbols(sym))
+
+    root = zarrlib.Group.create(out_path, device=core.device)
+    arr = root.create_dataset(
+        data_group or "0/0", shape=(h, w, c), chunks=(p, p, c),
+        dtype=np.uint8,
+        compressor={"id": "cae", "checkpoint": checkpoint_id, "offset": 0},
+        overwrite=True)
+    with GLOBAL_TIMER.stage("compress/rans", mp):
+        bufs = core.entropy_encode(sym_np, [(p, p)] * n)
+    with GLOBAL_TIMER.stage("compress/write", mp):
+        for k, buf in enumerate(bufs):
+            arr.write_chunk_raw((k // grid_w, k % grid_w, 0), buf)
+    return arr
+
+
+def decompress_image_fused(src: zarrlib.Array,
+                           core: Optional[CAECodecCore] = None,
+                           chunk: int = 16) -> np.ndarray:
+    """Whole-image decompress (JAX ``tiles.py:1069``) of a 'cae' store of
+    offset 0: the chunks read on 8 threads, one host decode of all of them,
+    one upload in the narrowest integer type, the core's decode over chunks
+    of ``chunk`` tiles, one fetch, the stitch.  Missing chunks keep the
+    fill value.  Stages as in ``compress_image_fused``."""
+    if core is None:
+        codec = src.compressor
+        assert isinstance(codec, ConvolutionalAutoencoder), (
+            "source array is not 'cae'-coded")
+        core = codec.core
+    offset = int((src._meta.get("compressor") or {}).get("offset", 0) or 0)
+    if offset:
+        raise ValueError(f"decompress_image_fused takes 'cae' stores of "
+                         f"offset 0, this one has {offset}")
+    mp = src.shape[0] * src.shape[1] / 1e6
+    grid = list(src.chunk_ids())
+    with GLOBAL_TIMER.stage("decompress/read", mp):
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            raw = list(pool.map(src.read_chunk_raw, grid))
+    ids = [ij for ij, b in zip(grid, raw) if b is not None]
+    out = np.zeros(src.shape, np.uint8)
+    if not ids:
+        return out
+
+    with GLOBAL_TIMER.stage("decompress/rans", mp):
+        sym, _ = core.entropy_decode([b for b in raw if b is not None])
+    with GLOBAL_TIMER.stage("decompress/h2d+dispatch", mp):
+        sym_dev = torch.from_numpy(narrowest(sym)).to(core.device)
+        rec = torch.cat([core.decode_tiles_device(group) for group in
+                         _pad_to_chunks(sym_dev, chunk).split(chunk)])
+    with GLOBAL_TIMER.stage("decompress/fetch_total", mp):
+        rec = rec[:len(ids)].cpu().numpy()
+    with GLOBAL_TIMER.stage("decompress/stitch", mp):
+        for ij, r in zip(ids, rec):
+            sl, valid = src.chunk_slices(ij)
+            out[sl] = r[:valid[0], :valid[1], :valid[2]]
+    return out

@@ -9,10 +9,13 @@ split into ``__msgpack_chunked_array__`` dicts.  The decoder below reads
 exactly that subset of msgpack (maps, arrays, str, bin, ints, floats, nil,
 bool and ext types 1 and 3), and the encoder writes it (no chunking: it
 refuses an array above 2**30 bytes, which no model of the port holds), so
-no ``msgpack`` or ``flax`` package is needed.  ``save_checkpoint`` writes a
-model's config and variables; both the JAX package's ``load_checkpoint``
-and this module's read it.  Optimizer state is not saved yet, and
-reference torch ``.pth`` import is not ported yet.
+no ``msgpack`` or ``flax`` package is needed.  ``save_checkpoint`` writes
+a flat state dict as the JAX package's does: JSON-able values go to the
+config, module variable trees, optimizer and scheduler states and other
+trees to the arrays, with their leaves as numpy arrays and their lists as
+``{"0": ..., "1": ...}`` dicts, as flax's state dicts hold them.  Both the
+JAX package's ``load_checkpoint`` and this module's read it.  Reference
+torch ``.pth`` import is not ported yet.
 """
 
 import json
@@ -21,6 +24,7 @@ import struct
 from typing import Any, Dict, Tuple
 
 import numpy as np
+import torch
 
 from ..utils.weights import state_to_jax
 
@@ -256,13 +260,58 @@ def msgpack_serialize(tree) -> bytes:
     return bytes(w.out)
 
 
-def save_checkpoint(path, model) -> None:
-    """Write ``model``'s config and variables as a checkpoint that both
-    packages load: ``{"config": json, "state": {"encoder" | "decoder" |
-    "fact_ent": {"params": tree}}}``, HWIO kernels as the JAX package keeps
-    them.  The file is replaced atomically."""
-    payload = {"config": json.dumps(model.config),
-               "state": state_to_jax(model.state_dict())}
+def model_state(model) -> Dict[str, Any]:
+    """A ``CAEModel``'s config and variables as one flat state dict: the
+    config scalars and ``{"encoder" | "decoder" | "fact_ent": {"params":
+    tree}}``, HWIO kernels as the JAX package keeps them."""
+    return {**model.config, **state_to_jax(model.state_dict())}
+
+
+def _split_state(state: Dict[str, Any]):
+    """Separate JSON-able config values from array trees (JAX
+    ``training/checkpoint.py:25``)."""
+    config, arrays = {}, {}
+    for k, v in state.items():
+        if isinstance(v, (dict, np.ndarray, torch.Tensor)):
+            arrays[k] = v
+        elif isinstance(v, (list, tuple)) and len(v) > 0 and isinstance(
+                v[0], (np.ndarray, torch.Tensor)):
+            arrays[k] = list(v)
+        else:
+            try:
+                json.dumps(v)
+                config[k] = v
+            except TypeError:
+                arrays[k] = v
+    return config, arrays
+
+
+def _state_tree(v):
+    """Dicts stay dicts, lists and tuples become ``{"<i>": ...}``, None
+    stays None, every other leaf becomes a numpy array: flax's
+    ``to_state_dict`` followed by ``np.asarray`` on the leaves."""
+    if isinstance(v, dict):
+        return {str(k): _state_tree(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return {str(i): _state_tree(x) for i, x in enumerate(v)}
+    if v is None:
+        return None
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def save_checkpoint(path, state) -> None:
+    """Write a self-describing checkpoint that both packages load.
+    ``state`` is a flat dict of config values, module variable trees,
+    optimizer and scheduler states and histories (JAX
+    ``training/checkpoint.py:47``); a ``CAEModel`` stands for its
+    ``model_state``.  The file is replaced atomically."""
+    if isinstance(state, torch.nn.Module):
+        state = model_state(state)
+    config, arrays = _split_state(state)
+    payload = {"config": json.dumps(config),
+               "state": {k: _state_tree(v) for k, v in arrays.items()}}
     data = msgpack_serialize(payload)
     path = os.fspath(path)
     tmp = path + ".tmp"

@@ -14,14 +14,20 @@ plain PyTorch.
   host-scheduled float per slot.
 
 Parameters and optimizer state are updated in place (the JAX package
-returns new trees); nothing else differs.
+returns new trees); nothing else differs.  ``optimizer_state_dict`` /
+``load_optimizer_state_dict`` carry a slot's state through a checkpoint in
+the layout the JAX CLI writes under ``optimizer_<slot>``: flax's state dict
+of the slot's optax chain, the moments as trees of the module's parameters
+in the JAX layout.
 """
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..utils.weights import state_from_jax, state_to_jax
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 ALGORITHMS = ("Adam", "AdamW", "SGD")
@@ -140,3 +146,56 @@ def apply_module_updates(optimizers: Dict[str, ModuleOptimizer],
     for name, slot in optimizers.items():
         slot.step({k: grads[slot.module][k] for k in slot.params},
                   float(learning_rates[name]), step)
+
+
+def _chain(slot: ModuleOptimizer) -> List[str]:
+    """The transforms of the slot's optax chain, in the JAX package's order
+    (``training/optim.py:make_transform`` there)."""
+    parts = ["clip"] if slot.clip_norm and slot.clip_norm > 0 else []
+    decay = ["decay"] if slot.weight_decay else []
+    if slot.algo == "AdamW":
+        return parts + ["adam"] + decay
+    return parts + decay + (["adam"] if slot.algo == "Adam" else [])
+
+
+def _moment_tree(slot: ModuleOptimizer, moments: Dict[str, torch.Tensor],
+                 model) -> Dict:
+    """A slot's moments as the JAX tree of its whole module, None at the
+    parameters of the module's other slot."""
+    names = [n for n, _ in getattr(model, slot.module).named_parameters()]
+    flat = {f"{slot.module}.{n}": moments.get(n) for n in names}
+    return state_to_jax(flat)[slot.module]["params"]
+
+
+def optimizer_state_dict(slot: ModuleOptimizer, model) -> Dict:
+    """The slot's state as the JAX CLI saves it: ``{"<i>": state of the i-th
+    transform}``, ``{}`` for clipping and weight decay, ``{"count": int32,
+    "mu": tree, "nu": tree}`` for Adam's scaling.  Gradients accumulated
+    between updates are not part of it, as in the JAX package."""
+    out = {}
+    for i, part in enumerate(_chain(slot)):
+        out[str(i)] = {} if part != "adam" else {
+            "count": np.asarray(slot.count, np.int32),
+            "mu": _moment_tree(slot, slot.mu, model),
+            "nu": _moment_tree(slot, slot.nu, model)}
+    return out
+
+
+def load_optimizer_state_dict(slot: ModuleOptimizer, model,
+                              state: Dict) -> None:
+    """Restore the slot from ``state`` (``optimizer_state_dict``'s layout,
+    as either package writes it)."""
+    chain = _chain(slot)
+    if set(state) != {str(i) for i in range(len(chain))}:
+        raise ValueError(f"optimizer state of {sorted(state)} does not fit "
+                         f"the slot's chain {chain}")
+    for i, part in enumerate(chain):
+        if part != "adam":
+            continue
+        saved = state[str(i)]
+        slot.count = int(saved["count"])
+        for key, dst in (("mu", slot.mu), ("nu", slot.nu)):
+            flat = state_from_jax({slot.module: {"params": saved[key]}},
+                                  model.config)
+            for name, p in slot.params.items():
+                dst[name] = flat[f"{slot.module}.{name}"].to(p.device)

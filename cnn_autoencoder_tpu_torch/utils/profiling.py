@@ -1,13 +1,14 @@
-"""Stage timing for the tile pipeline.
+"""Stage timing for the tile pipeline, and the device trace.
 
-The port's copy of ``StageTimer``, ``GLOBAL_TIMER`` and
-``profiling_enabled`` from the JAX package's ``utils/profiling.py``, with
+The port's copy of ``StageTimer``, ``GLOBAL_TIMER``, ``profiling_enabled``
+and ``trace`` from the JAX package's ``utils/profiling.py``, with
 the stage names the pipeline records (``pipeline/tiles.py``):
 ``compress/read``, ``compress/h2d+dispatch``, ``compress/d2h_sym``,
 ``compress/rans``, ``compress/write``, ``compress/turbo_encode``,
 ``decompress/fetch_total``, ``decompress/stitch``, ``decompress/rans``,
-``decompress/h2d+dispatch`` and ``decompress/turbo_decode``.  ``trace``, the
-device trace around a run, is ``ROADMAP.md`` §1 item 1.
+``decompress/h2d+dispatch`` and ``decompress/turbo_decode``.  ``trace`` runs
+``torch.profiler`` around a block where the JAX package runs
+``jax.profiler``.
 """
 
 import collections
@@ -15,7 +16,7 @@ import contextlib
 import os
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 
 class StageTimer:
@@ -117,3 +118,25 @@ GLOBAL_TIMER = StageTimer()
 
 def profiling_enabled() -> bool:
     return os.environ.get("CAE_TPU_PROFILE", "0") == "1"
+
+
+@contextlib.contextmanager
+def trace(trace_dir: Optional[str] = None):
+    """A ``torch.profiler`` trace of the block (host operations, and the
+    card's kernels and copies where there is a card) when ``trace_dir`` or
+    ``CAE_TPU_TRACE`` names a directory: one ``*.pt.trace.json`` file
+    there, which TensorBoard's profiler plugin and Perfetto load.  Without a
+    directory the block runs untraced."""
+    trace_dir = trace_dir or os.environ.get("CAE_TPU_TRACE")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        yield

@@ -31,6 +31,7 @@ def _deconv(kernel: np.ndarray) -> np.ndarray:
 def _layer(prefix: str, layer: str, params: Dict[str, Any]
            ) -> Dict[str, np.ndarray]:
     out = {}
+    params = {k: v for k, v in params.items() if v is not None}
     if layer.startswith(("conv", "deconv")):
         convert = _deconv if layer.startswith("deconv") else _conv
         for name, value in params.items():
@@ -54,7 +55,9 @@ def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
                    ) -> Dict[str, torch.Tensor]:
     """``{"encoder"|"decoder"|"fact_ent": {"params": tree}}`` (numpy arrays,
     as a checkpoint holds them) -> the port's ``CAEModel`` state dict.
-    Other top-level entries (config scalars, optimizer state) are ignored."""
+    Other top-level entries (config scalars, optimizer state) are ignored,
+    and so are None leaves (the holes of an optimizer slot's moment trees,
+    where a parameter belongs to the other slot of its module)."""
     arrays: Dict[str, np.ndarray] = {}
     levels = int(config.get("compression_level", 4))
     for module in ("encoder", "decoder"):
@@ -74,7 +77,8 @@ def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
     fact_ent = variables.get("fact_ent")
     if fact_ent is not None:
         for name, value in fact_ent["params"].items():
-            arrays[f"fact_ent.{name}"] = np.asarray(value)
+            if value is not None:
+                arrays[f"fact_ent.{name}"] = np.asarray(value)
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in arrays.items()}
 
@@ -90,20 +94,26 @@ def _deconv_to_hwio(weight: np.ndarray) -> np.ndarray:
 def state_to_jax(weights: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's ``CAEModel`` state dict -> the JAX package's variable
     trees ``{"encoder"|"decoder"|"fact_ent": {"params": tree}}`` of
-    contiguous float32 numpy arrays (the inverse of ``state_from_jax``)."""
+    contiguous float32 numpy arrays (the inverse of ``state_from_jax``).
+    A None value stays a None leaf at its parameter's place."""
     tree: Dict[str, Any] = {}
     for key, value in weights.items():
-        arr = value.detach().cpu().float().numpy()
+        arr = None if value is None else value.detach().cpu().float().numpy()
         module, *path = key.split(".")
         params = tree.setdefault(module, {"params": {}})["params"]
         if module == "fact_ent":
-            params[path[0]] = np.ascontiguousarray(arr)
+            params[path[0]] = _contiguous(arr)
             continue
         unit, layer, name = path
         if name == "weight":
-            arr = (_deconv_to_hwio if layer.startswith("deconv")
-                   else _conv_to_hwio)(arr)
+            if arr is not None:
+                arr = (_deconv_to_hwio if layer.startswith("deconv")
+                       else _conv_to_hwio)(arr)
             name = "kernel"
         params.setdefault(unit, {}).setdefault(layer, {})[name] = \
-            np.ascontiguousarray(arr)
+            _contiguous(arr)
     return tree
+
+
+def _contiguous(arr):
+    return None if arr is None else np.ascontiguousarray(arr)
