@@ -133,8 +133,33 @@ Phases, in order; any failure exits non-zero:
    ``python -m cnn_autoencoder_tpu_torch.cli.train_cae`` as a subprocess;
    (g) ms per step and images/s beside phase 5's bare step, the loader's
    host time a batch and the peak memory.
-9. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
-   runs of phases 3, 5 and 8 (a)), then the last line
+9. Energy compaction, multiscale training, the reference ``.pth`` import
+   and coarser reconstructions, at the flagship's width: (a) the flagship
+   written as a reference-layout ``.pth`` (this script's inverse of the
+   importer's GDN unit layout), loaded by ``autoencoder_from_state_dict``:
+   weights equal to the msgpack model's, phase 3's 16 tiles through
+   ``CAETurboCore`` with frames byte-equal and decodes bit-equal to the
+   msgpack model's (launches counted), and ``cli.compress -chk <.pth>`` on
+   the 4096^2 slide (in-process) writing the msgpack model's chunks; (b)
+   ``cli/train_cae.py -cr MultiscaleRateMSSSIM -dl 0.01 0.01 0.01`` from
+   the flagship with color layers fit by least squares to its decoder's
+   features of the val slide on phase 8's slides, batch 16
+   x 256^2, float32 and bf16: MS-SSIM windows 11 / 9 / 7 and paddings 0 /
+   8 / 24, launches exactly the steps' and validations' worth, losses
+   against the plain versions' run (1e-5 / 2e-2), every color layer's
+   step-1 gradient finite and non-zero; (c) ``-cr RateMSEPA`` and
+   ``RateMSEPB`` with ``-ss 3`` and energy limits that keep every batch
+   iterating, float32 and bf16: 3 sub-steps a batch as in the plain
+   versions' run, launches exactly the sub-steps' worth (PB's one-hot
+   decode adds 2 K1 a sub-step in float32, 2 K2 and 2 K3 in bf16, and 2 K1
+   a validation batch), losses as in (b); (d) a 'cae_bn' store of the
+   slide from (b)'s float32 ``last_`` decoded by ``cli.decompress -rl 2``
+   and ``-rl 1`` (2048^2 and 1024^2), twice in-process with K1's launches
+   counted and bit-equal.  The
+   ms per sub-step and peak memory of (b) and (c) are printed beside
+   phase 8's RateMSE step.
+10. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3, 5, 8 (a) and 9), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
@@ -2912,9 +2937,11 @@ def cli_argv(work, log_dir, steps, extra=()):
 
 
 @contextlib.contextmanager
-def recorded_steps(torch, cli):
+def recorded_steps(torch, cli, rec=None):
     """Record each train step's loss and its time (host clock around the
-    step and a synchronize) while ``cli.main`` runs."""
+    step and a synchronize) while ``cli.main`` runs; into ``rec`` (a dict)
+    also each step's number (sub-steps of one batch share it) and energy,
+    and the first step's gradients."""
     make_step = cli.make_train_step
     losses, times = [], []
 
@@ -2927,6 +2954,15 @@ def recorded_steps(torch, cli):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             losses.append(float(out[0]["loss"]))
+            if rec is not None and "grads" not in rec:
+                rec["grads"] = {m: {n: g.detach().clone()
+                                    for n, g in gs.items()}
+                                for m, gs in out[1].items()}
+            if rec is not None:
+                rec.setdefault("steps", []).append(int(sa[2]))
+                energy = out[0].get("energy")
+                rec.setdefault("energy", []).append(
+                    None if energy is None else float(energy))
             return out
         return run
 
@@ -2937,9 +2973,11 @@ def recorded_steps(torch, cli):
         cli.make_train_step = make_step
 
 
-def cli_run(torch, work, mode, label, steps=CLI_STEPS - 1, extra=()):
+def cli_run(torch, work, mode, label, steps=CLI_STEPS - 1, extra=(),
+            rec=None):
     """One in-process ``main`` of the train CLI on the card, in ``mode``'s
-    precision; returns (log dir, losses, step times, launches, wall s)."""
+    precision; returns (log dir, losses, step times, launches, wall s).
+    ``rec``: as in ``recorded_steps``."""
     from cnn_autoencoder_tpu_torch.cli import train_cae as cli
     from cnn_autoencoder_tpu_torch.ops import convops
     from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
@@ -2953,7 +2991,7 @@ def cli_run(torch, work, mode, label, steps=CLI_STEPS - 1, extra=()):
     saved = convops.get_default_precision()
     convops.set_default_precision("highest" if mode == "float32" else "bf16")
     try:
-        with recorded_steps(torch, cli) as (losses, times):
+        with recorded_steps(torch, cli, rec) as (losses, times):
             torch.cuda.synchronize()
             reset_launch_counts()
             t0 = time.perf_counter()
@@ -3068,13 +3106,14 @@ def loader_time(work):
 
 def phase_train_cli(torch, step_ms):
     """Phase 8: the training CLI on the card at the flagship's width and
-    depth; returns the launches of the counted float32 and bf16 runs."""
+    depth; returns the launches of the counted float32 and bf16 runs and
+    their ms per step after the first."""
     import shutil
     t0 = time.perf_counter()
     work = os.path.join(ROOT, "build", "phase8")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    totals = {}
+    totals, cli_ms = {}, {}
     try:
         val_img = write_cli_slides(work)
         per_batch, n_batches = loader_time(work)
@@ -3106,6 +3145,7 @@ def phase_train_cli(torch, step_ms):
             db = cli_serves(torch, chk["last"], val_img)
             ms = float(np.mean(times[1:])) * 1e3
             med = float(np.median(times[1:])) * 1e3
+            cli_ms[mode] = ms
             log(f"CLI train {mode} [{CARD}]: {CLI_STEPS} steps of "
                 f"{CLI_BATCH} x {CLI_PATCH}^2, {CLI_VALIDATIONS} validations;"
                 f" losses {losses}; step times (ms) "
@@ -3140,6 +3180,442 @@ def phase_train_cli(torch, step_ms):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"train CLI phase: {time.perf_counter() - t0:.1f} s")
+    return totals, cli_ms
+
+
+# -- phase 9 -----------------------------------------------------------------
+
+# the counted runs of phase 9: -s 2 gives 3 batches and validations after
+# the second and the third (phase 8's resume)
+EC_STEPS, EC_BATCHES, EC_VALIDATIONS = 2, 3, 2
+SUB_STEPS = 3
+# PA iterates on a batch while its largest energy share is <= -el and PB
+# while its one-hot decode's variance is >= -el; shares are at most 1 and
+# variances at least 0, so every batch takes all -ss sub-steps in both
+# runs of a comparison, whatever their last digits
+PENALTY_FLAGS = {"RateMSEPA": ["-ss", str(SUB_STEPS), "-el", "1.0"],
+                 "RateMSEPB": ["-ss", str(SUB_STEPS), "-el", "0"]}
+MULTISCALE_FLAGS = ["-cr", "MultiscaleRateMSSSIM", "-dl", "0.01", "0.01",
+                    "0.01"]
+# DistMSSSIM's (window, zero padding) at 256^2 patches, scales 0 to 2 (the
+# pyramid's 256^2, 128^2 and 64^2)
+MSSSIM_GEOMETRY = [(11, 0), (9, 8), (7, 24)]
+# PB's decode of its one-hot code through the two IGDN layers: per
+# sub-step (with a gradient) and per validation batch
+PB_STEP_LAUNCHES = {"float32": {"gdn_fwd": 2},
+                    "bf16": {"gdn_train_fwd": 2, "gdn_train_bwd": 2}}
+PB_VAL_LAUNCHES = {"float32": {"gdn_fwd": 2}, "bf16": {"gdn_fwd_bf16": 2}}
+COARSE_LEVELS = (2, 1)
+# the bottleneck's likelihood floor (models/entropy.py, likelihood_bound)
+LIKELIHOOD_BOUND = 1e-9
+
+
+def write_reference_pth(torch, path):
+    """(a) The flagship as a reference training checkpoint: its config
+    scalars and a torch state dict per module under the reference's names
+    (``analysis_track.i.model.j``, ``synthesis_track.i.model.j``,
+    ``_matrixK``, ``quantiles``; ``tests/torch_ref_cae.py`` writes the
+    same), laid out from the msgpack's arrays by the inverse of the
+    importer's GDN unit layout: conv then GDN at indices 0 and 1, HWIO
+    kernels to OIHW, the flipped deconv kernels to (in, out, kh, kw),
+    gamma to (C, C, 1, 1)."""
+    from cnn_autoencoder_tpu_torch.training.checkpoint import load_checkpoint
+    state = load_checkpoint(CHECKPOINT)
+    chk = {k: v for k, v in state.items() if not isinstance(v, dict)}
+    level = int(state["compression_level"])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    for module, track, unit, conv, gdn in (
+            ("encoder", "analysis_track", "down", "conv_down", "gdn_down"),
+            ("decoder", "synthesis_track", "up", "deconv_up", "gdn_up")):
+        sd = {}
+        for i in range(level):
+            layers = state[module]["params"][f"{unit}_{i}"]
+            k = np.asarray(layers[conv]["kernel"])
+            sd[f"{track}.{i}.model.0.weight"] = t(
+                np.transpose(k, (3, 2, 0, 1)) if module == "encoder"
+                else np.transpose(k[::-1, ::-1], (2, 3, 0, 1)))
+            if gdn in layers:
+                g = np.asarray(layers[gdn]["gamma"])
+                sd[f"{track}.{i}.model.1.beta"] = t(layers[gdn]["beta"])
+                sd[f"{track}.{i}.model.1.gamma"] = t(g.reshape(g.shape
+                                                              + (1, 1)))
+        chk[module] = sd
+    chk["fact_ent"] = {(n if n == "quantiles" else "_" + n.replace("_", "")):
+                       t(v) for n, v in state["fact_ent"]["params"].items()}
+    torch.save(chk, path)
+
+
+def pth_serving(torch, model, core, imgs, pth):
+    """(a) The ``.pth`` model through ``CAETurboCore`` on phase 3's tiles:
+    weights, frames and decodes equal to the msgpack model's, launches
+    counted over its round trip."""
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
+    pmodel = autoencoder_from_state_dict(pth, device="cuda")
+    ref = model.state_dict()
+    got = pmodel.state_dict()
+    check(set(got) == set(ref) and all(torch.equal(v, ref[k])
+                                       for k, v in got.items()),
+          ".pth model: weights differ from the msgpack model's")
+    pcore = CAETurboCore(pmodel, num_streams=1024, device="cuda")
+    want = core.encode_tiles(imgs)
+    rec_want = core.decode_tiles(want)
+    pcore.decode_tiles(pcore.encode_tiles(imgs))     # warm-up
+    torch.cuda.synchronize()
+    retries = pcore.capacity_retries
+    reset_launch_counts()
+    frames = pcore.encode_tiles(imgs)
+    rec = pcore.decode_tiles(frames)
+    torch.cuda.synchronize()
+    launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+    retries = pcore.capacity_retries - retries
+    expect = {"gdn_fwd": 3, "conv_gdn_fwd": 1, "rans_encode_states": 1,
+              "rans_compact": 1 + retries, "rans_decode": 1}
+    log(f".pth serving launches: {launches}")
+    check(launches == {k: expect.get(k, 0) for k in launches},
+          f".pth serving: launches {launches}, expected {expect}")
+    check(frames == want, ".pth model: frames differ from the msgpack "
+          "model's")
+    check(np.array_equal(rec, rec_want), ".pth model: decodes differ from "
+          "the msgpack model's")
+    log(f".pth import: {len(got)} weights equal to the msgpack model's; "
+        f"{len(frames)} frames of 512^2 byte-equal and the decodes "
+        "bit-equal")
+    return launches
+
+
+def pth_cli(torch, core, img, slide_path, work, pth):
+    """(a) ``cli.compress -chk <the .pth>`` on phase 7's slide, in-process
+    (phase 7 runs the entry point as a subprocess): every chunk equal to
+    the msgpack core's pipeline store of the same slide."""
+    from cnn_autoencoder_tpu_torch.cli.compress import compress
+    from cnn_autoencoder_tpu_torch.pipeline.tiles import \
+        compress_pixels_to_cae_turbo
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    from cnn_autoencoder_tpu_torch.utils.args import get_args
+    ref = compress_pixels_to_cae_turbo(core, img, os.path.join(
+        work, "ref.zarr"), patch_size=SLIDE_PATCH, checkpoint_id=CHECKPOINT)
+    out = os.path.join(work, "pth_cli.zarr")
+    t0 = time.perf_counter()
+    compress(get_args("encoder", "inference", args_list=[
+        "-dd", slide_path, "-o", out, "-if", "zarr", "-cod", "CAETPU",
+        "-chk", pth, "-ps", str(SLIDE_PATCH), "-da", "YXC", "-dg", "0/0",
+        "-ld", work]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = slide_chunks(zarrlib.open(out)["0/0"])
+    check(got == slide_chunks(ref), "compress CLI from the .pth: chunks "
+          "differ from the msgpack model's store")
+    log(f"CLI compress -chk .pth [{CARD}]: {secs:.2f} s in-process, "
+        f"{len(got)} chunks byte-equal to the msgpack model's")
+
+
+@contextlib.contextmanager
+def step_likelihoods(rec):
+    """Keep each train step's likelihoods (float32, on the card) in
+    ``rec["p_y"]`` while a CLI run builds its criterion and trains: the
+    rate loss of the run's criterion records them when a gradient flows
+    (validation batches are not recorded)."""
+    from cnn_autoencoder_tpu_torch.criteria import ratedist
+    rate = ratedist.RATE_LOSS_LIST["Rate"]
+
+    def recording(x, p_y):
+        if p_y.requires_grad:
+            rec.setdefault("p_y", []).append(p_y.detach().float())
+            rec["pixels"] = x.shape[0] * x.shape[1] * x.shape[2]
+        return rate(x, p_y)
+
+    ratedist.RATE_LOSS_LIST["Rate"] = recording
+    try:
+        yield
+    finally:
+        ratedist.RATE_LOSS_LIST["Rate"] = rate
+
+
+def off_floor_losses(torch, losses, rec, ref_losses, ref):
+    """The two runs' losses step by step without the rate of the elements
+    whose likelihood sits at its 1e-9 floor in either run, and the count of
+    those elements.  The reference's likelihood (compressai's, as the JAX
+    package's) takes the sign of lower + upper, which is exactly 0 for an
+    element at its median now and then: that element's likelihood is 0,
+    floored at 1e-9, some 30 bits, and which run it happens in follows the
+    last bits of y."""
+    floor = torch.tensor(LIKELIHOOD_BOUND, dtype=torch.float32)
+    a_out, b_out, n_out = [], [], 0
+    for la, lb, pa, pb in zip(losses, ref_losses, rec["p_y"], ref["p_y"]):
+        at = (pa <= floor.to(pa.device)) | (pb <= floor.to(pb.device))
+        n = int(at.sum())
+        if n:
+            la -= float(-torch.log2(pa[at]).sum()) / rec["pixels"]
+            lb -= float(-torch.log2(pb[at]).sum()) / ref["pixels"]
+        a_out.append(la)
+        b_out.append(lb)
+        n_out += n
+    return a_out, b_out, n_out
+
+
+def ec_expected(mode, criterion, sub_steps, validations):
+    """Launches of a phase 9 train run: phase 8's per step and validation
+    batch, and PB's decodes."""
+    want = cli_expected(mode, sub_steps, validations)
+    if criterion == "RateMSEPB":
+        for name, k in PB_STEP_LAUNCHES[mode].items():
+            want[name] = want.get(name, 0) + k * sub_steps
+        for name, k in PB_VAL_LAUNCHES[mode].items():
+            want[name] = want.get(name, 0) + k * validations * VAL_BATCHES
+    return want
+
+
+def ec_train(torch, work, mode, criterion, flags):
+    """(b) / (c) One counted run of the train CLI with ``criterion`` in
+    ``mode`` and the same run through the plain versions: launches exact,
+    the same sub-steps per batch, losses within phase 8's limits.  Returns
+    (launches, log dir, record, ms per sub-step, peak GiB)."""
+    rtol = 1e-5 if mode == "float32" else 2e-2
+    label = f"{criterion}_{mode}"
+    rec, plain_rec = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with step_likelihoods(rec):
+        log_dir, losses, times, launches, _ = cli_run(
+            torch, work, mode, label, EC_STEPS, flags, rec)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    subs = [rec["steps"].count(s) for s in sorted(set(rec["steps"]))]
+    want = ec_expected(mode, criterion, len(losses), EC_VALIDATIONS)
+    log(f"{label}: launches {launches}; sub-steps per batch {subs}")
+    check(subs == [SUB_STEPS if criterion in PENALTY_FLAGS else 1]
+          * EC_BATCHES, f"{label}: sub-steps per batch {subs}")
+    check(launches == {k: want.get(k, 0) for k in launches},
+          f"{label}: launches {launches}, expected {want}")
+    with plain_versions(), step_likelihoods(plain_rec):
+        _, plain, _, _, _ = cli_run(torch, work, mode, label + "_plain",
+                                    EC_STEPS, flags, plain_rec)
+    check(plain_rec["steps"] == rec["steps"], f"{label}: sub-steps "
+          f"{rec['steps']} against the plain versions' {plain_rec['steps']}")
+    check(len(plain) == len(losses) == len(rec["p_y"])
+          == len(plain_rec["p_y"]), f"{label}: {len(losses)} steps, "
+          f"{len(plain)} plain")
+    raw = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    got, want, floored = off_floor_losses(torch, losses, rec, plain,
+                                          plain_rec)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    check(rel <= rtol, f"{label}: losses {got} against the plain versions' "
+          f"{want}, {floored} floored elements left out (max relative "
+          f"{rel:.3e} > {rtol}; {raw:.3e} with them)")
+    del rec["p_y"], plain_rec["p_y"]
+    ms = float(np.mean(times[1:])) * 1e3
+    energy = [round(e, 6) for e in rec["energy"]] \
+        if rec["energy"][0] is not None else None
+    log(f"{label} [{CARD}]: {len(losses)} sub-steps of {CLI_BATCH} x "
+        f"{CLI_PATCH}^2 over {EC_BATCHES} batches, {EC_VALIDATIONS} "
+        f"validations; losses {losses}; energies {energy}; plain versions "
+        f"max relative {rel:.3e} (limit {rtol}) without the {floored} "
+        f"elements whose likelihood sat at its floor in either run "
+        f"({raw:.3e} with them); {ms:.3f} ms per sub-step "
+        f"after the first, {CLI_BATCH / ms * 1e3:.2f} images/s; peak memory "
+        f"{peak:.2f} GiB")
+    return launches, log_dir, rec, ms, peak
+
+
+def multiscale_flagship(torch, work, val_img):
+    """(b) The flagship with color layers, saved as a msgpack checkpoint:
+    each ``color_i``'s centre tap is the least-squares map (float64 normal
+    equations) from the decoder's stage-i features of the val slide's
+    patches to the target pyramid at that scale, its other taps 0.  From
+    seed-0 color layers MS-SSIM's coarse contrast terms sit at or below 0
+    (relu'd) and their gradients are ill-conditioned: Adam's sign-like
+    first steps then carry the kernels' float32-accurate rounding to the
+    step-2 loss, 3.8e-5 from the plain versions' run
+    (``scripts/torch_train_parity.py`` measures both starts)."""
+    from cnn_autoencoder_tpu_torch.criteria.ratedist import \
+        downsample_pyramid
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.training.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from cnn_autoencoder_tpu_torch.utils.weights import state_to_jax
+    state = dict(load_checkpoint(CHECKPOINT), multiscale_analysis=True)
+    model = autoencoder_from_state_dict(state, device="cuda")
+    p, n = CLI_PATCH, val_img.shape[0] // CLI_PATCH
+    x = torch.from_numpy(np.stack([
+        val_img[i * p:(i + 1) * p, j * p:(j + 1) * p]
+        for i in range(n) for j in range(n)]).astype(np.float32) / 255.0)
+    level = model.compression_level
+    with torch.no_grad():
+        x = x.cuda()
+        _, feats = model.decoder(torch.round(model.encoder(x)))
+        targets = [x]
+        for _ in range(level - 1):
+            targets.append(downsample_pyramid(targets[-1]))
+        for i in range(level - 1):
+            a = feats[i].reshape(-1, feats[i].shape[-1]).double()
+            b = targets[level - 1 - i].reshape(-1, 3).double()
+            w = torch.linalg.solve(a.T @ a, a.T @ b)
+            conv = getattr(model.decoder, f"color_{i}")
+            conv.weight.zero_()
+            conv.weight[:, :, 1, 1] = w.T.float()
+    path = os.path.join(work, "multiscale.msgpack")
+    save_checkpoint(path, {**model.config,
+                           **state_to_jax(model.state_dict())})
+    return path
+
+
+def multiscale_geometry(work):
+    """(b) The criterion the CLI builds: MS-SSIM at three scales with
+    windows 11 / 9 / 7 and zero padding 0 / 8 / 24."""
+    from cnn_autoencoder_tpu_torch.cli import train_cae as cli
+    from cnn_autoencoder_tpu_torch.utils.args import get_args
+    args = get_args("autoencoder", "training", args_list=cli_argv(
+        work, os.path.join(work, "geometry"), EC_STEPS, MULTISCALE_FLAGS))
+    criterion, _ = cli.setup_criteria(args)
+    got = [(c.win_size, c.padding)
+           for c in criterion.dist_loss._dist_criteria]
+    check(got == MSSSIM_GEOMETRY, f"MS-SSIM windows and paddings {got}")
+
+
+def coarse_decodes(torch, img, work, last):
+    """(d) A 'cae_bn' store of the slide from the multiscale ``last_``
+    checkpoint, decoded by ``cli.decompress -rl 2`` and ``-rl 1``, each
+    twice in-process (phase 7 runs the entry point as a subprocess) with
+    the launches counted: 1/2 and 1/4 of the slide's side, bit-equal from
+    run to run.  Returns the launches of the first runs."""
+    from cnn_autoencoder_tpu_torch.cli.decompress import decompress
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.pipeline.tiles import (
+        compress_pixels_to_bottleneck, default_batch_tiles)
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    from cnn_autoencoder_tpu_torch.storage.cae_codec import CAECodecCore
+    from cnn_autoencoder_tpu_torch.utils.args import get_args
+    ms_core = CAECodecCore(autoencoder_from_state_dict(last, device="cuda"),
+                           device="cuda")
+    check(ms_core.model.config.get("multiscale_analysis") is True,
+          f"{last} is not a multiscale model")
+    bn = os.path.join(work, "bn.zarr")
+    compress_pixels_to_bottleneck(ms_core, img, bn, patch_size=SLIDE_PATCH)
+    del ms_core
+    lp = SLIDE_PATCH // 8
+    n_chunks = (SLIDE // SLIDE_PATCH) ** 2
+    totals = {}
+
+    def argv(rl, out):
+        return ["-dd", bn, "-o", out, "-of", "zarr", "-dg", "0/0", "-chk",
+                last, "-rl", str(rl), "-ld", work]
+
+    for rl in COARSE_LEVELS:
+        side = SLIDE >> (3 - rl)
+        batches = -(-n_chunks // default_batch_tiles(lp << rl))
+        runs = []
+        for k in range(2):
+            out = os.path.join(work, f"rl{rl}_{k}")
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            decompress(get_args("decoder", "inference",
+                                args_list=argv(rl, out)))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {fn.kernel_name: fn.launches
+                        for fn in kernel_wrappers()}
+            want = {"gdn_fwd": 2 * batches}
+            check(launches == {k2: want.get(k2, 0) for k2 in launches},
+                  f"-rl {rl}: launches {launches}, expected {want}")
+            if k == 0:
+                for name, n in launches.items():
+                    totals[name] = totals.get(name, 0) + n
+            rec = zarrlib.open(os.path.join(out, "bn.zarr"))[
+                "decompressed/0/0"][...]
+            check(rec.shape == (side, side, 3) and rec.dtype == np.uint8,
+                  f"-rl {rl}: {rec.shape} {rec.dtype}")
+            runs.append((rec, secs))
+        check(np.array_equal(runs[0][0], runs[1][0]),
+              f"-rl {rl}: two decodes differ")
+        f = SLIDE // side
+        ref = img.reshape(side, f, side, f, 3).mean(axis=(1, 3))
+        log(f"decompress -rl {rl} [{CARD}]: {side}^2 ({SLIDE // side}x "
+            f"below the slide), {batches} batch(es), launches {want}, two "
+            f"runs bit-equal ({runs[0][1]:.2f} / {runs[1][1]:.2f} s "
+            f"in-process); PSNR against the slide's {f}x{f} means "
+            f"{psnr_db(runs[0][0], ref):.3f} dB")
+    return totals
+
+
+def phase_energy_multiscale(torch, model, core, cli_ms):
+    """Phase 9: the reference ``.pth`` import, multiscale MS-SSIM training,
+    penalties A and B with their sub-iterations, and reconstruction at
+    coarser levels, at the flagship's width on the card; returns the
+    launches of the counted runs."""
+    import shutil
+
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase9")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    totals = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+
+    try:
+        # (a) the .pth import
+        pth = os.path.join(work, "flagship.pth")
+        write_reference_pth(torch, pth)
+        imgs = np.stack([image(512, 512, seed) for seed in range(TILES)])
+        add(pth_serving(torch, model, core, imgs, pth))
+        img = synth_histology(SLIDE, SLIDE, seed=0)
+        slide_path = os.path.join(work, "slide.zarr")
+        zarrlib.Group.create(slide_path).create_dataset(
+            "0/0", shape=img.shape, chunks=(SLIDE_PATCH, SLIDE_PATCH, 3),
+            dtype=np.uint8, compressor=None)[...] = img
+        pth_cli(torch, core, img, slide_path, work, pth)
+
+        # (b) multiscale MS-SSIM training, (c) penalties A and B
+        val_img = write_cli_slides(work)
+        multiscale_geometry(work)
+        ms_flags = MULTISCALE_FLAGS + ["-chk", multiscale_flagship(
+            torch, work, val_img)]
+        lines, last = [], None
+        for mode in ("float32", "bf16"):
+            launches, log_dir, rec, ms, peak = ec_train(
+                torch, work, mode, "MultiscaleRateMSSSIM", ms_flags)
+            add(launches)
+            colors = {n: g for n, g in rec["grads"]["decoder"].items()
+                      if n.startswith("color_")}
+            check(len(colors) == 2 and all(
+                bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+                for g in colors.values()), f"MultiscaleRateMSSSIM {mode}: "
+                f"step-1 color-layer gradients {sorted(colors)} zero or "
+                "not finite")
+            if mode == "float32":
+                last = cli_checkpoints(log_dir)["last"]
+            lines.append(f"MultiscaleRateMSSSIM {mode} {ms:.3f} ms "
+                         f"({peak:.2f} GiB)")
+            for crit, flags in PENALTY_FLAGS.items():
+                launches, _, _, ms, peak = ec_train(
+                    torch, work, mode, crit, ["-cr", crit] + flags)
+                add(launches)
+                lines.append(f"{crit} {mode} {ms:.3f} ms ({peak:.2f} GiB)")
+            lines.append(f"phase 8's RateMSE {mode} step "
+                         f"{cli_ms[mode]:.3f} ms")
+        log(f"phase 9 train steps [{CARD}], batch {CLI_BATCH} x "
+            f"{CLI_PATCH}^2, ms per sub-step (peak memory): "
+            + "; ".join(lines))
+
+        # (d) reconstruction at coarser levels
+        add(coarse_decodes(torch, img, work, last))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"energy compaction and multiscale phase: "
+        f"{time.perf_counter() - t0:.1f} s")
     return totals
 
 
@@ -3172,7 +3648,10 @@ def main():
           f"a kernel was not launched on the main paths: {launches}")
     phase_codecs(torch, model, core, core16)
     phase_slide(torch, core, core16)
-    for name, n in phase_train_cli(torch, step_ms).items():
+    cli_launches, cli_ms = phase_train_cli(torch, step_ms)
+    for name, n in cli_launches.items():
+        launches[name] += n
+    for name, n in phase_energy_multiscale(torch, model, core, cli_ms).items():
         launches[name] += n
 
     kernels = []

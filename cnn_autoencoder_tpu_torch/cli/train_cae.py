@@ -6,17 +6,19 @@ with the JAX CLI's flags.  One process trains on one card (``main``'s
 ``"cpu"``).  The host loop keeps the JAX CLI's control: a train step per
 batch, validation and ``last_`` / ``best_`` checkpoints every
 ``checkpoint_steps`` (and when training stops), warm-up and plateau
-schedulers, early stopping, and resume from a checkpoint, with its
-optimizer and scheduler state under ``--resume-optimizers``.  Checkpoints
-are the JAX package's files and load in either package.
+schedulers, early stopping, the energy penalties' sub-iterations on one
+batch (PA / PB criteria: train steps on the same batch until the energy
+criterion stops them or ``--sub-steps`` are done), and resume from a
+checkpoint (``.msgpack`` or a reference ``.pth``), with its optimizer and
+scheduler state under ``--resume-optimizers``.  Checkpoints are the JAX
+package's files and load in either package.
 
 The compute type is ``ops/convops.py``'s default precision ("highest":
 float32, "bf16": bf16 activations); the bottleneck's training noise comes
 from one ``torch.Generator`` on the device, seeded from ``-rs``.
 
 Left out: the JAX CLI's mesh and multi-host branches (``ROADMAP.md`` §1 item
-10), and the penalty criteria's sub-iterations, whose losses raise "not
-ported" in ``criteria/loss.py`` (item 6).
+10).
 """
 
 import logging
@@ -197,10 +199,30 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
         epoch_start_step = step
         for i, (x, _) in enumerate(placed_batches(train_data)):
             step += 1
-            stats, _ = train_step(x, lrs, step, generator=generator)
-            stats = _host(stats)
-            sum_loss += float(stats["loss"])
-            channel_e_history.append(int(stats.get("channel_e", -1)))
+
+            if "penalty" in stopping_criteria:
+                stopping_criteria["penalty"].reset()
+
+            # sub-steps on one batch, each with fresh noise from the
+            # generator (JAX cli/train_cae.py:236-262)
+            sub_step = 0
+            sub_step_loss = 0.0
+            while True:
+                sub_step += 1
+                stats, _ = train_step(x, lrs, step, generator=generator)
+                stats = _host(stats)
+                sub_step_loss += float(stats["loss"])
+                channel_e_history.append(int(stats.get("channel_e", -1)))
+
+                if "penalty" in stopping_criteria:
+                    stopping_criteria["penalty"].update(
+                        iteration=sub_step, metric=float(stats["energy"]))
+                    if not stopping_criteria["penalty"].check():
+                        break
+                else:
+                    break
+
+            sum_loss += sub_step_loss / sub_step
 
             if i % max(1, int(0.01 * len(train_data))) == 0:
                 channel_e = int(np.median(channel_e_history)) \

@@ -1,12 +1,19 @@
 """The loss composer and the criterion-string parser, counterparts of the
-JAX package's ``criteria/loss.py:37-168`` for what this port carries:
+JAX package's ``criteria/loss.py:37-168``.  It sums, in this order:
 
-* distortion (MSE, times 255^2, weighted by ``distortion_lambda``),
-* rate (bpp) plus the bottleneck's auxiliary quantile loss, returned as
-  ``entropy_loss`` for the train step to add.
+* distortion: MSE, MS-SSIM or their multiscale pyramids (times 255^2
+  where the name holds "MSE"), weighted by ``distortion_lambda``; the zip
+  of the per-scale distortions with the lambdas truncates, as in the
+  JAX package;
+* rate (bpp), with the bottleneck's auxiliary quantile loss returned as
+  ``entropy_loss`` for the train step to add;
+* the energy penalty A or B, weighted by ``penalty_beta`` (the registry
+  indexed by ``penalty_loss_type``).
 
-A criterion that asks for MS-SSIM, a multiscale pyramid, an energy penalty
-or a classification loss raises: those are not ported yet.
+``net`` carries what the losses need from the model: ``fact_ent_params``
+and ``num_filters`` (the auxiliary loss) and ``decoder_fn`` (PenaltyB).
+A criterion that asks for a classification loss raises: the heads are not
+ported yet.
 """
 
 from typing import Dict, Optional
@@ -14,12 +21,11 @@ from typing import Dict, Optional
 import torch
 
 from ..models.entropy import aux_loss_fn
-from .ratedist import DIST_LOSS_LIST, NOT_PORTED, RATE_LOSS_LIST
+from .ratedist import (DIST_LOSS_LIST, PENALTY_LOSS_LIST, RATE_LOSS_LIST,
+                       penalty_a, penalty_b)
 
 
-def _check(kind: str, name: Optional[str], table) -> None:
-    if name in NOT_PORTED:
-        raise ValueError(f"{kind} loss {name} is not ported yet")
+def _check(kind: str, name: str, table) -> None:
     if name not in table:
         raise ValueError(f"unknown {kind} loss {name}")
 
@@ -30,16 +36,16 @@ class GeneralLoss:
                  rate_loss_type: Optional[str] = "Rate",
                  penalty_loss_type: Optional[str] = None,
                  class_loss_type: Optional[str] = None,
-                 distortion_lambda=0.1, **_):
-        if penalty_loss_type is not None \
-                and penalty_loss_type.lower() != "none":
-            raise ValueError(f"penalty {penalty_loss_type} is not ported yet")
+                 distortion_lambda=0.1,
+                 penalty_beta: float = 0.001,
+                 channel_e: int = 0,
+                 **kwargs):
         if class_loss_type is not None and class_loss_type.lower() != "none":
             raise ValueError(f"class loss {class_loss_type} is not ported yet")
         self.dist_loss = None
         if dist_loss_type is not None:
             _check("distortion", dist_loss_type, DIST_LOSS_LIST)
-            self.dist_loss = DIST_LOSS_LIST[dist_loss_type]
+            self.dist_loss = DIST_LOSS_LIST[dist_loss_type](**kwargs)
             self._multiplier = 255 ** 2 if "MSE" in dist_loss_type else 1
             if not isinstance(distortion_lambda, (list, tuple)):
                 distortion_lambda = [distortion_lambda]
@@ -48,6 +54,13 @@ class GeneralLoss:
         if rate_loss_type is not None:
             _check("rate", rate_loss_type, RATE_LOSS_LIST)
             self.rate_loss = RATE_LOSS_LIST[rate_loss_type]
+        self._penalty_type = None
+        if penalty_loss_type is not None \
+                and penalty_loss_type.lower() != "none":
+            _check("penalty", penalty_loss_type, PENALTY_LOSS_LIST)
+            self._penalty_type = penalty_loss_type
+            self._penalty_beta = penalty_beta
+            self._channel_e = channel_e
 
     def __call__(self, inputs: torch.Tensor, outputs, targets=None,
                  net=None) -> Dict[str, torch.Tensor]:
@@ -69,13 +82,21 @@ class GeneralLoss:
                 loss_dict["entropy_loss"] = aux_loss_fn(
                     net["fact_ent_params"], net["num_filters"])
             loss = loss + loss_dict["rate_loss"]
+        if self._penalty_type == "PenaltyA":
+            loss_dict.update(penalty_a(x=inputs, y=outputs["y"]))
+        elif self._penalty_type == "PenaltyB":
+            loss_dict.update(penalty_b(y=outputs["y"],
+                                       decoder_fn=net["decoder_fn"],
+                                       channel_e=self._channel_e))
+        if self._penalty_type is not None:
+            loss = loss + self._penalty_beta * loss_dict["weighted_penalty"]
         loss_dict["loss"] = loss
         return loss_dict
 
 
 def setup_loss(criterion: str, **kwargs) -> GeneralLoss:
-    """Parse a criterion string (``"RateMSE"``, ...) into a GeneralLoss, by
-    the JAX package's rules."""
+    """Parse a criterion string (``"RateMSE"``, ``"MultiscaleRateMSSSIM"``,
+    ``"RateMSEPA"``, ...) into a GeneralLoss, by the JAX package's rules."""
     crit = criterion.lower()
     rate_loss_type = "Rate" if "rate" in crit else None
     if "mse" in crit:

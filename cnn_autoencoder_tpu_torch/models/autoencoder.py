@@ -6,9 +6,10 @@ as the JAX package's ``models/autoencoder.py``, with its parameter names
 ``up_i/gdn_up``, and ``conv_pre``/``deconv_pre`` for elementwise
 activations), so ``utils.weights`` maps checkpoints one to one.
 
-Ported: plain down/up units with activations None, GDN, ReLU and LeakyReLU.
-Residual units, batch norm, dropout and multiscale color layers wait for
-later slices; asking for them raises.
+Ported: plain down/up units with activations None, GDN, ReLU and LeakyReLU,
+and the Synthesizer's multiscale color layers (``color_i``).  Residual
+units, batch norm, dropout and grouped convolutions wait for later slices;
+asking for them raises.
 
 A downsampling unit with GDN, no bias, k=3 and at least 64 input channels
 runs the fused conv+GDN kernel when H and W are even (the JAX package's gate
@@ -168,17 +169,24 @@ class Analyzer(nn.Module):
 
 
 class Synthesizer(nn.Module):
-    """Decoder: latent -> full-resolution reconstruction (NHWC).
+    """Decoder: latent -> reconstruction pyramid (NHWC), the JAX package's
+    ``models/autoencoder.py:295-352``.
 
-    Returns ``(x_r, fx_brg)`` like the JAX package: ``x_r[0]`` is the
-    reconstruction (coarser entries are None without color layers) and
-    ``fx_brg`` the per-stage features."""
+    Returns ``(x_r, fx_brg)`` like the JAX package: ``x_r`` is finest
+    first, ``x_r[0]`` the full-resolution reconstruction; with
+    ``multiscale_analysis`` each coarser entry is the color layer
+    ``color_i`` (a reflect-padded stride-1 conv to ``channels_org``) of
+    stage i's output, else None.  ``fx_brg`` holds the per-stage features.
+    A color layer takes its stage's width, which flax infers in the JAX
+    package; at channels_expansion 1 that is its ``color_channels``
+    (``:328-330``)."""
 
     def __init__(self, channels_org: int = 3, channels_net: int = 8,
                  channels_bn: int = 16, compression_level: int = 3,
                  channels_expansion: int = 1, kernel_size: int = 3,
                  use_bias: bool = False,
-                 act_layer_type: Optional[str] = None):
+                 act_layer_type: Optional[str] = None,
+                 multiscale_analysis: bool = False):
         super().__init__()
         stages = _synthesizer_stage_channels(channels_org, channels_net,
                                              channels_bn, compression_level,
@@ -189,6 +197,10 @@ class Synthesizer(nn.Module):
                 cin, cout, kernel_size, use_bias,
                 act_layer_type if act else None))
             self.names.append(f"up_{i}")
+            if multiscale_analysis and i < len(stages) - 1:
+                self.add_module(f"color_{i}", Conv2dReflect(
+                    cout, channels_org, kernel_size, 1, use_bias))
+        self.multiscale_analysis = multiscale_analysis
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[List[Optional[torch.Tensor]], List[torch.Tensor]]:
@@ -196,6 +208,12 @@ class Synthesizer(nn.Module):
         fx_brg: List[torch.Tensor] = []
         for i, name in enumerate(self.names):
             x = getattr(self, name)(x)
-            x_r.insert(0, x if i == len(self.names) - 1 else None)
+            if i == len(self.names) - 1:
+                x_r_i = x
+            elif self.multiscale_analysis:
+                x_r_i = getattr(self, f"color_{i}")(x)
+            else:
+                x_r_i = None
+            x_r.insert(0, x_r_i)
             fx_brg.append(x)
         return x_r, fx_brg

@@ -9,6 +9,7 @@ model.
 
 from typing import Any, Dict, Tuple
 
+import torch
 from torch import nn
 
 from ..training.checkpoint import load_checkpoint
@@ -18,8 +19,8 @@ from .autoencoder import Analyzer, Synthesizer
 from .entropy import FactorizedEntropyBottleneck
 
 # options of the JAX package that this slice does not port yet
-_NOT_PORTED = ("batch_norm", "use_residual", "groups", "multiscale_analysis",
-               "class_model_type", "seg_model_type")
+_NOT_PORTED = ("batch_norm", "use_residual", "groups", "class_model_type",
+               "seg_model_type")
 
 
 def _net_kwargs(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -48,7 +49,8 @@ class CAEModel(nn.Module):
         net.setdefault("channels_bn", 192)
         net.setdefault("compression_level", 4)
         self.encoder = Analyzer(**net)
-        self.decoder = Synthesizer(**net)
+        self.decoder = Synthesizer(multiscale_analysis=bool(
+            config.get("multiscale_analysis", False)), **net)
         self.fact_ent = FactorizedEntropyBottleneck(self.channels_bn,
                                                     self.filters)
 
@@ -85,18 +87,38 @@ def build_model(config: Dict[str, Any], generator=None,
 
 
 def autoencoder_from_state_dict(checkpoint, device=None) -> CAEModel:
-    """Load a CAE from a ``.msgpack`` checkpoint path or an in-memory state
-    dict of the same form (config scalars + module variable trees); every
-    weight of the model must be present.  The model is returned in eval mode
-    on ``device`` (``None``: the card)."""
+    """Load a CAE from a ``.msgpack`` checkpoint, a reference torch ``.pth``
+    / ``.pt`` (converted by ``utils/torch_import.py``) or an in-memory state
+    dict of the msgpack's form (config scalars + module variable trees).
+    Every weight of the model must be present but the color layers: a
+    multiscale model built from a checkpoint without them (training a
+    multiscale criterion from a single-scale model) initialises them from
+    seed 0, as the JAX package fills what a checkpoint lacks from its
+    init.  A config that does not say ``multiscale_analysis`` takes it from
+    the decoder's weights: the train CLI's checkpoints record the
+    criterion, not the flag (the JAX package drops their color layers on
+    load); one that says False drops them, as the JAX package does.  The
+    model is returned in eval mode on ``device`` (``None``: the card)."""
     dev = resolve_device(device)
     state = load_checkpoint(checkpoint)
     config = {k: v for k, v in state.items()
               if not isinstance(v, dict) and k != "step"}
+    colors = any(u.startswith("color_") for u in
+                 (state.get("decoder") or {}).get("params", {}))
+    if config.get("multiscale_analysis") is None and colors:
+        config["multiscale_analysis"] = True
     model = CAEModel(config)
     weights = state_from_jax(state, config)
+    if not model.decoder.multiscale_analysis:
+        weights = {k: v for k, v in weights.items()
+                   if not k.startswith("decoder.color_")}
     missing = set(model.state_dict()) - set(weights)
-    if missing:
-        raise ValueError(f"checkpoint lacks weights: {sorted(missing)}")
-    model.load_state_dict(weights, strict=True)
+    fresh = {k for k in missing if k.startswith("decoder.color_")}
+    if missing - fresh:
+        raise ValueError(f"checkpoint lacks weights: "
+                         f"{sorted(missing - fresh)}")
+    generator = torch.Generator().manual_seed(0)
+    for name in sorted({k.split(".")[1] for k in fresh}):
+        getattr(model.decoder, name).reset_parameters(generator)
+    model.load_state_dict(weights, strict=not fresh)
     return model.to(dev).eval()

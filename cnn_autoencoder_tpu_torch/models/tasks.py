@@ -19,6 +19,23 @@ ALL_MODULES = ("encoder", "decoder", "fact_ent", "class_model", "seg_model")
 _PORTED = ("encoder", "decoder", "fact_ent")
 
 
+def module_runner(model, trainable_modules: Optional[Sequence[str]] = None
+                  ) -> Callable:
+    """``run(name, *args, **kwargs)``: the model's child ``name`` on the
+    arguments, with its parameters detached unless it is trainable."""
+    trainable = set(trainable_modules or ())
+
+    def run(name, *args, **kwargs):
+        module = getattr(model, name)
+        if name in trainable:
+            return module(*args, **kwargs)
+        frozen = {k: v.detach() for k, v in module.named_parameters()}
+        frozen.update(module.named_buffers())
+        return torch.func.functional_call(module, frozen, args, kwargs)
+
+    return run
+
+
 def make_forward_fn(model, enabled_modules: Optional[Sequence[str]] = None,
                     trainable_modules: Optional[Sequence[str]] = None
                     ) -> Callable:
@@ -32,15 +49,7 @@ def make_forward_fn(model, enabled_modules: Optional[Sequence[str]] = None,
     for name in enabled:
         if name not in _PORTED:
             raise ValueError(f"module {name} is not ported yet")
-    trainable = set(trainable_modules or ())
-
-    def run(name, *args, **kwargs):
-        module = getattr(model, name)
-        if name in trainable:
-            return module(*args, **kwargs)
-        frozen = {k: v.detach() for k, v in module.named_parameters()}
-        frozen.update(module.named_buffers())
-        return torch.func.functional_call(module, frozen, args, kwargs)
+    run = module_runner(model, trainable_modules)
 
     def forward(x: torch.Tensor, train: bool = False,
                 noise: Optional[torch.Tensor] = None,

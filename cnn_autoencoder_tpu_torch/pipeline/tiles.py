@@ -264,24 +264,28 @@ def decompress_latents_to_pixels(core: CAECodecCore, src: zarrlib.Array,
     ``halo`` > 0 reads each latent chunk with that many latent pixels of
     real neighboring context, decodes the enlarged tile and crops: seamless
     stitched reconstruction.  ``rec_level`` other than full scale (-1 or
-    the model's level) needs a multiscale decoder, which the port does not
-    have yet (``ROADMAP.md`` §1 item 7), and raises before any store is
-    created."""
+    the model's level) decodes the multiscale decoder's reconstruction at
+    ``2 ** rec_level`` times the latent's size (JAX ``tiles.py:331-352``);
+    a model without color layers raises before any store is created."""
     if compressor is None:
         compressor = Blosc(cname="zlib", clevel=9, shuffle=2)
     lh, lw, cbn = src.shape
     lp_h, lp_w, _ = src.chunks
     level = core.level
-    if rec_level not in (-1, level):
+    if rec_level not in (-1, level) and \
+            not core.model.decoder.multiscale_analysis:
         raise ValueError(
             "Partial reconstruction (rec_level=%d of %d) needs a "
-            "multiscale_analysis decoder (color layers); the port has none "
-            "yet (not ported)" % (rec_level, level))
-    scale = 2 ** level
+            "multiscale_analysis decoder (color layers); this model "
+            "has none" % (rec_level, level))
+    scale = 2 ** (level if rec_level in (-1, level) else rec_level)
     h, w = lh * scale, lw * scale
     true_hw = (src.attrs or {}).get("true_pixel_shape")
     if true_hw:
-        h, w = min(h, int(true_hw[0])), min(w, int(true_hw[1]))
+        h = min(h, -(-int(true_hw[0]) // 2 ** level) * scale)
+        w = min(w, -(-int(true_hw[1]) // 2 ** level) * scale)
+        if rec_level in (-1, level):
+            h, w = min(h, int(true_hw[0])), min(w, int(true_hw[1]))
     p_h, p_w = lp_h * scale, lp_w * scale
     batch = batch_tiles or default_batch_tiles(max(p_h, p_w), core)
 

@@ -176,22 +176,28 @@ class CAECodecCore:
     @torch.no_grad()
     def decode_latents_device(self, y, rec_level: int = -1) -> torch.Tensor:
         """Decode float NHWC latents (medians included; cast to the compute
-        type here) to uint8 on the device.  ``rec_level`` -1 or the model's
-        level reconstructs at full scale; a coarser level needs a multiscale
-        decoder, which the port does not have yet, and raises."""
-        if rec_level not in (-1, self.level):
+        type here) to uint8 on the device (JAX ``cae_codec.py:433-443``).
+        ``rec_level`` -1 or the model's level reconstructs at full scale; a
+        coarser level L takes the multiscale decoder's reconstruction at
+        2**L times the latent's size, and raises for a decoder without
+        color layers."""
+        rec_idx = 0 if rec_level in (-1, self.level) \
+            else self.level - rec_level
+        if not torch.is_tensor(y):
+            y = torch.from_numpy(np.ascontiguousarray(y, np.float32))
+        return self._synthesize(y.to(self.device, torch.float32), rec_idx)
+
+    def _synthesize(self, y: torch.Tensor, rec_idx: int = 0) -> torch.Tensor:
+        """Float32 latents -> uint8 reconstructions at pyramid index
+        ``rec_idx`` (0: full scale)."""
+        x_r, _ = self.model.decoder(y.to(self.compute_dtype))
+        if x_r[rec_idx] is None:
             raise ValueError(
                 "Partial reconstruction at this level needs a "
                 "multiscale_analysis decoder (color layers)")
-        if not torch.is_tensor(y):
-            y = torch.from_numpy(np.ascontiguousarray(y, np.float32))
-        return self._synthesize(y.to(self.device, torch.float32))
-
-    def _synthesize(self, y: torch.Tensor) -> torch.Tensor:
-        """Float32 latents -> uint8 reconstructions."""
-        x_r, _ = self.model.decoder(y.to(self.compute_dtype))
         # clip, then truncate to uint8, as the JAX codec converts
-        return torch.clamp(x_r[0].float() * 255.0, 0, 255).to(torch.uint8)
+        return torch.clamp(x_r[rec_idx].float() * 255.0, 0,
+                           255).to(torch.uint8)
 
     # -- host steps ---------------------------------------------------------
 

@@ -14,8 +14,8 @@ a flat state dict as the JAX package's does: JSON-able values go to the
 config, module variable trees, optimizer and scheduler states and other
 trees to the arrays, with their leaves as numpy arrays and their lists as
 ``{"0": ..., "1": ...}`` dicts, as flax's state dicts hold them.  Both the
-JAX package's ``load_checkpoint`` and this module's read it.  Reference
-torch ``.pth`` import is not ported yet.
+JAX package's ``load_checkpoint`` and this module's read it.  A reference
+torch ``.pth`` / ``.pt`` is converted by ``utils/torch_import.py``.
 """
 
 import json
@@ -26,6 +26,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ..utils.torch_import import load_torch_checkpoint
 from ..utils.weights import state_to_jax
 
 _EXT_NDARRAY = 1
@@ -162,16 +163,16 @@ def load_checkpoint(source) -> Dict[str, Any]:
     """Load a checkpoint into a flat state dict: the config scalars merged
     with the module variable trees (numpy arrays).
 
-    Accepts an in-memory dict (returned as is) or a ``.msgpack`` path."""
+    Accepts an in-memory dict (returned as is), a ``.msgpack`` path or a
+    reference torch ``.pth`` / ``.pt`` (converted; JAX
+    ``training/checkpoint.py:72-74``)."""
     if isinstance(source, dict):
         return source
     if not isinstance(source, (str, os.PathLike)):
         raise TypeError(f"Unsupported checkpoint source: {type(source)}")
     path = os.fspath(source)
     if path.endswith((".pth", ".pt")):
-        raise ValueError(
-            f"{path}: reference torch checkpoint import is not ported yet; "
-            "convert it with the JAX package and load the .msgpack")
+        return load_torch_checkpoint(path)
     with open(path, "rb") as f:
         payload = msgpack_restore(f.read())
     state = dict(payload["state"])

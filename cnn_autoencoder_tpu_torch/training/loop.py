@@ -22,7 +22,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.tasks import make_forward_fn
+from ..models.tasks import make_forward_fn, module_runner
 from ..utils.device import full_f32
 from .optim import apply_module_updates
 
@@ -35,12 +35,19 @@ def _check_dtype(compute_dtype):
                          f"got {compute_dtype}")
 
 
-def _net_aux(model) -> Dict:
-    """What the loss composer needs from the model."""
-    if not hasattr(model, "fact_ent"):
-        return {}
-    return {"fact_ent_params": model.fact_ent.params(),
-            "num_filters": model.fact_ent.num_filters}
+def _net_aux(model, trainable_modules: Sequence[str] = ()) -> Dict:
+    """What the loss composer needs from the model (JAX
+    ``training/loop.py:28-39``): the bottleneck's parameters, and
+    ``decoder_fn``, the decoder's reconstructions of a latent (PenaltyB),
+    through the frozen path when the decoder is not trainable."""
+    net = {}
+    if hasattr(model, "fact_ent"):
+        net["fact_ent_params"] = model.fact_ent.params()
+        net["num_filters"] = model.fact_ent.num_filters
+    if hasattr(model, "decoder"):
+        run = module_runner(model, trainable_modules)
+        net["decoder_fn"] = lambda code: run("decoder", code)[0]
+    return net
 
 
 def make_train_step(model, criterion, optimizers,
@@ -71,7 +78,7 @@ def make_train_step(model, criterion, optimizers,
         with full_f32():
             outputs = forward(x.to(compute_dtype), train=True, noise=noise,
                               generator=generator)
-            loss_dict = criterion(x, outputs, net=_net_aux(model))
+            loss_dict = criterion(x, outputs, net=_net_aux(model, trainable))
             total = torch.mean(loss_dict["loss"])
             if "entropy_loss" in loss_dict:
                 total = total + torch.mean(loss_dict["entropy_loss"])

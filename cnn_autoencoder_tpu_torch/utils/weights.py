@@ -9,7 +9,10 @@ port uses PyTorch's layouts.  This inverts
 * deconv ``kernel`` (flipped HWIO) -> ``ConvTranspose2d`` ``weight``
   (in, out, kh, kw): ``transpose(hwio[::-1, ::-1], (2, 3, 0, 1))``;
 * biases, GDN ``beta``/``gamma`` (stored reparameterized in both) and the
-  ``fact_ent`` parameters carry over as stored.
+  ``fact_ent`` parameters carry over as stored;
+* a multiscale decoder's color layers (``decoder/color_i``, a conv whose
+  ``kernel`` and ``bias`` sit at the unit's level) map to
+  ``decoder.color_i.weight`` / ``.bias``.
 
 ``state_to_jax`` is the inverse, for checkpoints the JAX package reads.
 """
@@ -32,7 +35,7 @@ def _layer(prefix: str, layer: str, params: Dict[str, Any]
            ) -> Dict[str, np.ndarray]:
     out = {}
     params = {k: v for k, v in params.items() if v is not None}
-    if layer.startswith(("conv", "deconv")):
+    if layer.startswith(("conv", "deconv", "color")):
         convert = _deconv if layer.startswith("deconv") else _conv
         for name, value in params.items():
             if name == "kernel":
@@ -68,10 +71,15 @@ def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
             raise ValueError(f"{module}: collections "
                              f"{sorted(set(tree) - {'params'})} are not "
                              "ported yet (batch norm)")
-        if len(tree["params"]) != levels:
-            raise ValueError(f"{module} holds {len(tree['params'])} stages, "
+        units = {k: v for k, v in tree["params"].items()
+                 if not k.startswith("color_")}
+        if len(units) != levels:
+            raise ValueError(f"{module} holds {len(units)} stages, "
                              f"config says compression_level {levels}")
         for unit, layers in tree["params"].items():
+            if unit.startswith("color_"):
+                arrays.update(_layer(module, unit, layers))
+                continue
             for layer, params in layers.items():
                 arrays.update(_layer(f"{module}.{unit}", layer, params))
     fact_ent = variables.get("fact_ent")
@@ -104,14 +112,15 @@ def state_to_jax(weights: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         if module == "fact_ent":
             params[path[0]] = _contiguous(arr)
             continue
-        unit, layer, name = path
+        *where, name = path     # unit and layer, or a color layer
         if name == "weight":
             if arr is not None:
-                arr = (_deconv_to_hwio if layer.startswith("deconv")
+                arr = (_deconv_to_hwio if where[-1].startswith("deconv")
                        else _conv_to_hwio)(arr)
             name = "kernel"
-        params.setdefault(unit, {}).setdefault(layer, {})[name] = \
-            _contiguous(arr)
+        for part in where:
+            params = params.setdefault(part, {})
+        params[name] = _contiguous(arr)
     return tree
 
 

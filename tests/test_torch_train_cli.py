@@ -95,10 +95,11 @@ def _argv(case, data, log_dir, extra=()):
             + list(extra))
 
 
-def _run_jax(argv, noises, monkeypatch):
+def _run_jax(argv, noises, monkeypatch, record=None):
     """Per-step losses of the JAX CLI's ``main`` with the given noise: its
     train step is jitted again with the noise as one more argument, which
-    the patched ``jax.random.uniform`` hands to the bottleneck."""
+    the patched ``jax.random.uniform`` hands to the bottleneck.  Each
+    step's (step number, channel_e, energy) is appended to ``record``."""
     losses, queue, current = [], list(noises), {}
     uniform = jax.random.uniform
 
@@ -125,6 +126,8 @@ def _run_jax(argv, noises, monkeypatch):
         def run(*sa):
             out = step(jnp.asarray(queue.pop(0)), *sa)
             losses.append(float(out[3]["loss"]))
+            if record is not None:
+                record.append(_record(sa[7], out[3]))
             return out
         return run
 
@@ -139,9 +142,16 @@ def _run_jax(argv, noises, monkeypatch):
     return losses
 
 
-def _run_port(argv, noises, monkeypatch):
+def _record(step, stats):
+    """(step number, channel_e, energy) of one train step's stats."""
+    energy = stats.get("energy")
+    return (int(step), float(np.asarray(stats["channel_e"], np.float32)),
+            None if energy is None else float(np.asarray(energy, np.float32)))
+
+
+def _run_port(argv, noises, monkeypatch, record=None):
     """Per-step losses of the port's ``main`` on the CPU with the given
-    noise."""
+    noise; ``record`` as in ``_run_jax``."""
     losses, queue = [], list(noises)
     quantize = FactorizedEntropyBottleneck.quantize
 
@@ -158,6 +168,9 @@ def _run_port(argv, noises, monkeypatch):
         def run(*sa, **sk):
             out = step(*sa, **sk)
             losses.append(float(out[0]["loss"]))
+            if record is not None:
+                record.append(_record(sa[2], {
+                    k: v.float().numpy() for k, v in out[0].items()}))
             return out
         return run
 
@@ -348,3 +361,97 @@ def test_main_without_a_card_raises(data, tmp_path):
                     args_list=_argv("zarr", data, tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(args)
+
+
+@pytest.fixture(scope="module")
+def ms_checkpoint(tmp_path_factory):
+    """A JAX-written multiscale model (color layers included) of the zarr
+    case's widths."""
+    m = jax_build(jax.random.PRNGKey(0), input_size=(32, 32),
+                  channels_org=3, channels_net=8, channels_bn=8,
+                  compression_level=2, K=4, r=3, act_layer_type="GDN",
+                  multiscale_analysis=True)
+    path = str(tmp_path_factory.mktemp("ms") / "ms.msgpack")
+    jax_save_checkpoint(path, {**m.config, **m.variables})
+    return path
+
+
+# criterion: (flags, multiscale checkpoint, sub-steps per batch).  The
+# energy limits sit 1e-3 (PA) and 1e-5 (PB, 2.5e-4 relative) or more from
+# every energy of these runs, so one batch stops after a sub-step where
+# another takes all three
+SUB_STEP_CASES = {
+    "MultiscaleRateMSSSIM": (["-dl", "0.01", "0.01"], True, [1, 1, 1, 1]),
+    "RateMSEPA": (["-ss", "3", "-el", "0.4385"], False, [1, 1, 3, 3]),
+    "RateMSEPB": (["-ss", "3", "-el", "0.040635"], False, [3, 3, 1, 1]),
+}
+
+
+def _sub_steps(record):
+    steps = [r[0] for r in record]
+    return [steps.count(s) for s in sorted(set(steps))]
+
+
+def _assert_records(trec, jrec, rtol):
+    """The same step numbers (so the same sub-steps per batch) and
+    channel_e, energies within ``rtol``."""
+    assert [r[:2] for r in trec] == [r[:2] for r in jrec]
+    if jrec[0][2] is not None:
+        np.testing.assert_allclose([r[2] for r in trec],
+                                   [r[2] for r in jrec], rtol=rtol)
+
+
+@pytest.mark.parametrize("crit", sorted(SUB_STEP_CASES))
+def test_criteria_and_sub_steps_match_jax(data, ms_checkpoint, tmp_path,
+                                          monkeypatch, crit):
+    """float32 MS-SSIM over both scales and penalties A and B with their
+    sub-iterations: every sub-step's loss within 1e-5 relative of the JAX
+    CLI's, the same sub-steps per batch and channel_e, and the same
+    validation losses and channel_e in the checkpoints."""
+    flags, ms, counts = SUB_STEP_CASES[crit]
+    extra = ["-cr", crit] + flags + (["-chk", ms_checkpoint] if ms else [])
+    noises = _noises(4, 16)
+    recs = {"j": [], "t": []}
+    for d in recs:
+        (tmp_path / d).mkdir()
+    jl = _run_jax(_argv("zarr", data, tmp_path / "j", extra), noises,
+                  monkeypatch, recs["j"])
+    tl = _run_port(_argv("zarr", data, tmp_path / "t", extra), noises,
+                   monkeypatch, recs["t"])
+    assert _sub_steps(recs["j"]) == counts
+    _assert_records(recs["t"], recs["j"], 1e-5)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    js, ts = _saved(tmp_path / "j"), _saved(tmp_path / "t")
+    for kind in js:
+        j, t = js[kind][1], ts[kind][1]
+        assert t["step"] == j["step"] and t["channel_e"] == j["channel_e"]
+        np.testing.assert_allclose(t["valid_loss"], j["valid_loss"],
+                                   rtol=1e-5)
+    if ms:
+        assert "color_0" in ts["last"][1]["decoder"]["params"]
+
+
+def test_penalty_a_bf16_matches_jax(data, tmp_path, monkeypatch):
+    """RateMSEPA in bf16 (``set_default_precision("bf16")`` in each
+    package): losses and energies within 2e-2 relative of the JAX CLI's,
+    the same sub-steps and channel_e."""
+    noises = _noises(4, 16)
+    argv = ["-cr", "RateMSEPA", "-ss", "3", "-el", "0.7"]
+    recs = {"j": [], "t": []}
+    for d in recs:
+        (tmp_path / d).mkdir()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcli.loggers, "log_info",
+                   _widened_log_info(jcli.loggers.log_info))
+        for mod in (jconvops, tconvops):   # restored when the block ends
+            for name in ("_DEFAULT_PRECISION", "_DEFAULT_COMPUTE_DTYPE"):
+                if hasattr(mod, name):
+                    mp.setattr(mod, name, getattr(mod, name))
+            mod.set_default_precision("bf16")
+        jl = _run_jax(_argv("zarr", data, tmp_path / "j", argv), noises,
+                      monkeypatch, recs["j"])
+        tl = _run_port(_argv("zarr", data, tmp_path / "t", argv), noises,
+                       monkeypatch, recs["t"])
+    assert _sub_steps(recs["j"]) == [3, 3, 3, 3]
+    _assert_records(recs["t"], recs["j"], 2e-2)
+    np.testing.assert_allclose(tl, jl, rtol=2e-2)

@@ -472,7 +472,8 @@ def test_port_imports_without_jax():
         "       or m.startswith('cnn_autoencoder_tpu.')]\n"
         "assert not bad, bad\n"
         "need = ['coding.rans', 'coding._rans_py', 'storage.cae_codec',\n"
-        "        'storage.blosc_frame', 'storage.image_codecs']\n"
+        "        'storage.blosc_frame', 'storage.image_codecs',\n"
+        "        'ops.msssim', 'criteria.ratedist', 'utils.torch_import']\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in need)\n"
         "from cnn_autoencoder_tpu_torch.coding import rans\n"
         "from cnn_autoencoder_tpu_torch.ops.kernels import build\n"
