@@ -62,7 +62,8 @@ Phases, in order; any failure exits non-zero:
    512 with ragged and misaligned rows, K2 at norms below 2^-100; then
    timed by CUDA events (K2's device time beside it), K2 and K3 each beside
    its probes and beside cuBLAS's bf16 product of the same shape (a
-   yardstick only).
+   yardstick only); K2 on float32 rows (``gdn_train_fwd_f32``, the bf16
+   mode's GDN after a batch norm) timed at (16 x 128^2, 128).
 5. Training end to end: the flagship's RateMSE train step (lambda 0.01,
    encoder, decoder and fact_ent trainable, Adam at lr 1e-4; the
    configuration of ``scripts/bench_train.py``), from the flagship
@@ -158,8 +159,30 @@ Phases, in order; any failure exits non-zero:
    counted and bit-equal.  The
    ms per sub-step and peak memory of (b) and (c) are printed beside
    phase 8's RateMSE step.
-10. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
-   runs of phases 3, 5, 8 (a) and 9), then the last line
+10. The remaining architecture options at the flagship's widths (128 /
+   48, 3 levels, GDN): R (residual units, ``-res``) and B (batch norm and
+   dropout 0.1, ``-bn -do 0.1``), each from the flagship's trained layers
+   (R's residual branches from seed 0 at a hundredth of their scale, B's
+   batch norms set to the identity on the flagship's features of the val
+   slide); (a) the train CLI on phase 8's slides, batch 16 x 256^2, 3
+   steps and 1 validation, float32 and bf16: launches exact (R: 8 GDN
+   kernels a step and a validation batch; B: 4, and its bf16 step runs K2
+   on float32 rows, its bf16 validation K1 on float32 rows), losses against the plain versions' run (1e-5 / 2e-2, floored
+   elements left out), every step-1 gradient finite and non-zero (batch
+   norms' scale and bias included), B's running statistics moved by step 1
+   and equal to the plain run's, the same dropout masks in both runs; (b)
+   each float32 ``last_`` (loaded in train mode) through ``CAETurboCore``
+   on phase 3's 16 tiles in float32 and bf16: launches exact, symbols
+   lossless, two decodes bit-equal, the plain versions within phase 3's
+   tolerances; (c) R's bare step with and without remat, float32 and
+   bf16, cuDNN deterministic for the comparison: loss within 1e-6, every
+   parameter within 1e-5, the recompute's launches, peak memory of both;
+   (d) a grouped GDN model (3 / 3 / 3, seed 0) through the 'cae' core's
+   device encode and decode, K1 at C = 3 on 16 x 256^2 rows, against the
+   plain versions.  The ms per step and peak memory of (a) are printed
+   beside phase 8's RateMSE step.
+11. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3, 5, 8 (a), 9 and 10), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
@@ -236,6 +259,7 @@ REPLACES = {
     "gdn_fwd": "cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:71",
     "gdn_fwd_bf16": "cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:71",
     "gdn_train_fwd": "cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:230",
+    "gdn_train_fwd_f32": "cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:230",
     "gdn_train_bwd": "cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:279",
     "conv_gdn_fwd": "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
     "conv_gdn_train_fwd":
@@ -248,6 +272,7 @@ SOURCES = {
     "gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn_tc.cu",
     "gdn_fwd_bf16": "cnn_autoencoder_tpu_torch/csrc/gdn_fwd_bf16_tc.cu",
     "gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn_fwd_bf16_tc.cu",
+    "gdn_train_fwd_f32": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
     "gdn_train_bwd": "cnn_autoencoder_tpu_torch/csrc/gdn_bf16_tc.cu",
     "conv_gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
     "conv_gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
@@ -1618,7 +1643,8 @@ def check_gdn_fwd_case(torch, x, gamma, beta, inverse, label):
     bf16 ulp, r to one bf16 ulp.  Returns (max abs error of y, r)."""
     from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
     bf16 = x.dtype == torch.bfloat16
-    y, rb = gk.gdn_train_fwd_cuda(x, gamma, beta, inverse)
+    fwd = gk.gdn_train_fwd_cuda if bf16 else gk.gdn_train_fwd_f32_cuda
+    y, rb = fwd(x, gamma, beta, inverse)
     y_p, rb_p = gk.gdn_train_fwd_plain(x, gamma, beta, inverse)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(y.float()).all()), f"{label}: y not finite")
@@ -1955,6 +1981,27 @@ def phase_train_kernels(torch, model):
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c])
         k3_yardsticks(torch, gb, xb, rb, gamma0, ms, bms, mm_ms)
         del xb, gb, rb
+        # K2 on float32 rows (a GDN after a batch norm in the bf16 mode):
+        # the CUDA-core kernel of csrc/gdn.cu with its full-float32 pool,
+        # at the batch-norm model's down_0 shape
+        x32r = torch.from_numpy(rng.randn(n, c).astype(np.float32) * 0.5) \
+            .cuda()
+        ms = cuda_ms(torch, lambda: gk.gdn_train_fwd_f32_cuda(
+            x32r, gamma0, beta0), 20)
+        plain_ms = cuda_ms(torch, lambda: gk.gdn_train_fwd_plain(
+            x32r, gamma0, beta0), 10)
+        # the pool as K1's float32 bound takes it (three TF32 passes, the
+        # card's rate for a float32 product), the rest in float32; the
+        # kernel's own CUDA-core float32 ceiling goes to the log
+        bms, by = bound_ms(10 * nc + 4 * c * (c + 1),
+                           [(3 * 2 * nc * c, PEAK_TF32_S),
+                            (5 * nc, PEAK_F32_S)])
+        log(f"gdn_train_fwd_f32 {(n, c)}: the CUDA-core design's float32 "
+            f"ceiling {nc * (2 * c + 5) / PEAK_F32_S * 1e3:.4f} ms")
+        out["gdn_train_fwd_f32"] = dict(
+            max_abs_err=errs[(n, False, torch.float32)][0], ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c])
+        del x32r
 
         for dt, name in ((torch.bfloat16, "bf16"),
                          (torch.float32, "float32")):
@@ -1973,9 +2020,10 @@ def phase_train_kernels(torch, model):
                 max_abs_err=conv_err[dt], ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, shape=list(xt.shape))
         del x32
-    for name in ("gdn_train_fwd", "gdn_train_bwd"):
+    for name in ("gdn_train_fwd", "gdn_train_bwd", "gdn_train_fwd_f32"):
         rec = out[name]
-        log(f"{name} {rec['shape']} bf16: kernel {rec['ms']:.4f} ms, plain "
+        kind = "float32" if name.endswith("f32") else "bf16"
+        log(f"{name} {rec['shape']} {kind}: kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), {100 * rec['bound_ms'] / rec['ms']:.1f}% "
             "of it")
@@ -2004,6 +2052,7 @@ def plain_versions():
     swaps = [(gk, "gdn_cuda", gk.gdn_plain),
              (gk, "gdn_bf16_cuda", gk.gdn_plain),
              (gk, "gdn_train_fwd_cuda", gk.gdn_train_fwd_plain),
+             (gk, "gdn_train_fwd_f32_cuda", gk.gdn_train_fwd_plain),
              (gk, "gdn_train_bwd_cuda", gk.gdn_train_bwd_plain),
              (cg, "conv_gdn_cuda", cg.conv_gdn_plain),
              (cg, "conv_gdn_train_cuda", cg.conv_gdn_train_plain)]
@@ -2941,7 +2990,8 @@ def recorded_steps(torch, cli, rec=None):
     """Record each train step's loss and its time (host clock around the
     step and a synchronize) while ``cli.main`` runs; into ``rec`` (a dict)
     also each step's number (sub-steps of one batch share it) and energy,
-    and the first step's gradients."""
+    and the first step's gradients and the model's buffers (batch norms'
+    running statistics) after it."""
     make_step = cli.make_train_step
     losses, times = [], []
 
@@ -2958,6 +3008,8 @@ def recorded_steps(torch, cli, rec=None):
                 rec["grads"] = {m: {n: g.detach().clone()
                                     for n, g in gs.items()}
                                 for m, gs in out[1].items()}
+                rec["buffers"] = {n: b.detach().clone()
+                                  for n, b in a[0].named_buffers()}
             if rec is not None:
                 rec.setdefault("steps", []).append(int(sa[2]))
                 energy = out[0].get("energy")
@@ -3461,7 +3513,7 @@ def multiscale_flagship(torch, work, val_img):
             conv.weight[:, :, 1, 1] = w.T.float()
     path = os.path.join(work, "multiscale.msgpack")
     save_checkpoint(path, {**model.config,
-                           **state_to_jax(model.state_dict())})
+                           **state_to_jax(model.state_dict(), model.config)})
     return path
 
 
@@ -3619,6 +3671,442 @@ def phase_energy_multiscale(torch, model, core, cli_ms):
     return totals
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+# the flagship's widths with the remaining architecture options: R, residual
+# GDN units; B, plain GDN units with batch norm and dropout 0.1
+ARCH_OPTIONS = {"R": {"use_residual": True},
+                "B": {"batch_norm": True, "dropout": 0.1}}
+ARCH_FLAGS = {"R": ["-res"], "B": ["-bn", "-do", "0.1"]}
+# -s 2 with -cs 5: 3 steps and one validation, when the run stops
+ARCH_STEPS, ARCH_VALIDATIONS = 3, 1
+ARCH_RUN_FLAGS = ["-cs", "5"]
+# launches per train step and per eval pass (a validation batch, or a
+# serving round trip's encoder and decoder), by model and mode: R's eight
+# GDN layers (gdn_res and gdn_down / gdn_up in the first two units of each
+# track), B's four, none fused (residual units, batch norm); B's GDN layers
+# take float32 rows from their batch norms, so its bf16 step runs K2 on
+# float32 rows and its bf16 eval K1 on float32 rows
+ARCH_STEP_LAUNCHES = {
+    ("R", "float32"): {"gdn_fwd": 8},
+    ("R", "bf16"): {"gdn_train_fwd": 8, "gdn_train_bwd": 8},
+    ("B", "float32"): {"gdn_fwd": 4},
+    ("B", "bf16"): {"gdn_train_fwd_f32": 4, "gdn_train_bwd": 4}}
+ARCH_EVAL_LAUNCHES = {
+    ("R", "float32"): {"gdn_fwd": 8}, ("R", "bf16"): {"gdn_fwd_bf16": 8},
+    ("B", "float32"): {"gdn_fwd": 4}, ("B", "bf16"): {"gdn_fwd": 4}}
+# R's step with remat: the encoder's and decoder's forwards run again in
+# the backward, so every forward GDN kernel launches twice
+REMAT_LAUNCHES = {"float32": {"gdn_fwd": 16},
+                  "bf16": {"gdn_train_fwd": 16, "gdn_train_bwd": 8}}
+REMAT_TIMED = 5     # steps timed after the compared one, with and without
+# the grouped model the JAX package builds (channels_org a multiple of
+# channels_net): 3 / 3 / 3, each convolution in as many groups as inputs
+GROUPED = dict(channels_org=3, channels_net=3, channels_bn=3,
+               compression_level=3, K=4, r=3, act_layer_type="GDN",
+               groups=True)
+
+
+def arch_checkpoint(torch, kind, path, val_img):
+    """R or B at the flagship's widths, saved as a msgpack checkpoint: the
+    flagship's trained layers (every conv, deconv and GDN of its units and
+    the bottleneck, under the same names), so that the latents stay inside
+    the flagship's tables; R's residual branches drawn from seed 0 at a
+    hundredth of their initial scale; B's batch norms made the identity on
+    the flagship's features of the val slide's 16 patches: running mean and
+    bias their inputs' mean, running var their variance and scale
+    sqrt(var + eps) (from flax's initial values, where a train-mode batch
+    norm would rescale every feature of the trained model to unit
+    variance)."""
+    from cnn_autoencoder_tpu_torch.models.factory import build_model
+    from cnn_autoencoder_tpu_torch.ops.batchnorm import EPSILON, BatchNorm
+    from cnn_autoencoder_tpu_torch.training.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from cnn_autoencoder_tpu_torch.utils.weights import state_from_jax
+    state = load_checkpoint(CHECKPOINT)
+    config = {k: v for k, v in state.items() if not isinstance(v, dict)}
+    flagship = state_from_jax(state, config)
+    config.update(ARCH_OPTIONS[kind])
+    model = build_model(config, torch.Generator().manual_seed(0),
+                        device="cuda")
+    p, n = CLI_PATCH, val_img.shape[0] // CLI_PATCH
+    x = torch.from_numpy(np.stack([
+        val_img[i * p:(i + 1) * p, j * p:(j + 1) * p]
+        for i in range(n) for j in range(n)]).astype(np.float32) / 255.0)
+    seen = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.setdefault(mod, args[0].float()))
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name in flagship:
+                t.copy_(flagship[name])
+            elif ".res_" in name and name.endswith(".weight"):
+                t.mul_(0.01)
+        model.decoder(model.encoder(x.cuda()))
+        for mod, inp in seen.items():
+            mean = inp.mean((0, 1, 2))
+            var = inp.var((0, 1, 2), correction=0)
+            mod.mean.copy_(mean)
+            mod.bias.copy_(mean)
+            mod.var.copy_(var)
+            mod.scale.copy_(torch.sqrt(var + EPSILON))
+    for h in hooks:
+        h.remove()
+    check(len(seen) == (6 if kind == "B" else 0),
+          f"{kind}: {len(seen)} batch norms calibrated")
+    save_checkpoint(path, model)
+    return path
+
+
+@contextlib.contextmanager
+def drawn_masks(rec):
+    """Keep every dropout keep-mask a run draws (``Dropout.draw``) in
+    ``rec["masks"]``, in draw order."""
+    from cnn_autoencoder_tpu_torch.ops import dropout
+    draw = dropout.Dropout.draw
+
+    def recording(self, *a, **k):
+        mask = draw(self, *a, **k)
+        rec.setdefault("masks", []).append(mask.clone())
+        return mask
+
+    dropout.Dropout.draw = recording
+    try:
+        yield
+    finally:
+        dropout.Dropout.draw = draw
+
+
+def arch_expected(kind, mode, steps, evals):
+    want = {}
+    for table, n in ((ARCH_STEP_LAUNCHES, steps), (ARCH_EVAL_LAUNCHES,
+                                                    evals)):
+        for name, k in table[(kind, mode)].items():
+            want[name] = want.get(name, 0) + k * n
+    return want
+
+
+def arch_train(torch, work, kind, mode, chk):
+    """(a) One counted run of the train CLI on ``kind`` in ``mode`` and the
+    same run through the plain versions: launches exact, losses within
+    phase 8's limits (elements at the likelihood floor left out), every
+    step-1 gradient finite and non-zero, B's running statistics moved by
+    step 1 and equal to the plain run's, the same dropout masks in both
+    runs.  Returns (launches, log dir, ms per step, peak GiB)."""
+    rtol = 1e-5 if mode == "float32" else 2e-2
+    label = f"{kind}_{mode}"
+    flags = ARCH_FLAGS[kind] + ARCH_RUN_FLAGS + ["-chk", chk]
+    rec, plain_rec = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with step_likelihoods(rec), drawn_masks(rec):
+        log_dir, losses, times, launches, _ = cli_run(
+            torch, work, mode, label, ARCH_STEPS - 1, flags, rec)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = arch_expected(kind, mode, ARCH_STEPS,
+                         ARCH_VALIDATIONS * VAL_BATCHES)
+    log(f"{label}: launches {launches}")
+    check(len(losses) == ARCH_STEPS, f"{label}: {len(losses)} steps")
+    check(launches == {k: want.get(k, 0) for k in launches},
+          f"{label}: launches {launches}, expected {want}")
+    with plain_versions(), step_likelihoods(plain_rec), \
+            drawn_masks(plain_rec):
+        _, plain, _, _, _ = cli_run(torch, work, mode, label + "_plain",
+                                    ARCH_STEPS - 1, flags, plain_rec)
+    got, ref, floored = off_floor_losses(torch, losses, rec, plain,
+                                         plain_rec)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    check(len(plain) == len(losses) and rel <= rtol,
+          f"{label}: losses {got} against the plain versions' {ref}, "
+          f"{floored} floored elements left out (max relative {rel:.3e} > "
+          f"{rtol})")
+    n_grads = 0
+    for module, gs in rec["grads"].items():
+        for name, g in gs.items():
+            check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+                  f"{label} step 1: the gradient of {module}.{name} is zero "
+                  "or not finite")
+            n_grads += 1
+    masks = rec.get("masks", [])
+    check(len(masks) == len(plain_rec.get("masks", [])) and all(
+        torch.equal(a, b) for a, b in zip(masks, plain_rec.get("masks", []))),
+        f"{label}: dropout masks differ from the plain versions' run")
+    stats_note = ""
+    if kind == "B":
+        check(len(masks) == 6 * ARCH_STEPS and not all(
+            bool(m.all()) for m in masks), f"{label}: {len(masks)} masks")
+        moved, worst = 0, 0.0
+        for name, b in rec["buffers"].items():
+            start = 0.0 if name.endswith(".mean") else 1.0
+            moved += int(bool((b != start).any()))
+            p = plain_rec["buffers"][name]
+            worst = max(worst, float((b - p).abs().max()
+                                     / p.abs().max().clamp_min(1e-30)))
+        check(moved == len(rec["buffers"]), f"{label}: {moved} of "
+              f"{len(rec['buffers'])} running statistics moved at step 1")
+        check(worst <= max(rtol, 1e-4), f"{label}: running statistics "
+              f"after step 1 {worst:.3e} from the plain run's")
+        stats_note = (f"; all {moved} running statistics moved at step 1, "
+                      f"within {worst:.3e} (relative to each one's max) of "
+                      f"the plain run's; {len(masks)} dropout masks, the "
+                      "same in both runs")
+    del rec["p_y"], plain_rec["p_y"]
+    ms = float(np.mean(times[1:])) * 1e3
+    log(f"{label} [{CARD}]: {ARCH_STEPS} steps of {CLI_BATCH} x "
+        f"{CLI_PATCH}^2, {ARCH_VALIDATIONS} validation; losses {losses}; "
+        f"plain versions {plain}, max relative {rel:.3e} (limit {rtol}) "
+        f"without {floored} floored elements; all {n_grads} step-1 "
+        f"gradients finite and non-zero{stats_note}; {ms:.3f} ms per step "
+        f"after the first, {CLI_BATCH / ms * 1e3:.2f} images/s; peak memory "
+        f"{peak:.2f} GiB")
+    return launches, log_dir, ms, peak
+
+
+def arch_serve(torch, kind, last, imgs):
+    """(b) ``last`` through ``CAETurboCore`` on phase 3's tiles in float32
+    and bf16: launches exact, symbols lossless, two decodes bit-equal, the
+    plain versions within phase 3's tolerances.  Returns the launches."""
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import (
+        CAETurboCore, is_turbo_frame)
+    model = autoencoder_from_state_dict(last, device="cuda").train()
+    totals = {}
+    for mode, dtype in (("float32", torch.float32),
+                        ("bf16", torch.bfloat16)):
+        label = f"{kind} serving ({mode})"
+        core = CAETurboCore(model, num_streams=1024, device="cuda",
+                            compute_dtype=dtype)
+        core.decode_tiles(core.encode_tiles(imgs))      # warm-up
+        torch.cuda.synchronize()
+        retries = core.capacity_retries
+        reset_launch_counts()
+        frames = core.encode_tiles(imgs)
+        rec = core.decode_tiles(frames)
+        torch.cuda.synchronize()
+        launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+        retries = core.capacity_retries - retries
+        want = arch_expected(kind, mode, 0, 1)
+        want.update(rans_encode_states=1, rans_compact=1 + retries,
+                    rans_decode=1)
+        check(launches == {k: want.get(k, 0) for k in launches},
+              f"{label}: launches {launches}, expected {want}")
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        check(len(frames) == len(imgs) and all(map(is_turbo_frame, frames)),
+              f"{label}: not every frame is a turbo frame")
+        with torch.no_grad():
+            sym = core.latent_symbols(imgs)
+            check(torch.equal(sym, core.symbols_from_frames(
+                frames, core.num_streams, 512, 512)),
+                f"{label}: decoded symbols differ from the encoded ones")
+        check(np.array_equal(rec, core.decode_tiles(frames)),
+              f"{label}: two decodes differ")
+        with torch.no_grad(), plain_versions():
+            sym_p = core.latent_symbols(imgs)
+            rec_p = core.base.decode_tiles_device(sym).cpu().numpy()
+        flips = float((sym_p != sym).float().mean())
+        diff = np.abs(rec_p.astype(np.int32) - rec)
+        frac = float(np.mean(diff != 0))
+        check(flips <= 1e-4 and frac < 5e-3 and int(diff.max()) <= 1,
+              f"{label}: plain versions: symbol flips {flips:.3e}, u8 "
+              f"pixels differing {frac:.3e} by up to {int(diff.max())}")
+        db = psnr_db(rec, imgs)
+        bpp = 8.0 * sum(len(f) for f in frames) / (len(imgs) * 512 * 512)
+        log(f"{label} [{CARD}]: {len(imgs)} tiles of 512^2 from a "
+            f"train-mode model, launches {launches}, all turbo frames, "
+            f"symbols lossless, two decodes bit-equal; PSNR {db:.3f} dB, "
+            f"{bpp:.4f} bpp; plain versions: symbol flips {flips:.3e}, u8 "
+            f"pixels differing {frac:.3e} (max {int(diff.max())})")
+        del core
+    return totals
+
+
+def remat_steps(torch, chk):
+    """(c) R's bare train step with and without remat from the same state,
+    batch and generator seed, float32 and bf16, cuDNN's deterministic
+    switch on for the comparison: one step each, loss within 1e-6 relative
+    and every parameter within 1e-5 (the JAX package's remat test), the
+    step-1 gradients compared, the recompute's launches counted, the peak
+    memory of both; then the device time by operation of one more step
+    without remat, and the mean time of 5 more steps of each.  Returns
+    the launches of the remat steps."""
+    from cnn_autoencoder_tpu_torch.criteria.loss import setup_loss
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.training.loop import make_train_step
+    from cnn_autoencoder_tpu_torch.training.optim import setup_optimizers
+    x = synthetic_batch(torch)
+    trainable = ["encoder", "decoder", "fact_ent"]
+    totals = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode, dtype in (("float32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            runs = {}
+            for remat in (False, True):
+                model = autoencoder_from_state_dict(chk, device="cuda")
+                opt = setup_optimizers(model, trainable)
+                step = make_train_step(
+                    model, setup_loss("RateMSE", distortion_lambda=0.01),
+                    opt, trainable_modules=trainable, compute_dtype=dtype,
+                    remat=remat)
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                stats, grads = step(x, {k: TRAIN_LR for k in opt}, 1,
+                                    generator=gen)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                launches = {fn.kernel_name: fn.launches
+                            for fn in kernel_wrappers()}
+                want = (REMAT_LAUNCHES[mode] if remat
+                        else ARCH_STEP_LAUNCHES[("R", mode)])
+                check(launches == {k: want.get(k, 0) for k in launches},
+                      f"R {mode} remat={remat}: launches {launches}, "
+                      f"expected {want}")
+                if remat:
+                    for name, n in launches.items():
+                        totals[name] = totals.get(name, 0) + n
+                runs[remat] = (float(stats["loss"]), peak, {
+                    k: v.detach().clone()
+                    for k, v in model.named_parameters()}, {
+                    f"{m}.{n}": g.detach().clone()
+                    for m, gs in grads.items() for n, g in gs.items()})
+                lrs = {k: TRAIN_LR for k in opt}
+                if not remat:
+                    # where the step's device time goes (cuDNN's algorithms
+                    # for the residual branches' stride-1 convs)
+                    profile_device(torch, lambda: step(x, lrs, 2,
+                                                       generator=gen),
+                                   f"one more R {mode} step")
+                t0 = time.perf_counter()
+                for i in range(3, 3 + REMAT_TIMED):
+                    step(x, lrs, i, generator=gen)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) / REMAT_TIMED * 1e3
+                runs[remat] += (step_ms,)
+                del model, opt, step, grads
+            (l0, p0, w0, g0, ms0), (l1, p1, w1, g1, ms1) = (runs[False],
+                                                            runs[True])
+            beyond = {k: float(((w1[k] - w0[k]).abs()
+                                - 1e-5 * w0[k].abs()).max()) for k in w0}
+            worst = max(beyond, key=beyond.get)
+            same = sum(int(torch.equal(g1[k], g0[k])) for k in g0)
+            g_rel = {k: float((g1[k] - g0[k]).abs().max()
+                              / g0[k].abs().max().clamp_min(1e-30))
+                     for k in g0}
+            g_worst = max(g_rel, key=g_rel.get)
+            grad_note = (f"step-1 gradients bit-equal in {same} of "
+                         f"{len(g0)} parameters, the largest difference "
+                         f"{g_rel[g_worst]:.3e} of its max ({g_worst})")
+            check(abs(l1 - l0) <= 1e-6 * abs(l0) and beyond[worst] <= 1e-7,
+                  f"R {mode}: remat loss {l1} against {l0}, {worst} beyond "
+                  f"1e-5 relative by {beyond[worst]:.3e}; {grad_note}")
+            log(f"R remat {mode} [{CARD}]: one step of {TRAIN_BATCH} x "
+                f"{TRAIN_PATCH}^2, loss {l1} against {l0} without remat "
+                f"(relative {abs(l1 - l0) / abs(l0):.3e}), every parameter "
+                f"within 1e-5 relative; {grad_note}; launches "
+                f"{REMAT_LAUNCHES[mode]} "
+                f"against {ARCH_STEP_LAUNCHES[('R', mode)]}; peak memory "
+                f"{p1:.3f} GiB with remat, {p0:.3f} GiB without "
+                f"({100 * (1 - p1 / p0):.1f} % less); {ms1:.3f} ms a step "
+                f"with remat, {ms0:.3f} ms without (mean of "
+                f"{REMAT_TIMED} more steps, host clock and a synchronize)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return totals
+
+
+def grouped_round_trip(torch, imgs):
+    """(d) A grouped GDN model (3 / 3 / 3, from seed 0) through the 'cae'
+    core's device encode and decode of the 16 tiles: K1 four times at
+    C = 3 (two GDN layers a track; K4 does not take groups), against the
+    plain versions within phase 3's tolerances.  Returns the launches."""
+    from cnn_autoencoder_tpu_torch.models.factory import build_model
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.storage.cae_codec import CAECodecCore
+    model = build_model(GROUPED, torch.Generator().manual_seed(0),
+                        device="cuda")
+    core = CAECodecCore(model, device="cuda")
+    with torch.no_grad():
+        core.decode_tiles_device(core.latent_symbols(imgs))     # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        sym = core.latent_symbols(imgs)
+        rec = core.decode_tiles_device(sym).cpu().numpy()
+        launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+        check(launches == {k: 4 if k == "gdn_fwd" else 0 for k in launches},
+              f"grouped round trip: launches {launches}")
+        with plain_versions():
+            sym_p = core.latent_symbols(imgs)
+            rec_p = core.decode_tiles_device(sym).cpu().numpy()
+    flips = float((sym_p != sym).float().mean())
+    diff = np.abs(rec_p.astype(np.int32) - rec)
+    frac = float(np.mean(diff != 0))
+    check(flips <= 1e-4 and frac < 5e-3 and int(diff.max()) <= 1,
+          f"grouped round trip: plain versions: symbol flips {flips:.3e}, "
+          f"u8 pixels differing {frac:.3e} by up to {int(diff.max())}")
+    log(f"grouped 3/3/3 round trip [{CARD}]: {len(imgs)} tiles of 512^2, "
+        f"launches {launches} (K1 at C = 3 on {len(imgs) * 256 * 256} "
+        f"rows); plain versions: symbol flips {flips:.3e}, u8 pixels "
+        f"differing {frac:.3e} (max {int(diff.max())}); PSNR "
+        f"{psnr_db(rec, imgs):.3f} dB (random weights)")
+    return launches
+
+
+def phase_arch_options(torch, cli_ms):
+    """Phase 10: residual units, batch norm with dropout, remat and
+    grouped convolutions at the flagship's width on the card; returns the
+    launches of the counted runs."""
+    import shutil
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase10")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    totals = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+
+    try:
+        val_img = write_cli_slides(work)
+        imgs = np.stack([image(512, 512, seed) for seed in range(TILES)])
+        lines = []
+        for kind in ("R", "B"):
+            chk = arch_checkpoint(torch, kind,
+                                  os.path.join(work, f"{kind}.msgpack"),
+                                  val_img)
+            for mode in ("float32", "bf16"):
+                launches, log_dir, ms, peak = arch_train(torch, work, kind,
+                                                         mode, chk)
+                add(launches)
+                lines.append(f"{kind} {mode} {ms:.3f} ms ({peak:.2f} GiB)")
+                if mode == "float32":
+                    last = cli_checkpoints(log_dir)["last"]
+            add(arch_serve(torch, kind, last, imgs))
+            if kind == "R":
+                add(remat_steps(torch, chk))
+        log(f"phase 10 train steps [{CARD}], batch {CLI_BATCH} x "
+            f"{CLI_PATCH}^2, ms per step (peak memory): " + "; ".join(lines)
+            + f"; phase 8's RateMSE step {cli_ms['float32']:.3f} / "
+            f"{cli_ms['bf16']:.3f} ms float32 / bf16")
+        add(grouped_round_trip(torch, imgs))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"architecture options phase: {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3644,8 +4132,6 @@ def main():
     train_launches, step_ms = phase_training(torch)
     for name, n in train_launches.items():
         launches[name] += n
-    check(all(launches[name] > 0 for name in records),
-          f"a kernel was not launched on the main paths: {launches}")
     phase_codecs(torch, model, core, core16)
     phase_slide(torch, core, core16)
     cli_launches, cli_ms = phase_train_cli(torch, step_ms)
@@ -3653,6 +4139,10 @@ def main():
         launches[name] += n
     for name, n in phase_energy_multiscale(torch, model, core, cli_ms).items():
         launches[name] += n
+    for name, n in phase_arch_options(torch, cli_ms).items():
+        launches[name] += n
+    check(all(launches[name] > 0 for name in records),
+          f"a kernel was not launched on the main paths: {launches}")
 
     kernels = []
     for name, rec in records.items():

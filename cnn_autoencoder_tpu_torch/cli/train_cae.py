@@ -14,8 +14,11 @@ scheduler state under ``--resume-optimizers``.  Checkpoints are the JAX
 package's files and load in either package.
 
 The compute type is ``ops/convops.py``'s default precision ("highest":
-float32, "bf16": bf16 activations); the bottleneck's training noise comes
-from one ``torch.Generator`` on the device, seeded from ``-rs``.
+float32, "bf16": bf16 activations); the dropout masks and the bottleneck's
+training noise come from one ``torch.Generator`` on the device, seeded from
+``-rs``.  The architecture flags (``-res``, ``-bn``, ``-do``, ``-act``, the
+widths) reach the model; ``last_`` and ``best_`` checkpoints carry a
+batch-norm model's running statistics (``batch_stats``).
 
 Left out: the JAX CLI's mesh and multi-host branches (``ROADMAP.md`` §1 item
 10).
@@ -278,7 +281,7 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
                 scheduler_states = {k: s.state_dict()
                                     for k, s in schedulers.items()}
                 best_valid_loss = loggers.checkpoint(
-                    step, state_to_jax(model.state_dict()),
+                    step, state_to_jax(model.state_dict(), model.config),
                     {k: optimizer_state_dict(s, model)
                      for k, s in optimizers.items()},
                     scheduler_states, best_valid_loss, train_loss_history,

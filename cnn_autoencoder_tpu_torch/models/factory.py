@@ -18,15 +18,15 @@ from ..utils.weights import state_from_jax
 from .autoencoder import Analyzer, Synthesizer
 from .entropy import FactorizedEntropyBottleneck
 
-# options of the JAX package that this slice does not port yet
-_NOT_PORTED = ("batch_norm", "use_residual", "groups", "class_model_type",
-               "seg_model_type")
+# options of the JAX package that the port does not have yet (the heads)
+_NOT_PORTED = ("class_model_type", "seg_model_type")
 
 
 def _net_kwargs(config: Dict[str, Any]) -> Dict[str, Any]:
     keys = ("channels_org", "channels_net", "channels_bn",
             "compression_level", "channels_expansion", "kernel_size",
-            "act_layer_type")
+            "act_layer_type", "use_residual", "groups", "batch_norm",
+            "dropout")
     out = {k: config[k] for k in keys if config.get(k) is not None}
     if config.get("bias") is not None:
         out["use_bias"] = bool(config["bias"])
@@ -42,8 +42,6 @@ class CAEModel(nn.Module):
             if config.get(key):
                 raise ValueError(f"model option {key}={config[key]!r} is "
                                  "not ported yet")
-        if float(config.get("dropout") or 0.0) > 0.0:
-            raise ValueError("dropout is not ported yet")
         self.config = dict(config)
         net = _net_kwargs(config)
         net.setdefault("channels_bn", 192)
@@ -73,7 +71,8 @@ def build_model(config: Dict[str, Any], generator=None,
                 device=None) -> CAEModel:
     """A fresh CAE with the JAX package's initialisers: convs and deconvs
     xavier-uniform with gain sqrt(2/1.01) and bias 0.01, GDN beta 1 and
-    gamma 0.1 I, the bottleneck's constant matrices, U(-0.5, 0.5) biases and
+    gamma 0.1 I, batch norms' scale 1, bias 0, mean 0 and var 1 (flax's),
+    the bottleneck's constant matrices, U(-0.5, 0.5) biases and
     (-10, 0, 10) quantiles.  Every draw comes from ``generator`` (a CPU
     ``torch.Generator``; None: torch's default), module by module in
     registration order.  The JAX package draws other bits from the same
@@ -94,7 +93,8 @@ def autoencoder_from_state_dict(checkpoint, device=None) -> CAEModel:
     multiscale model built from a checkpoint without them (training a
     multiscale criterion from a single-scale model) initialises them from
     seed 0, as the JAX package fills what a checkpoint lacks from its
-    init.  A config that does not say ``multiscale_analysis`` takes it from
+    init.  A batch-norm model's running statistics come from the
+    checkpoint's ``batch_stats``.  A config that does not say ``multiscale_analysis`` takes it from
     the decoder's weights: the train CLI's checkpoints record the
     criterion, not the flag (the JAX package drops their color layers on
     load); one that says False drops them, as the JAX package does.  The

@@ -14,7 +14,17 @@ float32 weights rounded to bf16) with float32 accumulation and store the
 output as bf16, and autograd then carries bf16 cotangents and float32
 weight gradients, the rule of ``conv_mixed`` (``ops/convops.py:105-164``
 there).  Serving picks the activations' type with ``set_default_precision``
-(below); training passes its ``compute_dtype`` and ignores it.
+(below); training passes its ``compute_dtype`` and ignores it.  A layer's
+``compute_dtype`` argument names the mode where it can differ from the
+input's type: float32 rows in the bf16 mode (after a batch norm, whose
+output is float32 as flax's) take ``conv_mixed``'s rule for float32 inputs
+(``_ConvMixed``): bf16-rounded operands, float32 sums and output, and a
+backward that rounds the cotangent to bf16 first.
+
+Both layers take ``groups`` (the JAX package's ``feature_group_count``):
+``Conv2dReflect`` as a grouped cuDNN forward convolution, and
+``ConvTranspose2dTorch`` in the dilated form with a grouped forward
+convolution, which sums in a fixed order as the polyphase form does.
 
 Transposed convolutions add in a fixed order on every device, so a decode
 is bit-reproducible on the card (cuDNN's default algorithms for them add
@@ -99,7 +109,9 @@ def xavier_uniform_torchlike_(weight: torch.Tensor, fan_in: int,
 
 def _init_conv(weight: torch.Tensor, bias, cin: int, cout: int,
                generator=None) -> None:
-    # the reference's init: xavier-uniform with gain sqrt(2/1.01), bias 0.01
+    # the reference's init: xavier-uniform with gain sqrt(2/1.01), bias 0.01;
+    # a grouped layer's fans as the JAX package counts them on its
+    # (k, k, cin / groups, cout) kernel
     k2 = weight.shape[2] * weight.shape[3]
     xavier_uniform_torchlike_(weight, cin * k2, cout * k2,
                               generator=generator)
@@ -108,10 +120,95 @@ def _init_conv(weight: torch.Tensor, bias, cin: int, cout: int,
             bias.fill_(0.01)
 
 
+def _check_groups(channels_in: int, channels_out: int, groups: int) -> None:
+    # the JAX package's convolutions raise on the same widths
+    for n in (channels_in, channels_out):
+        if n % groups:
+            raise ValueError(f"{n} channels are not a multiple of "
+                             f"{groups} groups")
+
+
 def _conv_operands(x: torch.Tensor, weight: torch.Tensor, bias):
     """The weight and bias in x's compute type."""
     return (weight.to(x.dtype),
             None if bias is None else bias.to(x.dtype))
+
+
+def _mixed(x: torch.Tensor, compute_dtype) -> bool:
+    """Float32 rows in the bf16 mode (a batch norm's output)."""
+    return compute_dtype is not None and compute_dtype != x.dtype
+
+
+class _ConvMixed(torch.autograd.Function):
+    """The JAX package's ``conv_mixed`` on float32 rows in the bf16 mode,
+    NCHW views: x and the weight rounded to bf16, their products summed in
+    float32 to a float32 output.  The products are exact in TF32 too, so
+    this runs outside ``full_f32`` and cuDNN may take its tensor cores.
+    The backward rounds the cotangent to bf16 and transposes the bf16
+    convolution (dx and the weight's gradient from bf16 operands with
+    float32 sums, rounded to bf16 and widened, as ``conv_mixed``'s
+    ``raw_same``); the bias's gradient is summed in float32.  With
+    ``transposed`` it is the 3x3 stride-2 deconv of
+    ``_deconv2x_polyphase``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, groups, transposed):
+        xb, wb = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.geometry = (stride, groups, transposed)
+        ctx.has_bias = bias is not None
+        xw, ww = xb.to(x.dtype), wb.to(x.dtype)
+        if transposed:
+            return _deconv2x_polyphase(xw.permute(0, 2, 3, 1), ww,
+                                       bias).permute(0, 3, 1, 2)
+        return F.conv2d(xw, ww, bias, stride=stride, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        stride, groups, transposed = ctx.geometry
+        p = 1 if transposed else 0
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            g.to(torch.bfloat16), xb, wb, None, [stride] * 2, [p, p],
+            [1, 1], transposed, [p, p], groups, [need_x, need_w, False])
+        db = g.sum((0, 2, 3)) if ctx.has_bias and need_b else None
+        return (None if dx is None else dx.to(g.dtype),
+                None if dw is None else dw.float(), db, None, None, None)
+
+
+class _ReflectPad(torch.autograd.Function):
+    """Reflect padding by ``p`` on H and W of an NCHW view: ``F.pad``'s
+    values, and a backward that folds the border's gradient back onto the
+    rows and columns it copies in a fixed order (the CUDA backward of
+    ``F.pad``'s reflect mode adds it with atomics, so a training step's
+    gradients would change from run to run)."""
+
+    @staticmethod
+    def forward(ctx, x, p):
+        ctx.p = p
+        ctx.fmt = (torch.channels_last
+                   if x.is_contiguous(memory_format=torch.channels_last)
+                   else torch.contiguous_format)
+        return F.pad(x, (p,) * 4, mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.p
+        h, w = g.shape[2] - 2 * p, g.shape[3] - 2 * p
+        cols = g[..., p:w + p].clone(memory_format=ctx.fmt)
+        cols[..., 1:p + 1] += g[..., :p].flip(3)
+        cols[..., w - p - 1:w - 1] += g[..., w + p:].flip(3)
+        dx = cols[:, :, p:h + p].clone(memory_format=ctx.fmt)
+        dx[:, :, 1:p + 1] += cols[:, :, :p].flip(2)
+        dx[:, :, h - p - 1:h - 1] += cols[:, :, h + p:].flip(2)
+        return dx, None
+
+
+def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """Reflect-pad H and W of an NCHW view by ``p``, with a backward that
+    sums in a fixed order."""
+    return _ReflectPad.apply(x, p)
 
 
 class Conv2dReflect(nn.Module):
@@ -119,13 +216,16 @@ class Conv2dReflect(nn.Module):
     ``padding_mode='reflect'``)."""
 
     def __init__(self, channels_in: int, channels_out: int,
-                 kernel_size: int = 3, stride: int = 1, bias: bool = False):
+                 kernel_size: int = 3, stride: int = 1, bias: bool = False,
+                 groups: int = 1):
         super().__init__()
         k = kernel_size
         self.stride = stride
         self.pad = k // 2
-        self.weight = nn.Parameter(torch.empty(channels_out, channels_in,
-                                               k, k))
+        _check_groups(channels_in, channels_out, groups)
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(channels_out,
+                                               channels_in // groups, k, k))
         self.bias = (nn.Parameter(torch.empty(channels_out)) if bias
                      else None)
         self.reset_parameters()
@@ -138,13 +238,18 @@ class Conv2dReflect(nn.Module):
         """The weight in the JAX package's HWIO layout (contiguous)."""
         return self.weight.permute(2, 3, 1, 0).contiguous()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
         if self.pad:
-            x = F.pad(x, (self.pad,) * 4, mode="reflect")
+            x = reflect_pad(x, self.pad)
+        if _mixed(x, compute_dtype):
+            y = _ConvMixed.apply(x, self.weight, self.bias, self.stride,
+                                 self.groups, False)
+            return y.permute(0, 2, 3, 1)
         weight, bias = _conv_operands(x, self.weight, self.bias)
         with full_f32():
-            y = F.conv2d(x, weight, bias, stride=self.stride)
+            y = F.conv2d(x, weight, bias, stride=self.stride,
+                         groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -263,11 +368,15 @@ def _deconv2x_phase_products(x, weight, bias):
 
 
 def _deconv_dilated(x: torch.Tensor, weight: torch.Tensor, bias, stride: int,
-                    padding: int, output_padding: int) -> torch.Tensor:
-    """Any geometry, NCHW view: x zero-dilated by ``stride``, padded by
-    (k-1-p, k-1-p+op), then a forward convolution with the flipped,
-    transposed weight."""
-    k = weight.shape[-1]
+                    padding: int, output_padding: int, groups: int = 1,
+                    mixed: bool = False) -> torch.Tensor:
+    """Any geometry and group count, NCHW view: x zero-dilated by
+    ``stride``, padded by (k-1-p, k-1-p+op), then a forward convolution
+    with the flipped weight, each group's (in, out) block transposed
+    (``_ConvMixed`` with ``mixed``)."""
+    cin, cout_g, k, _ = weight.shape
+    weight = (weight.view(groups, cin // groups, cout_g, k, k).transpose(1, 2)
+              .reshape(groups * cout_g, cin // groups, k, k))
     if stride > 1:
         b, c, h, w = x.shape
         dil = x.new_zeros(b, c, (h - 1) * stride + 1, (w - 1) * stride + 1)
@@ -275,39 +384,51 @@ def _deconv_dilated(x: torch.Tensor, weight: torch.Tensor, bias, stride: int,
         x = dil
     lo, hi = k - 1 - padding, k - 1 - padding + output_padding
     x = F.pad(x, (lo, hi, lo, hi))
+    if mixed:
+        return _ConvMixed.apply(x, weight.flip(2, 3), bias, 1, groups, False)
     with full_f32():
-        return F.conv2d(x, weight.flip(2, 3).transpose(0, 1), bias)
+        return F.conv2d(x, weight.flip(2, 3), bias, groups=groups)
 
 
 class ConvTranspose2dTorch(nn.Module):
     """torch ``ConvTranspose2d`` geometry: output size
     ``(in - 1) * s - 2p + k + output_padding``, summed in a fixed order
-    (the polyphase form for 3x3 / stride 2 / padding 1 / output padding 1,
-    the dilated form for any other)."""
+    (the polyphase form for 3x3 / stride 2 / padding 1 / output padding 1
+    without groups, the dilated form for any other).  The weight is
+    torch's (in, out / groups, kh, kw)."""
 
     def __init__(self, channels_in: int, channels_out: int,
                  kernel_size: int = 3, stride: int = 2, padding: int = 1,
-                 output_padding: int = 1, bias: bool = True):
+                 output_padding: int = 1, bias: bool = True,
+                 groups: int = 1):
         super().__init__()
         k = kernel_size
         self.stride = stride
         self.padding = padding
         self.output_padding = output_padding
-        self.weight = nn.Parameter(torch.empty(channels_in, channels_out,
-                                               k, k))
+        _check_groups(channels_in, channels_out, groups)
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(channels_in,
+                                               channels_out // groups, k, k))
         self.bias = (nn.Parameter(torch.empty(channels_out)) if bias
                      else None)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
-        cin, cout = self.weight.shape[:2]
-        _init_conv(self.weight, self.bias, cin, cout, generator)
+        cin, cout_g = self.weight.shape[:2]
+        _init_conv(self.weight, self.bias, cin // self.groups,
+                   cout_g * self.groups, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        mixed = _mixed(x, compute_dtype)
         weight, bias = _conv_operands(x, self.weight, self.bias)
-        if (weight.shape[-1], self.stride, self.padding,
-                self.output_padding) == (3, 2, 1, 1):
+        if (weight.shape[-1], self.stride, self.padding, self.output_padding,
+                self.groups) == (3, 2, 1, 1, 1):
+            if mixed:
+                return _ConvMixed.apply(x.permute(0, 3, 1, 2), weight, bias,
+                                        2, 1, True).permute(0, 2, 3, 1)
             return _Deconv2xPolyphase.apply(x, weight, bias)
         y = _deconv_dilated(x.permute(0, 3, 1, 2), weight, bias, self.stride,
-                            self.padding, self.output_padding)
+                            self.padding, self.output_padding, self.groups,
+                            mixed)
         return y.permute(0, 2, 3, 1)

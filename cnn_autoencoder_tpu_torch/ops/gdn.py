@@ -17,6 +17,12 @@ whether a gradient is wanted:
   backward), the JAX package's ``ops/gdn.py:gdn_mixed`` with the training
   kernels on: bf16 residuals, the pool at ``norm_pool_precision``,
   ``dgamma`` and ``dbeta`` as contractions over the kernel's bf16 ``dnb``.
+
+The JAX package chooses ``gdn_mixed`` by its compute mode, not by the rows'
+type, so in the bf16 mode a GDN after a batch norm (float32 rows) takes it
+too: the layer's ``compute_dtype`` argument carries the mode, and with it
+bf16 a GDN that wants a gradient runs ``gdn_mixed`` on float32 rows (K2 on
+float32 rows with its full-float32 pool, K3 with a float32 cotangent).
 """
 
 import torch
@@ -77,13 +83,13 @@ class GDN(nn.Module):
         return (nonneg_param(self.gamma, 0.0),
                 nonneg_param(self.beta, self.beta_min))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         gamma, beta = self.effective_params()
         c = x.shape[-1]
         rows = x.reshape(-1, c).contiguous()
         wants_grad = torch.is_grad_enabled() and (
             rows.requires_grad or gamma.requires_grad or beta.requires_grad)
-        if x.dtype == torch.bfloat16 and wants_grad:
+        if torch.bfloat16 in (x.dtype, compute_dtype) and wants_grad:
             out = gdn_mixed(rows, gamma, beta, self.inverse)
         else:
             out = fused_gdn(rows, gamma, beta, self.inverse)

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.device import full_f32
+from ..convops import reflect_pad
 from .build import check_launch, load_library, stream_handle
 from .gdn_kernel import gdn_plain
 
@@ -147,13 +148,14 @@ def _reflect_conv_grads(x, kernel, dy, need_x, need_kernel):
     (float32 NHWC), in x's compute type: for bf16 x the cotangent is
     rounded to bf16 and the kernel's gradient widened to float32 (the
     mixed-precision rule of the JAX package's ``conv_mixed``).  The pad's
-    own backward folds the reflected border into dx."""
+    own backward folds the reflected border into dx, in a fixed order
+    (``convops.reflect_pad``)."""
     cd = x.dtype
     w = kernel.detach().permute(3, 2, 0, 1).to(cd)
     d = dy.permute(0, 3, 1, 2).to(cd)
     with torch.enable_grad():
         xd = x.detach().requires_grad_(need_x)
-        xp = F.pad(xd.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+        xp = reflect_pad(xd.permute(0, 3, 1, 2), 1)
     dx = dkernel = None
     if need_x:
         dxp = torch.nn.grad.conv2d_input(xp.shape, w, d, stride=2)

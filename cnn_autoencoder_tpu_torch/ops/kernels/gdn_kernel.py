@@ -14,11 +14,14 @@ and their plain PyTorch versions.
   the card and ``gdn_plain`` on the CPU; the backward recomputes the plain
   GDN and differentiates it, as the JAX backward does (it has no kernel
   there either).
-* K2 ``gdn_train_fwd_cuda`` replaces ``_gdn_train_fwd_kernel``: ``y`` in the
-  rows' type and the backward residual ``r`` as bf16.  bf16 rows (the bf16
-  mode's path) take the pool on the bf16 tensor cores (one pass, float32
-  sums, ``gdn_fwd_bf16_tc.cu``); float32 rows, on no path of the port,
-  the CUDA-core kernel of ``gdn.cu`` with a full-float32 pool.
+* K2 replaces ``_gdn_train_fwd_kernel``: ``y`` in the rows' type and the
+  backward residual ``r`` as bf16, one wrapper for each type of rows.
+  ``gdn_train_fwd_cuda`` takes bf16 rows (the bf16 mode's path) and runs
+  the pool on the bf16 tensor cores (one pass, float32 sums,
+  ``gdn_fwd_bf16_tc.cu``); ``gdn_train_fwd_f32_cuda`` (kernel name
+  ``gdn_train_fwd_f32``) takes float32 rows (a GDN after a batch norm in
+  the bf16 mode) and runs the CUDA-core kernel of ``gdn.cu`` with a
+  full-float32 pool.
 * K3 ``gdn_train_bwd_cuda`` replaces ``_gdn_train_bwd_kernel``: ``dx`` in the
   cotangent's type and ``dnb = bf16(dnorm)``, the pool on the bf16 tensor
   cores (bf16 products are exact in float32; one pass, float32 sums).
@@ -182,9 +185,9 @@ gdn_bf16_cuda.kernel_name = "gdn_fwd_bf16"
 def gdn_train_fwd_cuda(x2d: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, inverse: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2; raises on what it does not take."""
+    """K2 on bf16 rows; raises on what it does not take."""
     c = x2d.shape[-1]
-    _check_rows("gdn_train_fwd x", x2d, c, _ROW_DTYPES, x2d.device)
+    _check_rows("gdn_train_fwd x", x2d, c, (torch.bfloat16,), x2d.device)
     _check_params("gdn_train_fwd", x2d.device, c, gamma, beta)
     _require_cuda("gdn_train_fwd_cuda", x2d)
     n = x2d.shape[0]
@@ -194,19 +197,13 @@ def gdn_train_fwd_cuda(x2d: torch.Tensor, gamma: torch.Tensor,
     rb = torch.empty(x2d.shape, dtype=torch.bfloat16, device=x2d.device)
     lib = load_library()
     with torch.cuda.device(x2d.device):
-        if x2d.dtype == torch.bfloat16:
-            # the kernel's bf16 copy of gamma, padded
-            work = torch.empty(lib.cae_gdn_train_fwd_workspace(c),
-                               dtype=torch.uint8, device=x2d.device)
-            err = lib.cae_gdn_train_fwd(
-                x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                y.data_ptr(), rb.data_ptr(), work.data_ptr(), n, c,
-                int(inverse), stream_handle(x2d))
-        else:
-            err = lib.cae_gdn_train_fwd_f32(
-                x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                y.data_ptr(), rb.data_ptr(), n, c, int(inverse),
-                stream_handle(x2d))
+        # the kernel's bf16 copy of gamma, padded
+        work = torch.empty(lib.cae_gdn_train_fwd_workspace(c),
+                           dtype=torch.uint8, device=x2d.device)
+        err = lib.cae_gdn_train_fwd(
+            x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            y.data_ptr(), rb.data_ptr(), work.data_ptr(), n, c,
+            int(inverse), stream_handle(x2d))
     check_launch(err, "gdn_train_fwd")
     gdn_train_fwd_cuda.launches += 1
     return y, rb
@@ -214,6 +211,34 @@ def gdn_train_fwd_cuda(x2d: torch.Tensor, gamma: torch.Tensor,
 
 gdn_train_fwd_cuda.launches = 0
 gdn_train_fwd_cuda.kernel_name = "gdn_train_fwd"
+
+
+def gdn_train_fwd_f32_cuda(x2d: torch.Tensor, gamma: torch.Tensor,
+                           beta: torch.Tensor, inverse: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on float32 rows; raises on what it does not take."""
+    c = x2d.shape[-1]
+    _check_rows("gdn_train_fwd x", x2d, c, (torch.float32,), x2d.device)
+    _check_params("gdn_train_fwd", x2d.device, c, gamma, beta)
+    _require_cuda("gdn_train_fwd_f32_cuda", x2d)
+    n = x2d.shape[0]
+    gamma = gamma.detach().float().contiguous()
+    beta = beta.detach().float().contiguous()
+    y = torch.empty_like(x2d)
+    rb = torch.empty(x2d.shape, dtype=torch.bfloat16, device=x2d.device)
+    lib = load_library()
+    with torch.cuda.device(x2d.device):
+        err = lib.cae_gdn_train_fwd_f32(
+            x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            y.data_ptr(), rb.data_ptr(), n, c, int(inverse),
+            stream_handle(x2d))
+    check_launch(err, "gdn_train_fwd_f32")
+    gdn_train_fwd_f32_cuda.launches += 1
+    return y, rb
+
+
+gdn_train_fwd_f32_cuda.launches = 0
+gdn_train_fwd_f32_cuda.kernel_name = "gdn_train_fwd_f32"
 
 
 def gdn_train_bwd_cuda(g: torch.Tensor, xb: torch.Tensor, rb: torch.Tensor,
@@ -254,9 +279,11 @@ gdn_train_bwd_cuda.kernel_name = "gdn_train_bwd"
 
 def gdn_train_fwd(x2d, gamma, beta, inverse: bool = False):
     """K2's function: the plain version for CPU tensors, the kernel for
-    CUDA tensors."""
+    CUDA tensors (by the rows' type)."""
     if x2d.device.type == "cpu":
         return gdn_train_fwd_plain(x2d, gamma, beta, inverse)
+    if x2d.dtype == torch.float32:
+        return gdn_train_fwd_f32_cuda(x2d, gamma, beta, inverse)
     return gdn_train_fwd_cuda(x2d, gamma, beta, inverse)
 
 

@@ -75,7 +75,10 @@ def _channel_indexes(c: int, h: int, w: int) -> np.ndarray:
 class CAECodecCore:
     """Batched encode/decode of tiles for one CAE model on ``device``
     (``None``: the card), with activations in ``compute_dtype`` (float32 or
-    bf16; ``None``: ``get_activations_dtype()`` now)."""
+    bf16; ``None``: ``get_activations_dtype()`` now).  The encoder and the
+    decoder run in eval mode (``train=False``: batch norms on their running
+    statistics, no dropout) whatever the model's ``training`` flag, as the
+    JAX cores apply them."""
 
     def __init__(self, model, device=None, compute_dtype=None):
         self.device = resolve_device(device)
@@ -84,7 +87,7 @@ class CAECodecCore:
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype {self.compute_dtype}: the codec "
                              "runs float32 or bf16")
-        self.model = model.to(self.device).eval()
+        self.model = model.to(self.device)
         self.level = model.compression_level
         self.channels_bn = model.channels_bn
         fe = {k: v.detach().cpu().numpy()
@@ -122,7 +125,8 @@ class CAECodecCore:
             iy = torch.from_numpy(reflect_index(h, ph)).to(self.device)
             ix = torch.from_numpy(reflect_index(w, pw)).to(self.device)
             x = x[:, iy][:, :, ix]
-        y = self.model.encoder(x.to(self.compute_dtype))
+        y = self.model.encoder(x.to(self.compute_dtype), train=False,
+                               compute_dtype=self.compute_dtype)
         sym = torch.round(y - self._med).to(torch.int32)
         return sym.permute(0, 3, 1, 2).contiguous()
 
@@ -135,7 +139,8 @@ class CAECodecCore:
         if not torch.is_tensor(tiles_u8):
             tiles_u8 = torch.from_numpy(np.ascontiguousarray(tiles_u8))
         x = tiles_u8.to(self.device).float() / 255.0
-        return self.model.encoder(x.to(self.compute_dtype)).float()
+        return self.model.encoder(x.to(self.compute_dtype), train=False,
+                                  compute_dtype=self.compute_dtype).float()
 
     @staticmethod
     def narrow_symbols(sym: torch.Tensor):
@@ -190,7 +195,8 @@ class CAECodecCore:
     def _synthesize(self, y: torch.Tensor, rec_idx: int = 0) -> torch.Tensor:
         """Float32 latents -> uint8 reconstructions at pyramid index
         ``rec_idx`` (0: full scale)."""
-        x_r, _ = self.model.decoder(y.to(self.compute_dtype))
+        x_r, _ = self.model.decoder(y.to(self.compute_dtype), train=False,
+                                    compute_dtype=self.compute_dtype)
         if x_r[rec_idx] is None:
             raise ValueError(
                 "Partial reconstruction at this level needs a "

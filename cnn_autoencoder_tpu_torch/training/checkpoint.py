@@ -264,8 +264,10 @@ def msgpack_serialize(tree) -> bytes:
 def model_state(model) -> Dict[str, Any]:
     """A ``CAEModel``'s config and variables as one flat state dict: the
     config scalars and ``{"encoder" | "decoder" | "fact_ent": {"params":
-    tree}}``, HWIO kernels as the JAX package keeps them."""
-    return {**model.config, **state_to_jax(model.state_dict())}
+    tree[, "batch_stats": tree]}}``, HWIO kernels as the JAX package keeps
+    them."""
+    return {**model.config,
+            **state_to_jax(model.state_dict(), model.config)}
 
 
 def _split_state(state: Dict[str, Any]):

@@ -11,7 +11,16 @@ is explicit, the counterpart of ``convops.set_default_precision``:
   the forward and in the backward convolutions and products.
 * ``torch.bfloat16``: the batch is cast to bf16 and the network carries bf16
   activations (convs with bf16 operands and float32 sums, GDN through K2
-  and K3); the distortion target stays the float32 batch.
+  and K3); the distortion target stays the float32 batch.  Batch norms
+  return float32, as flax's do; the layers after one take the mode from
+  the step (``compute_dtype``), as the JAX package's take its global
+  mode.
+
+Batch norms and dropout run in train mode in the train step and in eval
+mode in the eval step.  The train step draws its dropout masks from its
+generator (or takes them from the caller) and folds the batch norms' new
+running statistics into the model once, after the forward.  With ``remat``
+the encoder's and decoder's forwards are recomputed in the backward.
 
 On the card every GDN and fused conv+GDN layer goes through its kernel;
 CPU tensors take the plain versions.
@@ -22,7 +31,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.tasks import make_forward_fn, module_runner
+from ..models.tasks import fold_batch_stats, make_forward_fn, module_runner
 from ..utils.device import full_f32
 from .optim import apply_module_updates
 
@@ -53,31 +62,40 @@ def _net_aux(model, trainable_modules: Sequence[str] = ()) -> Dict:
 def make_train_step(model, criterion, optimizers,
                     enabled_modules: Optional[Sequence[str]] = None,
                     trainable_modules: Optional[Sequence[str]] = None,
-                    compute_dtype: torch.dtype = torch.float32):
-    """Build ``train_step(x, lrs, step, noise=None, generator=None) ->
-    (stats, grads)``.
+                    compute_dtype: torch.dtype = torch.float32,
+                    remat: bool = False):
+    """Build ``train_step(x, lrs, step, noise=None, generator=None,
+    masks=None) -> (stats, grads)``.
 
     ``x`` is a float32 NHWC batch on the model's device, ``lrs`` a dict of
     learning rates per optimizer slot, ``step`` the 1-based step number.
-    The bottleneck's noise is ``noise`` when given, else drawn from
+    The dropout masks are ``masks`` when given (``models/tasks.py:
+    draw_masks``' layout), else drawn from ``generator``, and then the
+    bottleneck's noise is ``noise`` when given, else drawn from
     ``generator``.  ``stats`` is a dict of detached scalars (and the
     ``dist`` vector); ``grads`` is ``{module: {param name: gradient}}`` of
-    this step, before accumulation and clipping.  The model's parameters
-    and the optimizers' state are updated in place."""
+    this step, before accumulation and clipping.  The model's parameters,
+    its batch norms' running statistics and the optimizers' state are
+    updated in place.  ``remat`` recomputes the forward in the backward
+    (the JAX package's ``remat``): the same step in less memory."""
     _check_dtype(compute_dtype)
     trainable = [m for m in (trainable_modules or []) if hasattr(model, m)]
-    forward = make_forward_fn(model, enabled_modules, trainable)
+    forward = make_forward_fn(model, enabled_modules, trainable, remat=remat)
     names = [(m, n) for m in trainable
              for n, _ in getattr(model, m).named_parameters()]
     leaves = [getattr(model, m).get_parameter(n) for m, n in names]
 
     def train_step(x: torch.Tensor, lrs: Dict[str, float], step: int,
                    noise: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   masks: Optional[Dict] = None):
         # TF32 off for the forward and for autograd's backward kernels
         with full_f32():
-            outputs = forward(x.to(compute_dtype), train=True, noise=noise,
-                              generator=generator)
+            outputs, new_state = forward(
+                x.to(compute_dtype), train=True, noise=noise,
+                generator=generator, masks=masks,
+                compute_dtype=compute_dtype)
+            fold_batch_stats(model, new_state)
             loss_dict = criterion(x, outputs, net=_net_aux(model, trainable))
             total = torch.mean(loss_dict["loss"])
             if "entropy_loss" in loss_dict:
@@ -98,15 +116,16 @@ def make_train_step(model, criterion, optimizers,
 def make_eval_step(model, criterion,
                    enabled_modules: Optional[Sequence[str]] = None,
                    compute_dtype: torch.dtype = torch.float32):
-    """Build ``eval_step(x) -> stats``: round-to-median quantization, no
-    gradient, in ``compute_dtype``."""
+    """Build ``eval_step(x) -> stats``: round-to-median quantization, batch
+    norms and dropout in eval mode, no gradient, in ``compute_dtype``."""
     _check_dtype(compute_dtype)
     forward = make_forward_fn(model, enabled_modules, trainable_modules=[])
 
     @torch.no_grad()
     def eval_step(x: torch.Tensor):
         with full_f32():
-            outputs = forward(x.to(compute_dtype), train=False)
+            outputs, _ = forward(x.to(compute_dtype), train=False,
+                                 compute_dtype=compute_dtype)
             loss_dict = criterion(x, outputs, net=_net_aux(model))
         return _summary_stats(outputs, loss_dict)
 

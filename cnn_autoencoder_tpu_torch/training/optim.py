@@ -18,7 +18,8 @@ returns new trees); nothing else differs.  ``optimizer_state_dict`` /
 ``load_optimizer_state_dict`` carry a slot's state through a checkpoint in
 the layout the JAX CLI writes under ``optimizer_<slot>``: flax's state dict
 of the slot's optax chain, the moments as trees of the module's parameters
-in the JAX layout.
+in the JAX layout (batch norms' ``scale`` and ``bias`` among them; their
+running statistics are not parameters and have no slot).
 """
 
 import dataclasses
@@ -164,7 +165,7 @@ def _moment_tree(slot: ModuleOptimizer, moments: Dict[str, torch.Tensor],
     parameters of the module's other slot."""
     names = [n for n, _ in getattr(model, slot.module).named_parameters()]
     flat = {f"{slot.module}.{n}": moments.get(n) for n in names}
-    return state_to_jax(flat)[slot.module]["params"]
+    return state_to_jax(flat, model.config)[slot.module]["params"]
 
 
 def optimizer_state_dict(slot: ModuleOptimizer, model) -> Dict:

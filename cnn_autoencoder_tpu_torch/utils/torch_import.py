@@ -18,7 +18,7 @@ arrays), which ``utils/weights.py:state_from_jax`` and
   ``quantiles`` -> ``matrix_K`` / ``bias_K`` / ``factor_K`` /
   ``quantiles``;
 * BatchNorm weight / bias / running_mean / running_var -> scale / bias /
-  mean / var (converted here; the port's model refuses batch norm);
+  mean / var, the ``batch_stats`` collection;
 * a multiscale decoder's ``color_layers.i.0`` -> ``color_i``.
 
 The torch Sequential index layout inside each unit depends on the

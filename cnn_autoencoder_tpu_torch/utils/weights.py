@@ -1,20 +1,31 @@
-"""Carry the JAX package's parameters (numpy trees) across to the port.
+"""Carry the JAX package's variables (numpy trees) across to the port.
 
 The JAX package stores conv kernels HWIO and transposed-conv kernels as
 spatially flipped HWIO (its transposed conv is an input-dilated conv); the
 port uses PyTorch's layouts.  This inverts
 ``cnn_autoencoder_tpu/utils/torch_import.py:36-44``:
 
-* conv ``kernel`` HWIO -> ``weight`` OIHW: ``transpose(3, 2, 0, 1)``;
-* deconv ``kernel`` (flipped HWIO) -> ``ConvTranspose2d`` ``weight``
-  (in, out, kh, kw): ``transpose(hwio[::-1, ::-1], (2, 3, 0, 1))``;
-* biases, GDN ``beta``/``gamma`` (stored reparameterized in both) and the
-  ``fact_ent`` parameters carry over as stored;
+* conv ``kernel`` (``conv_*``, ``res_conv*``, ``color_i``) HWIO ->
+  ``weight`` OIHW: ``transpose(3, 2, 0, 1)``, grouped or not (both keep
+  ``in / groups`` inputs per output);
+* deconv ``kernel`` (``deconv_*``, ``res_deconv*``), flipped HWIO
+  ``(k, k, in / g, out)`` with g groups -> ``ConvTranspose2d`` ``weight``
+  ``(in, out / g, kh, kw)``, group by group: the flipped kernel's output
+  axis splits into g blocks of ``out / g``, and block j takes the inputs
+  of group j;
+* biases, GDN ``beta``/``gamma`` (stored reparameterized in both), batch
+  norms' ``scale``/``bias`` and the ``fact_ent`` parameters carry over as
+  stored;
+* the ``batch_stats`` collection's ``mean``/``var`` map to the batch
+  norms' buffers of the same names;
 * a multiscale decoder's color layers (``decoder/color_i``, a conv whose
   ``kernel`` and ``bias`` sit at the unit's level) map to
   ``decoder.color_i.weight`` / ``.bias``.
 
-``state_to_jax`` is the inverse, for checkpoints the JAX package reads.
+A grouped model (config ``groups``) gives each unit's convolutions as many
+groups as the unit has input channels, so the decoder's group counts come
+from the config's stage widths.  ``state_to_jax`` is the inverse, for
+checkpoints the JAX package reads.
 """
 
 from typing import Any, Dict
@@ -22,55 +33,84 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..models.autoencoder import _synthesizer_stage_channels
+
+_STATS = ("mean", "var")
+
+
+def _kind(where: str) -> str:
+    """The kind of a unit's layer, by the JAX package's names."""
+    if where.startswith(("deconv", "res_deconv")):
+        return "deconv"
+    if where.startswith(("conv", "res_conv", "color")):
+        return "conv"
+    if where.startswith("gdn"):
+        return "gdn"
+    if where.startswith(("norm", "res_norm")):
+        return "norm"
+    raise ValueError(f"layer {where} is not a layer of the CAE")
+
+
+def _deconv_groups(config: Dict[str, Any]) -> Dict[str, int]:
+    """{decoder unit: group count of its transposed convolutions} of a
+    grouped model (each unit's input width); empty otherwise."""
+    if not config.get("groups"):
+        return {}
+    stages = _synthesizer_stage_channels(
+        config.get("channels_org", 3), config.get("channels_net", 8),
+        config.get("channels_bn", 192), config.get("compression_level", 4),
+        config.get("channels_expansion", 1))
+    return {f"up_{i}": cin for i, (cin, _, _) in enumerate(stages)}
+
 
 def _conv(kernel: np.ndarray) -> np.ndarray:
     return np.transpose(kernel, (3, 2, 0, 1))
 
 
-def _deconv(kernel: np.ndarray) -> np.ndarray:
-    return np.transpose(kernel[::-1, ::-1], (2, 3, 0, 1))
+def _deconv(kernel: np.ndarray, groups: int = 1) -> np.ndarray:
+    k1, k2, cin_g, cout = kernel.shape
+    blocks = kernel[::-1, ::-1].reshape(k1, k2, cin_g, groups, cout // groups)
+    return np.transpose(blocks, (3, 2, 4, 0, 1)).reshape(
+        groups * cin_g, cout // groups, k1, k2)
 
 
-def _layer(prefix: str, layer: str, params: Dict[str, Any]
-           ) -> Dict[str, np.ndarray]:
+def _layer(prefix: str, layer: str, params: Dict[str, Any],
+           groups: int = 1) -> Dict[str, np.ndarray]:
     out = {}
     params = {k: v for k, v in params.items() if v is not None}
-    if layer.startswith(("conv", "deconv", "color")):
-        convert = _deconv if layer.startswith("deconv") else _conv
-        for name, value in params.items():
-            if name == "kernel":
-                out[f"{prefix}.{layer}.weight"] = convert(np.asarray(value))
-            elif name == "bias":
-                out[f"{prefix}.{layer}.bias"] = np.asarray(value)
-            else:
-                raise ValueError(f"unknown parameter {prefix}/{layer}/{name}")
-    elif layer.startswith("gdn"):
-        for name, value in params.items():
-            if name not in ("beta", "gamma"):
-                raise ValueError(f"unknown parameter {prefix}/{layer}/{name}")
-            out[f"{prefix}.{layer}.{name}"] = np.asarray(value)
-    else:
-        raise ValueError(f"layer {prefix}/{layer} is not ported yet")
+    kind = _kind(layer)
+    allowed = {"conv": ("kernel", "bias"), "deconv": ("kernel", "bias"),
+               "gdn": ("beta", "gamma"), "norm": ("scale", "bias")}[kind]
+    for name, value in params.items():
+        if name not in allowed:
+            raise ValueError(f"unknown parameter {prefix}/{layer}/{name}")
+        if name == "kernel":
+            value = (_conv(np.asarray(value)) if kind == "conv"
+                     else _deconv(np.asarray(value), groups))
+            name = "weight"
+        out[f"{prefix}.{layer}.{name}"] = np.asarray(value)
     return out
 
 
 def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
                    ) -> Dict[str, torch.Tensor]:
-    """``{"encoder"|"decoder"|"fact_ent": {"params": tree}}`` (numpy arrays,
-    as a checkpoint holds them) -> the port's ``CAEModel`` state dict.
-    Other top-level entries (config scalars, optimizer state) are ignored,
-    and so are None leaves (the holes of an optimizer slot's moment trees,
-    where a parameter belongs to the other slot of its module)."""
+    """``{"encoder"|"decoder"|"fact_ent": {"params": tree[, "batch_stats":
+    tree]}}`` (numpy arrays, as a checkpoint holds them) -> the port's
+    ``CAEModel`` state dict.  Other top-level entries (config scalars,
+    optimizer state) are ignored, and so are None leaves (the holes of an
+    optimizer slot's moment trees, where a parameter belongs to the other
+    slot of its module)."""
     arrays: Dict[str, np.ndarray] = {}
     levels = int(config.get("compression_level", 4))
+    groups = _deconv_groups(config)
     for module in ("encoder", "decoder"):
         tree = variables.get(module)
         if tree is None:
             continue
-        if set(tree) - {"params"}:
-            raise ValueError(f"{module}: collections "
-                             f"{sorted(set(tree) - {'params'})} are not "
-                             "ported yet (batch norm)")
+        unknown = set(tree) - {"params", "batch_stats"}
+        if unknown:
+            raise ValueError(f"{module}: unknown collections "
+                             f"{sorted(unknown)}")
         units = {k: v for k, v in tree["params"].items()
                  if not k.startswith("color_")}
         if len(units) != levels:
@@ -81,7 +121,16 @@ def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
                 arrays.update(_layer(module, unit, layers))
                 continue
             for layer, params in layers.items():
-                arrays.update(_layer(f"{module}.{unit}", layer, params))
+                arrays.update(_layer(f"{module}.{unit}", layer, params,
+                                     groups.get(unit, 1)))
+        for unit, layers in tree.get("batch_stats", {}).items():
+            for layer, stats in layers.items():
+                if _kind(layer) != "norm" or set(stats) - set(_STATS):
+                    raise ValueError(f"unknown batch statistics {module}/"
+                                     f"{unit}/{layer}: {sorted(stats)}")
+                for name, value in stats.items():
+                    arrays[f"{module}.{unit}.{layer}.{name}"] = \
+                        np.asarray(value)
     fact_ent = variables.get("fact_ent")
     if fact_ent is not None:
         for name, value in fact_ent["params"].items():
@@ -95,28 +144,37 @@ def _conv_to_hwio(weight: np.ndarray) -> np.ndarray:
     return np.transpose(weight, (2, 3, 1, 0))
 
 
-def _deconv_to_hwio(weight: np.ndarray) -> np.ndarray:
-    return np.transpose(weight, (2, 3, 0, 1))[::-1, ::-1]
+def _deconv_to_hwio(weight: np.ndarray, groups: int = 1) -> np.ndarray:
+    cin, cout_g, k1, k2 = weight.shape
+    blocks = weight.reshape(groups, cin // groups, cout_g, k1, k2)
+    return np.transpose(blocks, (3, 4, 1, 0, 2)).reshape(
+        k1, k2, cin // groups, groups * cout_g)[::-1, ::-1]
 
 
-def state_to_jax(weights: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def state_to_jax(weights: Dict[str, torch.Tensor], config: Dict[str, Any]
+                 ) -> Dict[str, Any]:
     """The port's ``CAEModel`` state dict -> the JAX package's variable
-    trees ``{"encoder"|"decoder"|"fact_ent": {"params": tree}}`` of
-    contiguous float32 numpy arrays (the inverse of ``state_from_jax``).
-    A None value stays a None leaf at its parameter's place."""
+    trees ``{"encoder"|"decoder"|"fact_ent": {"params": tree[,
+    "batch_stats": tree]}}`` of contiguous float32 numpy arrays (the inverse
+    of ``state_from_jax``; ``config`` gives a grouped model's layout).  A
+    None value stays a None leaf at its parameter's place."""
     tree: Dict[str, Any] = {}
+    groups = _deconv_groups(config)
     for key, value in weights.items():
         arr = None if value is None else value.detach().cpu().float().numpy()
         module, *path = key.split(".")
-        params = tree.setdefault(module, {"params": {}})["params"]
+        collections = tree.setdefault(module, {"params": {}})
         if module == "fact_ent":
-            params[path[0]] = _contiguous(arr)
+            collections["params"][path[0]] = _contiguous(arr)
             continue
         *where, name = path     # unit and layer, or a color layer
+        params = collections.setdefault(
+            "batch_stats" if name in _STATS else "params", {})
         if name == "weight":
             if arr is not None:
-                arr = (_deconv_to_hwio if where[-1].startswith("deconv")
-                       else _conv_to_hwio)(arr)
+                arr = (_deconv_to_hwio(arr, groups.get(where[0], 1))
+                       if _kind(where[-1]) == "deconv"
+                       else _conv_to_hwio(arr))
             name = "kernel"
         for part in where:
             params = params.setdefault(part, {})

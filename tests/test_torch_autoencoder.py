@@ -102,9 +102,15 @@ def test_flagship_fixture_one_tile():
 
 
 def test_unported_options_raise():
-    for key, value in (("batch_norm", True), ("use_residual", True),
-                       ("dropout", 0.1)):
+    """The heads are not ported and raise; the architecture options build
+    (tests/test_torch_arch_options.py holds them to the JAX package)."""
+    for key, value in (("class_model_type", "ResNet"),
+                       ("seg_model_type", "UNet")):
         with pytest.raises(ValueError, match="not ported"):
             CAEModel({"channels_bn": 8, "compression_level": 2, key: value})
+    for key, value in (("batch_norm", True), ("use_residual", True),
+                       ("dropout", 0.1), ("groups", True)):
+        CAEModel({"channels_org": 3, "channels_net": 3, "channels_bn": 3,
+                  "compression_level": 2, key: value})
     with pytest.raises(ValueError, match="not supported"):
         Analyzer(act_layer_type="Swish")

@@ -74,8 +74,9 @@ def test_gdn_train_fwd_plain_matches_pallas(c, inverse, dtype):
                                   "beta"])
 def test_gdn_train_fwd_cuda_refuses(case):
     """The K2 wrapper raises ValueError on what it does not take, before it
-    needs a card: CPU rows, rows in another type than bf16 or float32,
-    non-contiguous rows, a gamma or a beta that does not match C."""
+    needs a card: CPU rows, rows in another type than bf16 (float32 rows
+    have their own wrapper, ``gdn_train_fwd_f32_cuda``), non-contiguous
+    rows, a gamma or a beta that does not match C."""
     c, n = 8, 4
     x = torch.ones((n, c), dtype=torch.float16 if case == "float16"
                    else BF16)

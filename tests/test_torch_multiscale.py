@@ -63,7 +63,8 @@ def test_multiscale_synthesizer_matches_jax(act, bias, expansion):
                        **cfg)
     tmod.load_state_dict({k[len("decoder."):]: v for k, v in
                           weights.items()}, strict=True)
-    back = state_to_jax(weights)["decoder"]["params"]
+    back = state_to_jax(weights, {"compression_level": level})["decoder"][
+        "params"]
     jax.tree_util.tree_map(np.testing.assert_array_equal, back,
                            variables["params"])
 

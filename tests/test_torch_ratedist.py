@@ -241,7 +241,7 @@ def test_loss_gradients_match_jax(models, name):
     grads = {f"decoder.{n}": (torch.zeros_like(p) if p.grad is None
                               else p.grad)
              for n, p in t.decoder.named_parameters()}
-    got_dec = state_to_jax(grads)["decoder"]["params"]
+    got_dec = state_to_jax(grads, t.config)["decoder"]["params"]
     flat_w = jax.tree_util.tree_flatten_with_path(jg_dec)[0]
     for path, w in flat_w:
         node = got_dec

@@ -12,8 +12,10 @@ loaders' transforms draw from it.  Per-step losses, validation losses,
 checkpoint steps and files are compared, and the checkpoints with their
 optimizer and scheduler state load and resume in both packages."""
 
+import contextlib
 import os
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,12 +97,44 @@ def _argv(case, data, log_dir, extra=()):
             + list(extra))
 
 
-def _run_jax(argv, noises, monkeypatch, record=None):
-    """Per-step losses of the JAX CLI's ``main`` with the given noise: its
-    train step is jitted again with the noise as one more argument, which
-    the patched ``jax.random.uniform`` hands to the bottleneck.  Each
-    step's (step number, channel_e, energy) is appended to ``record``."""
+@contextlib.contextmanager
+def _dropout_masks(current):
+    """Train-mode ``nn.Dropout`` calls take their keep-masks, (N, C) each,
+    in call order from ``current["masks"]`` and apply them as flax applies
+    its own (flax's draw cannot be matched by torch's generators)."""
+    def interceptor(next_fun, args, kwargs, context):
+        mod = context.module
+        if (not isinstance(mod, nn.Dropout) or context.method_name
+                != "__call__" or mod.deterministic or not current.get(
+                    "masks")):
+            return next_fun(*args, **kwargs)
+        x, keep = args[0], 1.0 - mod.rate
+        mask = current["masks"].pop(0)[:, None, None, :]
+        return jax.lax.select(jnp.broadcast_to(mask, x.shape), x / keep,
+                              jnp.zeros_like(x))
+
+    with nn.intercept_methods(interceptor):
+        yield
+
+
+def _port_masks(model, masks):
+    """``masks`` (N, C) arrays in the JAX call order (encoder units, then
+    decoder units) in the port's ``{module: {unit: mask}}`` layout."""
+    queue = [torch.from_numpy(np.array(m)) for m in masks]
+    return {m: {n: queue.pop(0) for n in getattr(model, m).names
+                if getattr(getattr(model, m), n).drop is not None}
+            for m in ("encoder", "decoder")}
+
+
+def _run_jax(argv, noises, monkeypatch, record=None, masks=None):
+    """Per-step losses of the JAX CLI's ``main`` with the given noise (and
+    dropout keep-masks, a list per step): its train step is jitted again
+    with the noise and the masks as more arguments, which the patched
+    ``jax.random.uniform`` hands to the bottleneck and ``_dropout_masks``
+    to the dropout layers.  Each step's (step number, channel_e, energy) is
+    appended to ``record``."""
     losses, queue, current = [], list(noises), {}
+    mask_queue = list(masks or [])
     uniform = jax.random.uniform
 
     def fake_uniform(key, shape=(), dtype=jnp.float32, minval=0.0,
@@ -115,16 +149,21 @@ def _run_jax(argv, noises, monkeypatch, record=None):
     def recording_step(*a, **k):
         step_fn = make_step(*a, **k).__wrapped__
 
-        def with_noise(noise, *sa):
+        def with_noise(noise, step_masks, *sa):
             current["noise"] = noise
+            current["masks"] = list(step_masks)
             try:
-                return step_fn(*sa)
+                with _dropout_masks(current):
+                    return step_fn(*sa)
             finally:
                 current.pop("noise")
+                current.pop("masks")
         step = jax.jit(with_noise)
 
         def run(*sa):
-            out = step(jnp.asarray(queue.pop(0)), *sa)
+            step_masks = [jnp.asarray(m) for m in mask_queue.pop(0)] \
+                if mask_queue else []
+            out = step(jnp.asarray(queue.pop(0)), step_masks, *sa)
             losses.append(float(out[3]["loss"]))
             if record is not None:
                 record.append(_record(sa[7], out[3]))
@@ -149,10 +188,11 @@ def _record(step, stats):
             None if energy is None else float(np.asarray(energy, np.float32)))
 
 
-def _run_port(argv, noises, monkeypatch, record=None):
+def _run_port(argv, noises, monkeypatch, record=None, masks=None):
     """Per-step losses of the port's ``main`` on the CPU with the given
-    noise; ``record`` as in ``_run_jax``."""
+    noise and masks; ``record`` as in ``_run_jax``."""
     losses, queue = [], list(noises)
+    mask_queue = list(masks or [])
     quantize = FactorizedEntropyBottleneck.quantize
 
     def fake_quantize(self, y, mode, noise=None, generator=None):
@@ -166,6 +206,8 @@ def _run_port(argv, noises, monkeypatch, record=None):
         step = make_step(*a, **k)
 
         def run(*sa, **sk):
+            if mask_queue:
+                sk["masks"] = _port_masks(a[0], mask_queue.pop(0))
             out = step(*sa, **sk)
             losses.append(float(out[0]["loss"]))
             if record is not None:
@@ -286,7 +328,7 @@ def test_checkpoints_load_across(runs, case):
                     args_list=["-chk", jpath, "-reso", "true"] + NET
                     + TRAINABLE + CASES[case][0])
     model = autoencoder_from_state_dict(jpath, device="cpu")
-    _assert_trees(state_to_jax(model.state_dict()),
+    _assert_trees(state_to_jax(model.state_dict(), model.config),
                   {k: jstate[k] for k in ("encoder", "decoder", "fact_ent")},
                   0)
     optimizers, scheds, _ = tcli.setup_optim(model, args)

@@ -245,7 +245,7 @@ def test_checkpoint_save_reads_in_both_packages(tmp_path):
     path = str(tmp_path / "port.msgpack")
     save_checkpoint(path, model)
     state = jax_load_checkpoint(path)
-    expected = state_to_jax(model.state_dict())
+    expected = state_to_jax(model.state_dict(), model.config)
     for module, tree in expected.items():
         flat = jax.tree_util.tree_flatten_with_path(tree)[0]
         got = dict(jax.tree_util.tree_flatten_with_path(state[module])[0])

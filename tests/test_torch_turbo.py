@@ -420,7 +420,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     from cnn_autoencoder_tpu_torch.ops.kernels.conv_gdn_kernel import (
         conv_gdn_cuda, conv_gdn_train_cuda)
     from cnn_autoencoder_tpu_torch.ops.kernels.gdn_kernel import (
-        gdn_bf16_cuda, gdn_cuda, gdn_train_bwd_cuda, gdn_train_fwd_cuda)
+        gdn_bf16_cuda, gdn_cuda, gdn_train_bwd_cuda, gdn_train_fwd_cuda,
+        gdn_train_fwd_f32_cuda)
     from cnn_autoencoder_tpu_torch.ops.kernels.rans_kernel import (
         EncodeState, compact_cuda, decode_interleaved_cuda,
         encode_states_cuda)
@@ -438,6 +439,7 @@ def test_kernel_wrappers_take_only_cuda_tensors():
              lambda: gdn_cuda(xb, torch.eye(8), torch.ones(8)),
              lambda: gdn_bf16_cuda(xb, torch.eye(8), torch.ones(8)),
              lambda: gdn_train_fwd_cuda(xb, torch.eye(8), torch.ones(8)),
+             lambda: gdn_train_fwd_f32_cuda(x, torch.eye(8), torch.ones(8)),
              lambda: gdn_train_bwd_cuda(xb, xb, xb, torch.eye(8)),
              lambda: conv_gdn_cuda(*conv_args),
              lambda: conv_gdn_train_cuda(*conv_args),
@@ -448,8 +450,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert {fn.kernel_name for fn in kernel_wrappers()} == {
-        "gdn_fwd", "gdn_fwd_bf16", "gdn_train_fwd", "gdn_train_bwd",
-        "conv_gdn_fwd",
+        "gdn_fwd", "gdn_fwd_bf16", "gdn_train_fwd", "gdn_train_fwd_f32",
+        "gdn_train_bwd", "conv_gdn_fwd",
         "conv_gdn_train_fwd", "rans_encode_states", "rans_compact",
         "rans_decode"}
     assert all(fn.launches == 0 for fn in kernel_wrappers())
