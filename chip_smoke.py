@@ -8,12 +8,13 @@ Phases, in order; any failure exits non-zero:
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; build the CUDA kernels from ``cnn_autoencoder_tpu_torch/csrc``
    (ptxas registers, spills and shared memory logged for every
-   instantiation), and check in the built library's SASS that K1 (on
-   float32 and on bf16 rows), K2, K3 and K4 multiply on the tensor cores
-   (HMMA);
+   instantiation), and check in the built library's SASS that K1 and K2
+   (each on float32 and on bf16 rows), K3 and K4 multiply on the tensor
+   cores (HMMA);
    meanwhile build K1's, K2's, K3's, K4's and the rANS kernels' probes
-   (``csrc/probes``): K1 with one TF32 pass, the control that must fail
-   K1's accuracy check; K1, K2, K3 and K4 without their device-memory
+   (``csrc/probes``): K1 (and K2 on float32 rows) with one TF32 pass, the
+   control that must fail K1's accuracy check; K2 on float32 rows storing
+   r from the registers; K1, K2, K3 and K4 without their device-memory
    traffic, to time what the SM spends; K2 and K3 with cycle counts by part
    of a tile; K4 with one pass for its float32 conv and with every mma
    operand in registers; K5 and K6's state pass with clock64 marks around
@@ -62,8 +63,14 @@ Phases, in order; any failure exits non-zero:
    512 with ragged and misaligned rows, K2 at norms below 2^-100; then
    timed by CUDA events (K2's device time beside it), K2 and K3 each beside
    its probes and beside cuBLAS's bf16 product of the same shape (a
-   yardstick only); K2 on float32 rows (``gdn_train_fwd_f32``, the bf16
-   mode's GDN after a batch norm) timed at (16 x 128^2, 128).
+   yardstick only).  K2 on float32 rows (``gdn_train_fwd_f32``, the bf16
+   mode's GDN after a batch norm; K1's kernel with r) is held to y within
+   K1's limit, y equal to K1's and r within one bf16 ulp at the path's
+   shapes, the ragged cases and K1's wider layouts (C = 136, 1000, 1552,
+   1553), its plan at C = 128 logged and required resident with r tiles,
+   its one-pass control required to fail; then timed at (16 x 128^2, 128)
+   and (16 x 64^2, 128) beside K1 on the same rows and the build that
+   stores r from the registers.
 5. Training end to end: the flagship's RateMSE train step (lambda 0.01,
    encoder, decoder and fact_ent trainable, Adam at lr 1e-4; the
    configuration of ``scripts/bench_train.py``), from the flagship
@@ -225,6 +232,9 @@ K1_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
 K1_PROBES = {"one_pass": ["-DGDN_TC_PASSES=1"],
              "no_io": ["-DGDN_TC_NO_IO=1"],
              "no_io_one_pass": ["-DGDN_TC_NO_IO=1", "-DGDN_TC_PASSES=1"]}
+# K2 on float32 rows (the same source): r stored from the registers, the
+# design its r tile is timed against
+K2F_PROBES = {"k2f_r_regs": ["-DGDN_TC_R_TILE=0"]}
 K4_PROBE_SOURCE = os.path.join(ROOT, "cnn_autoencoder_tpu_torch", "csrc",
                                "probes", "conv_gdn_probe.cu")
 # K4's probe builds and their defines (csrc/conv_gdn.cu)
@@ -272,7 +282,7 @@ SOURCES = {
     "gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn_tc.cu",
     "gdn_fwd_bf16": "cnn_autoencoder_tpu_torch/csrc/gdn_fwd_bf16_tc.cu",
     "gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn_fwd_bf16_tc.cu",
-    "gdn_train_fwd_f32": "cnn_autoencoder_tpu_torch/csrc/gdn.cu",
+    "gdn_train_fwd_f32": "cnn_autoencoder_tpu_torch/csrc/gdn_tc.cu",
     "gdn_train_bwd": "cnn_autoencoder_tpu_torch/csrc/gdn_bf16_tc.cu",
     "conv_gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
     "conv_gdn_train_fwd": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
@@ -420,7 +430,8 @@ def start_probes(build):
     out = os.path.join(ROOT, "build", "probes")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    builds = ([(name, K1_PROBE_SOURCE, d) for name, d in K1_PROBES.items()]
+    builds = ([(name, K1_PROBE_SOURCE, d) for name, d in
+               {**K1_PROBES, **K2F_PROBES}.items()]
               + [(name, K2_PROBE_SOURCE, d) for name, d in K2_PROBES.items()]
               + [(name, K3_PROBE_SOURCE, d) for name, d in K3_PROBES.items()]
               + [(name, K4_PROBE_SOURCE, d) for name, d in K4_PROBES.items()]
@@ -463,10 +474,11 @@ def finish_probes(build, procs):
             lib.cae_conv_gdn_fwd.argtypes = build.SIGNATURES[
                 "cae_conv_gdn_fwd"]
         else:
-            lib.cae_gdn_fwd.argtypes = build.SIGNATURES["cae_gdn_fwd"]
+            for fn in ("cae_gdn_fwd", "cae_gdn_train_fwd_f32"):
+                getattr(lib, fn).argtypes = build.SIGNATURES[fn]
             lib.cae_gdn_mma_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_void_p]
-            lib.cae_gdn_fwd_layout.argtypes = [ctypes.c_int,
+            lib.cae_gdn_fwd_layout.argtypes = [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
         libs[name] = lib
     return libs
@@ -482,6 +494,7 @@ def check_tc_sass(build):
     counts = {"gdn_tc_kernel": {}, "gdn_fwd_tc": {}, "gdn_bwd_tc": {},
               "conv_gdn_mma_kernel": {}}
     without_r = 0  # K1's bf16 instantiations: the template's kWantR false
+    with_r = 0     # K2's float32 ones: gdn_tc_kernel's last, kWantR, true
     for part in dump.stdout.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
         for kind, found in counts.items():
@@ -489,12 +502,16 @@ def check_tc_sass(build):
                 found[name] = sum(" HMMA." in line
                                   for line in part.splitlines())
                 without_r += kind == "gdn_fwd_tc" and "ELb0EE" in name
+                with_r += kind == "gdn_tc_kernel" and "ELb1EE" in name
     check(without_r == 4, f"gdn_fwd_tc: {without_r} instantiations without "
           "r (K1 on bf16 rows), expected 4")
-    # K2 and K1 on bf16 rows (gdn_fwd_tc with and without r): resident and
-    # streamed layouts, each for GDN and IGDN; K3: its resident and streamed
-    # layouts, each for bf16 and float32 g
-    for kind, want in (("gdn_tc_kernel", 5), ("gdn_fwd_tc", 8),
+    check(with_r == 5, f"gdn_tc_kernel: {with_r} instantiations with r (K2 "
+          "on float32 rows), expected 5")
+    # K1 and K2 on float32 rows (gdn_tc_kernel without and with r): five
+    # layouts each; K2 and K1 on bf16 rows (gdn_fwd_tc with and without r):
+    # resident and streamed layouts, each for GDN and IGDN; K3: its resident
+    # and streamed layouts, each for bf16 and float32 g
+    for kind, want in (("gdn_tc_kernel", 10), ("gdn_fwd_tc", 8),
                        ("gdn_bwd_tc", 4), ("conv_gdn_mma_kernel", 6)):
         found = counts[kind]
         log(f"{kind} SASS: {len(found)} instantiations, HMMA instructions "
@@ -566,15 +583,17 @@ def edge_geometries(torch, rng):
         "float32 and bf16; conv_gdn_fwd refuses odd H")
 
 
-def k1_layout(c):
-    """The layout K1 takes for c channels, from its launch plan
+def k1_layout(c, want_r=False, probe="one_pass"):
+    """The layout K1 (K2 on float32 rows: ``want_r``) takes for c channels,
+    from its launch plan in the probe build ``probe``
     (csrc/probes/gdn_tc_probe.cu:cae_gdn_fwd_layout)."""
     from cnn_autoencoder_tpu_torch.ops.kernels import build
-    out = (ctypes.c_int * 7)()
-    build.check_launch(PROBES["one_pass"].cae_gdn_fwd_layout(
-        c, ctypes.addressof(out)), "gdn_fwd layout")
+    out = (ctypes.c_int * 8)()
+    build.check_launch(PROBES[probe].cae_gdn_fwd_layout(
+        c, int(want_r), ctypes.addressof(out)), "gdn_fwd layout")
     return dict(zip(("groups", "rows", "gamma_resident", "x_sliced",
-                     "x_buffers", "smem_bytes", "most_blocks"), out))
+                     "x_buffers", "smem_bytes", "most_blocks", "r_tiles"),
+                    out))
 
 
 def k1_probe(torch, name, x, gamma, beta, inverse, out):
@@ -1639,8 +1658,9 @@ def close(got, ref, rel, slack):
 
 
 def check_gdn_fwd_case(torch, x, gamma, beta, inverse, label):
-    """K2 against its plain version: y to 1e-5 relative (float32) or one
-    bf16 ulp, r to one bf16 ulp.  Returns (max abs error of y, r)."""
+    """K2 against its plain version: y to K1_REL_LIMIT relative and equal
+    to K1's on the same rows (float32, K1's kernel with r) or to one bf16
+    ulp, r to one bf16 ulp.  Returns (max abs error of y, r)."""
     from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
     bf16 = x.dtype == torch.bfloat16
     fwd = gk.gdn_train_fwd_cuda if bf16 else gk.gdn_train_fwd_f32_cuda
@@ -1651,7 +1671,11 @@ def check_gdn_fwd_case(torch, x, gamma, beta, inverse, label):
     if bf16:
         check(bf16_ulps(y, y_p) <= 1, f"gdn_train_fwd {label}: y differs "
               "from the plain version by more than one bf16 ulp")
-    ok, y_err = close(y, y_p, 1e-5, 0.0) if not bf16 else close(y, y_p, 1, 0)
+        ok, y_err = close(y, y_p, 1, 0)
+    else:
+        ok, y_err = close(y, y_p, K1_REL_LIMIT, 0.0)
+        check(torch.equal(y, gk.gdn_cuda(x, gamma, beta, inverse)),
+              f"gdn_train_fwd_f32 {label}: y differs from gdn_fwd's")
     check(ok, f"gdn_train_fwd {label}: y error {y_err:.3e}")
     check(bf16_ulps(rb, rb_p) <= 1, f"gdn_train_fwd {label}: r differs "
           "by more than one bf16 ulp")
@@ -1722,6 +1746,44 @@ def check_gdn_train_misaligned(torch, rng):
             check(ok, f"gdn_train_bwd {label}: dx error {err:.3e}")
             log(f"gdn_train_fwd/bwd {label}: y max abs {y_err:.3e}, dx max "
                 f"abs {err:.3e}")
+
+
+def k2f_probe(torch, name, x, gamma, beta, inverse, y, rb):
+    """K2 on float32 rows as the probe build ``name`` computes it, into
+    ``y`` and ``rb``."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import build
+    n, c = x.shape
+    build.check_launch(PROBES[name].cae_gdn_train_fwd_f32(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        rb.data_ptr(), n, c, int(inverse),
+        torch.cuda.current_stream().cuda_stream), name)
+    return y, rb
+
+
+def check_k2f_layouts(torch, rng):
+    """K2 on float32 rows at K1's wider layouts (C = 136: gamma resident
+    without r tiles; 1000 and 1552: gamma streamed, 64- and 32-row tiles;
+    1553: x in K-slices), GDN and IGDN, by check_gdn_fwd_case (y equal to
+    K1's); then its plan at the flagship's C = 128, which must keep gamma
+    resident with an r tile a group."""
+    for n, c in ((300, 136), (70, 1000), (33, 1552), (67, 1553)):
+        gamma = torch.from_numpy((0.1 * rng.rand(c, c)).astype(np.float32)) \
+            .cuda()
+        beta = torch.from_numpy((1.0 + rng.rand(c)).astype(np.float32)).cuda()
+        x = torch.from_numpy(rng.randn(n, c).astype(np.float32)).cuda()
+        errs = [check_gdn_fwd_case(torch, x, gamma, beta, inverse,
+                                   f"({n}, {c}) float32 inverse={inverse}")[0]
+                for inverse in (False, True)]
+        log(f"gdn_train_fwd_f32 ({n}, {c}): y max abs {errs[0]:.3e} / "
+            f"{errs[1]:.3e} (GDN / IGDN), equal to gdn_fwd's, r within one "
+            f"bf16 ulp; layout {k1_layout(c, want_r=True)}")
+    plan = k1_layout(128, want_r=True)
+    log(f"gdn_train_fwd_f32 plan at C = 128: {plan}; K1's "
+        f"{k1_layout(128)}; r from the registers (probe k2f_r_regs) "
+        f"{k1_layout(128, want_r=True, probe='k2f_r_regs')}")
+    check(plan["groups"] == 2 and plan["gamma_resident"] == 1
+          and plan["r_tiles"] == 1, "gdn_train_fwd_f32 at C = 128: not the "
+          f"resident layout with r tiles: {plan}")
 
 
 def time_probes(torch, kernel, probes, call, laps_fn, parts, tiles, shape):
@@ -1909,6 +1971,7 @@ def phase_train_kernels(torch, model):
                     beta, inverse, label)
                 log(f"gdn_train_fwd {label}: y max abs {y_err:.3e}")
         check_gdn_train_misaligned(torch, rng)
+        check_k2f_layouts(torch, rng)
 
         # K4 training variant: down_1 at the path's shape, and ragged
         unit = model.encoder.down_1
@@ -1982,26 +2045,49 @@ def phase_train_kernels(torch, model):
         k3_yardsticks(torch, gb, xb, rb, gamma0, ms, bms, mm_ms)
         del xb, gb, rb
         # K2 on float32 rows (a GDN after a batch norm in the bf16 mode):
-        # the CUDA-core kernel of csrc/gdn.cu with its full-float32 pool,
-        # at the batch-norm model's down_0 shape
-        x32r = torch.from_numpy(rng.randn(n, c).astype(np.float32) * 0.5) \
-            .cuda()
-        ms = cuda_ms(torch, lambda: gk.gdn_train_fwd_f32_cuda(
-            x32r, gamma0, beta0), 20)
-        plain_ms = cuda_ms(torch, lambda: gk.gdn_train_fwd_plain(
-            x32r, gamma0, beta0), 10)
-        # the pool as K1's float32 bound takes it (three TF32 passes, the
-        # card's rate for a float32 product), the rest in float32; the
-        # kernel's own CUDA-core float32 ceiling goes to the log
-        bms, by = bound_ms(10 * nc + 4 * c * (c + 1),
-                           [(3 * 2 * nc * c, PEAK_TF32_S),
-                            (5 * nc, PEAK_F32_S)])
-        log(f"gdn_train_fwd_f32 {(n, c)}: the CUDA-core design's float32 "
-            f"ceiling {nc * (2 * c + 5) / PEAK_F32_S * 1e3:.4f} ms")
-        out["gdn_train_fwd_f32"] = dict(
-            max_abs_err=errs[(n, False, torch.float32)][0], ms=ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c])
-        del x32r
+        # K1's three-pass TF32 kernel with r (csrc/gdn_tc.cu), at the
+        # batch-norm model's down_0 and up_0 shapes, beside K1 on the same
+        # rows and the build that stores r from the registers
+        gf, bf = gamma0.detach().contiguous(), beta0.detach().contiguous()
+        for rows in (n, n // 4):
+            x32r = torch.from_numpy(rng.randn(rows, c).astype(np.float32)
+                                    * 0.5).cuda()
+            yp = torch.empty_like(x32r)
+            rp = torch.empty(x32r.shape, dtype=torch.bfloat16, device="cuda")
+            ms = cuda_ms(torch, lambda: gk.gdn_train_fwd_f32_cuda(
+                x32r, gamma0, beta0), 20)
+            k1_ms = cuda_ms(torch, lambda: gk.gdn_cuda(x32r, gamma0, beta0),
+                            20)
+            regs_ms = cuda_ms(torch, lambda: k2f_probe(
+                torch, "k2f_r_regs", x32r, gf, bf, False, yp, rp), 20)
+            plain_ms = cuda_ms(torch, lambda: gk.gdn_train_fwd_plain(
+                x32r, gamma0, beta0), 10)
+            # x in, y out as float32 and r as bf16; the pool as K1's float32
+            # bound takes it (three TF32 passes), the rest in float32
+            bms, by = bound_ms(10 * rows * c + 4 * c * (c + 1),
+                               [(3 * 2 * rows * c * c, PEAK_TF32_S),
+                                (5 * rows * c, PEAK_F32_S)])
+            log(f"gdn_train_fwd_f32 {(rows, c)}: kernel {ms:.4f} ms "
+                f"({100 * bms / ms:.1f}% of its bound {bms:.4f} ms, {by}); "
+                f"r from the registers (three x tiles a ring) {regs_ms:.4f} "
+                f"ms; K1 on the same rows {k1_ms:.4f} ms; plain "
+                f"{plain_ms:.4f} ms")
+            if rows == n:
+                y_p, _ = gk.gdn_train_fwd_plain(x32r, gamma0, beta0)
+                one, _ = k2f_probe(torch, "one_pass", x32r, gf, bf, False,
+                                   yp, rp)
+                rel_one = float(((one - y_p).abs()
+                                 / y_p.abs().clamp_min(1e-30)).max())
+                log(f"gdn_train_fwd_f32 {(rows, c)}: one-pass control max "
+                    f"rel {rel_one:.3e} (limit {K1_REL_LIMIT:.0e})")
+                check(rel_one > K1_REL_LIMIT, "gdn_train_fwd_f32: the "
+                      f"one-pass control passed ({rel_one:.3e})")
+                out["gdn_train_fwd_f32"] = dict(
+                    max_abs_err=errs[(n, False, torch.float32)][0], ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    shape=[rows, c])
+                del y_p, one
+            del x32r, yp, rp
 
         for dt, name in ((torch.bfloat16, "bf16"),
                          (torch.float32, "float32")):

@@ -2,8 +2,8 @@
 
 The port's copy of the JAX package's ``criteria/stopping.py``: a
 max-iteration cap, patience-based early stopping, and target-inequality
-stopping (the energy penalty's sub-iteration loop; the penalty criteria
-themselves still raise "not ported" in ``criteria/loss.py``).
+stopping (the energy penalty's sub-iteration loop, which the penalty
+criteria of ``criteria/loss.py`` drive in the train CLI).
 ``StoppingCriterion.check`` uses ``<``, as the JAX package's does.
 """
 

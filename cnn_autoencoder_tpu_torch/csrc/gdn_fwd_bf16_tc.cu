@@ -9,8 +9,8 @@
 //   r = norm^(-1/2)   (IGDN: norm^(+1/2)),   y = bf16(x r),   rb = bf16(r)
 // the pool at ops/gdn.py:norm_pool_precision for bf16 rows: x^2 and gamma
 // rounded to bf16, the products summed in float32.  rb is the backward's
-// residual (K3, csrc/gdn_bf16_tc.cu).  Float32 rows take the CUDA-core
-// kernel of csrc/gdn.cu, with its full-float32 pool.
+// residual (K3, csrc/gdn_bf16_tc.cu).  Float32 rows take K1's kernel with
+// r (csrc/gdn_tc.cu), with its float32-accurate pool.
 //
 // K1 on bf16 rows (cae_gdn_fwd_bf16) replaces _gdn_kernel (pallas_call in
 // _gdn_pallas) given bf16 blocks: the same y, without rb.  It is the same

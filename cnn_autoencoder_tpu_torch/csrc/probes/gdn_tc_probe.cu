@@ -1,7 +1,8 @@
 // Diagnostics of K1 (csrc/gdn_tc.cu), never part of the kernels' library:
 // chip_smoke.py builds this file on its own, once for each variant of K1
-// it compares with the library's (-DGDN_TC_PASSES=1, -DGDN_TC_NO_IO=1; see
-// gdn_tc.cu), and loads each build beside the library.  Every build also
+// or of K2 on float32 rows it compares with the library's
+// (-DGDN_TC_PASSES=1, -DGDN_TC_NO_IO=1, -DGDN_TC_R_TILE=0; see gdn_tc.cu),
+// and loads each build beside the library.  Every build also
 // carries the mma.sync rate probe and K1's layout query below.
 #include "../gdn_tc.cu"
 
@@ -35,16 +36,18 @@ extern "C" int cae_gdn_mma_probe(float* out, int blocks, int iters,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The layout K1 takes for C channels on the current device, from its
-// launch plan: out = {tile groups per block, rows per tile, gamma resident
-// (1/0), x in K-slices (1/0), x tiles in each ring, dynamic shared memory
-// bytes, most blocks in the grid}.
-extern "C" int cae_gdn_fwd_layout(int c, int* out) {
+// The layout K1 (K2 on float32 rows: want_r) takes for C channels on the
+// current device, from its launch plan: out = {tile groups per block, rows
+// per tile, gamma resident (1/0), x in K-slices (1/0), x tiles in each
+// ring, dynamic shared memory bytes, most blocks in the grid, r tiles
+// (1/0)}.
+extern "C" int cae_gdn_fwd_layout(int c, int want_r, int* out) {
   Launch l;
-  const cudaError_t err = launch_for(c, &l);
+  const cudaError_t err = launch_for(c, want_r != 0, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int v[] = {l.plan.groups, 32 * l.plan.row_warps, l.plan.resident,
-                   l.plan.xslice, l.plan.nbuf, l.plan.smem, l.cap};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+                   l.plan.xslice, l.plan.nbuf, l.plan.smem, l.cap,
+                   l.plan.r_tile};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
 }

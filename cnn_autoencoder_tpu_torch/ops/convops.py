@@ -57,9 +57,10 @@ DEFAULT_GAIN = math.sqrt(2.0 / 1.01)
 # ``set_default_precision`` takes it; its start value comes from
 # CAE_TPU_PRECISION.  "highest" serves float32 activations, "bf16" bf16
 # activations end to end (bf16 operands, float32 sums).  The JAX package's
-# "default" and "high" (bf16 multiplies on float32 activations) and its TPU
-# tuning switches CAE_TPU_BF16_ACTIVATIONS and CAE_TPU_GDN_FAST are not
-# ported.
+# "default" and "high" (bf16 multiplies on float32 activations) and its
+# switches CAE_TPU_BF16_ACTIVATIONS and CAE_TPU_GDN_FAST are not ported
+# (ROADMAP.md §1 item 14): the precisions raise, and so does each switch
+# set to "0" where it would change the function (the bf16 mode).
 PRECISIONS = {"highest": torch.float32, "bf16": torch.bfloat16}
 _NOT_PORTED = ("default", "high")
 
@@ -92,7 +93,16 @@ def get_default_precision() -> str:
 
 def get_activations_dtype() -> torch.dtype:
     """The type serving casts normalized pixels and latents to at the
-    model's boundary: bf16 in the bf16 mode, else float32."""
+    model's boundary: bf16 in the bf16 mode, else float32.  In the bf16
+    mode ``CAE_TPU_BF16_ACTIVATIONS=0`` (read now, as the JAX package reads
+    it) asks for float32 activations between bf16 layers, which the port
+    does not serve: it raises."""
+    if _DEFAULT_PRECISION == "bf16" and os.environ.get(
+            "CAE_TPU_BF16_ACTIVATIONS", "1") == "0":
+        raise ValueError(
+            "CAE_TPU_BF16_ACTIVATIONS=0 (float32 activations between the "
+            "bf16 mode's layers) is not ported (ROADMAP.md §1 item 14); "
+            "unset it or set it to 1")
     return PRECISIONS[_DEFAULT_PRECISION]
 
 

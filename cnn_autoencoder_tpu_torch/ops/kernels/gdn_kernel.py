@@ -1,6 +1,6 @@
 """GDN over (N, C) rows: the CUDA kernels of ``csrc/gdn_tc.cu``,
-``csrc/gdn_fwd_bf16_tc.cu``, ``csrc/gdn.cu`` and ``csrc/gdn_bf16_tc.cu``
-and their plain PyTorch versions.
+``csrc/gdn_fwd_bf16_tc.cu`` and ``csrc/gdn_bf16_tc.cu`` and their plain
+PyTorch versions.
 
 * K1 ``gdn_cuda`` replaces ``cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:
   _gdn_kernel``, the serving GDN, and takes the rows' type as the JAX
@@ -20,8 +20,9 @@ and their plain PyTorch versions.
   the pool on the bf16 tensor cores (one pass, float32 sums,
   ``gdn_fwd_bf16_tc.cu``); ``gdn_train_fwd_f32_cuda`` (kernel name
   ``gdn_train_fwd_f32``) takes float32 rows (a GDN after a batch norm in
-  the bf16 mode) and runs the CUDA-core kernel of ``gdn.cu`` with a
-  full-float32 pool.
+  the bf16 mode) and runs K1's float32 kernel with the residual added
+  (``gdn_tc.cu`` with ``kWantR``): the pool float32-accurate in three TF32
+  passes, ``y`` bit-equal to K1's on the same rows.
 * K3 ``gdn_train_bwd_cuda`` replaces ``_gdn_train_bwd_kernel``: ``dx`` in the
   cotangent's type and ``dnb = bf16(dnorm)``, the pool on the bf16 tensor
   cores (bf16 products are exact in float32; one pass, float32 sums).
@@ -31,6 +32,7 @@ The norm pool's precision follows ``norm_pool_precision``.  The dispatchers
 plain versions and CUDA tensors the kernels, which take any C.
 """
 
+import os
 from typing import Tuple
 
 import torch
@@ -45,8 +47,17 @@ def norm_pool_precision(dtype: torch.dtype) -> torch.dtype:
     """The type the norm pool rounds its multiplicands (x^2 and gamma) to,
     by activation dtype (the JAX package's ``ops/gdn.py:norm_pool_precision``
     at its default): bf16 activations round them to bf16 and sum the
-    products in float32; float32 activations keep full float32."""
-    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    products in float32; float32 activations keep full float32.  For bf16
+    rows ``CAE_TPU_GDN_FAST=0`` (read now, as the JAX package reads it)
+    asks for the full-float32 pool, which the port does not compute there:
+    it raises."""
+    if dtype != torch.bfloat16:
+        return torch.float32
+    if os.environ.get("CAE_TPU_GDN_FAST", "1") == "0":
+        raise ValueError(
+            "CAE_TPU_GDN_FAST=0 (the full-float32 norm pool on bf16 rows) "
+            "is not ported (ROADMAP.md §1 item 14); unset it or set it to 1")
+    return torch.bfloat16
 
 
 def _norm(x32: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -160,6 +171,7 @@ def gdn_bf16_cuda(x2d: torch.Tensor, gamma: torch.Tensor,
     _check_rows("gdn kernel x", x2d, c, (torch.bfloat16,), x2d.device)
     _check_params("gdn kernel", x2d.device, c, gamma, beta)
     _require_cuda("gdn_bf16_cuda", x2d)
+    norm_pool_precision(x2d.dtype)  # the kernel's pool: raises on a switch
     n = x2d.shape[0]
     gamma = gamma.detach().float().contiguous()
     beta = beta.detach().float().contiguous()
@@ -190,6 +202,7 @@ def gdn_train_fwd_cuda(x2d: torch.Tensor, gamma: torch.Tensor,
     _check_rows("gdn_train_fwd x", x2d, c, (torch.bfloat16,), x2d.device)
     _check_params("gdn_train_fwd", x2d.device, c, gamma, beta)
     _require_cuda("gdn_train_fwd_cuda", x2d)
+    norm_pool_precision(x2d.dtype)  # the kernel's pool: raises on a switch
     n = x2d.shape[0]
     gamma = gamma.detach().float().contiguous()
     beta = beta.detach().float().contiguous()

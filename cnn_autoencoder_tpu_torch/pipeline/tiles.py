@@ -23,9 +23,10 @@ Left out, each until the ``ROADMAP.md`` §1 item named:
 * the pixel transports (coded upload and coded fetch, and the batch-0
   calibration gate of ``roundtrip_cae_turbo``, which serves only them):
   item 9;
-* the mesh branch of ``default_batch_tiles``: item 10;
-* ``rec_level`` other than full scale in ``decompress_latents_to_pixels``:
-  item 7 (the port has no multiscale decoder yet).
+* the mesh branch of ``default_batch_tiles``: item 10.
+
+``decompress_latents_to_pixels`` takes ``rec_level`` other than full
+scale through a multiscale decoder's color layers, as the JAX package does.
 
 The whole-image fused paths (``compress_image_fused`` /
 ``decompress_image_fused``) take an image that fits the card in one upload,

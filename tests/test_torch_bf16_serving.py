@@ -156,6 +156,47 @@ def test_precision_from_environment(value, out):
     assert (run.returncode == 0) == (value != "high")
 
 
+@pytest.mark.parametrize("value", [None, "1", "0"])
+@pytest.mark.parametrize("switch", ["CAE_TPU_BF16_ACTIVATIONS",
+                                    "CAE_TPU_GDN_FAST"])
+def test_bf16_switches_raise_where_they_change_the_function(
+        switch, value, monkeypatch):
+    """The JAX package reads CAE_TPU_BF16_ACTIVATIONS (serving's
+    activations) and CAE_TPU_GDN_FAST (the pool on bf16 rows) at call time;
+    set to "0" in the bf16 mode they ask for another function, which the
+    port does not compute, so it raises there.  Unset, "1", or in the
+    highest mode (float32 rows) nothing raises."""
+    if value is None:
+        monkeypatch.delenv(switch, raising=False)
+    else:
+        monkeypatch.setenv(switch, value)
+    x = torch.from_numpy(np.random.RandomState(4).rand(6, 8)
+                         .astype(np.float32))
+    gamma, beta = 0.1 * torch.ones(8, 8), torch.ones(8)
+    # the highest mode: float32 activations and rows
+    assert convops.get_activations_dtype() == torch.float32
+    assert gdn_mod.norm_pool_precision(torch.float32) == torch.float32
+    assert torch.isfinite(gdn_plain(x, gamma, beta)).all()
+    try:
+        convops.set_default_precision("bf16")
+        if switch == "CAE_TPU_BF16_ACTIVATIONS":
+            calls = [convops.get_activations_dtype]
+        else:
+            calls = [lambda: gdn_mod.norm_pool_precision(BF16),
+                     lambda: gdn_plain(x.to(BF16), gamma, beta).dtype]
+        for call in calls:
+            if value == "0":
+                with pytest.raises(ValueError,
+                                   match=f"{switch}=0.*item 14"):
+                    call()
+            else:
+                assert call() == BF16
+        # float32 rows in the bf16 mode (after a batch norm) keep theirs
+        assert gdn_mod.norm_pool_precision(torch.float32) == torch.float32
+    finally:
+        convops.set_default_precision("highest")
+
+
 def _psnr(a, b):
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return 10.0 * np.log10(255.0 ** 2 / mse)

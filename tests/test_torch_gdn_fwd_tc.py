@@ -1,9 +1,9 @@
 """K2, the bf16 mode's GDN forward, on the CPU: its plain version (the
 function the tensor-core kernel of ``csrc/gdn_fwd_bf16_tc.cu`` and, for
-float32 rows, the kernel of ``csrc/gdn.cu`` are held to on the card)
-against the Pallas kernel in interpret mode at C = 3, 128, 130 and 256
-(below, at and past the kernel's resident layout), and what the kernel's
-wrapper refuses.  The kernels themselves run only on the card
+float32 rows, K1's kernel with r in ``csrc/gdn_tc.cu`` are held to on the
+card) against the Pallas kernel in interpret mode at C = 3, 128, 130 and
+256 (below, at and past the kernel's resident layout), and what the two
+wrappers refuse.  The kernels themselves run only on the card
 (``chip_smoke.py``)."""
 
 import jax.numpy as jnp
@@ -13,7 +13,7 @@ import torch
 
 from cnn_autoencoder_tpu.ops.pallas.gdn_kernel import _gdn_train_fwd_pallas
 from cnn_autoencoder_tpu_torch.ops.kernels.gdn_kernel import (
-    gdn_train_fwd_cuda, gdn_train_fwd_plain)
+    gdn_train_fwd_cuda, gdn_train_fwd_f32_cuda, gdn_train_fwd_plain)
 from tests.test_torch_train_kernels import _y_float32_rel_bound, _y_float64
 
 BF16 = torch.bfloat16
@@ -89,3 +89,25 @@ def test_gdn_train_fwd_cuda_refuses(case):
              "beta": "do not match"}[case]
     with pytest.raises(ValueError, match=match):
         gdn_train_fwd_cuda(x, gamma, beta)
+
+
+@pytest.mark.parametrize("case", ["cpu", "bf16", "float16", "strided",
+                                  "gamma", "beta"])
+def test_gdn_train_fwd_f32_cuda_refuses(case):
+    """The wrapper of K2 on float32 rows raises ValueError on what it does
+    not take, before it needs a card: CPU rows, bf16 rows (which take
+    ``gdn_train_fwd_cuda``) and float16 rows, non-contiguous rows, a gamma
+    or a beta that does not match C."""
+    c = 8
+    dtype = {"bf16": torch.bfloat16, "float16": torch.float16}.get(
+        case, torch.float32)
+    x = torch.ones((4, c), dtype=dtype)
+    if case == "strided":
+        x = torch.ones((c, 4)).t()
+    gamma = torch.zeros((c, c + (case == "gamma")))
+    beta = torch.ones(c + (case == "beta"))
+    match = {"cpu": "CUDA tensors", "bf16": "rows of", "float16": "rows of",
+             "strided": "contiguous", "gamma": "do not match",
+             "beta": "do not match"}[case]
+    with pytest.raises(ValueError, match=match):
+        gdn_train_fwd_f32_cuda(x, gamma, beta)

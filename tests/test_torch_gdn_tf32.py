@@ -1,8 +1,9 @@
-"""K1's tensor-core arithmetic, on the CPU: the TF32 split of its operands
-(``tf32_split`` in ``csrc/gdn_tc.cu``, emulated here bit for bit), why its
-pool takes three TF32 passes, and what the wrapper refuses.  The kernel
-itself runs only on the card (``chip_smoke.py`` holds it against
-``gdn_plain`` there)."""
+"""The tensor-core arithmetic of K1 and of K2 on float32 rows (one kernel,
+``csrc/gdn_tc.cu``), on the CPU: the TF32 split of its operands
+(``tf32_split``, emulated here bit for bit), why its pool takes three TF32
+passes, and what K1's wrapper refuses.  The kernel itself runs only on the
+card (``chip_smoke.py`` holds it against ``gdn_plain`` and
+``gdn_train_fwd_plain`` there)."""
 
 import os
 
@@ -12,8 +13,9 @@ import torch
 
 from cnn_autoencoder_tpu_torch.models.factory import \
     autoencoder_from_state_dict
-from cnn_autoencoder_tpu_torch.ops.kernels.gdn_kernel import (gdn_cuda,
-                                                              gdn_plain)
+from cnn_autoencoder_tpu_torch.ops.kernels.gdn_kernel import (
+    gdn_cuda, gdn_plain, gdn_train_fwd_plain)
+from tests.test_torch_gdn_fwd_tc import _ulps
 
 CHECKPOINT = os.path.join(os.path.dirname(__file__), "..", "benchmarks",
                           "bench_flagship.msgpack")
@@ -98,11 +100,23 @@ def _tf32_pool(x2, gamma, passes):
     return pool
 
 
+def _k2_epilogue(norm64, x, inverse):
+    """K2's epilogue on float32 rows from a float64 pool: the norm rounded
+    to float32, its correctly rounded square root, the reciprocal of that
+    (GDN), y = x r in float32 and rb = bf16(r), rounded to nearest even."""
+    s = norm64.float().sqrt()
+    r = s if inverse else 1.0 / s
+    return x * r, r.to(torch.bfloat16)
+
+
 @pytest.mark.parametrize("inverse", [False, True])
-def test_three_tf32_passes_hold_float32(inverse):
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_three_tf32_passes_hold_float32(kernel, inverse):
     """On the flagship's GDN parameters (C = 128) and its activation scale,
-    the three-pass pool stays within 1e-6 of gdn_plain; one pass exceeds
-    the port's 1e-5 limit."""
+    the three-pass pool stays within 1e-6 of gdn_plain (K1); with K2's
+    epilogue, y stays within K1's 3e-6 of the float64 GDN and rb within one
+    bf16 ulp of gdn_train_fwd_plain's.  One pass exceeds the port's 1e-5
+    limit."""
     model = autoencoder_from_state_dict(CHECKPOINT, device="cpu")
     unit = model.decoder.up_1.gdn_up if inverse else \
         model.encoder.down_0.gdn_down
@@ -110,16 +124,27 @@ def test_three_tf32_passes_hold_float32(inverse):
         gamma, beta = (v.detach() for v in unit.effective_params())
     x = torch.from_numpy(np.random.RandomState(3).randn(4096, 128)
                          .astype(np.float32) * 0.5)
-    ref = gdn_plain(x, gamma, beta, inverse).double()
     x64 = x.double()
-    for passes, ok in ((3, 1e-6), (1, None)):
+    if kernel == "K1":
+        ref = gdn_plain(x, gamma, beta, inverse).double()
+    else:  # the GDN in float64
+        norm = (x64 * x64) @ gamma.double().t() + beta.double()
+        ref = x64 * (norm.sqrt() if inverse else norm.rsqrt())
+        _, rb_plain = gdn_train_fwd_plain(x, gamma, beta, inverse)
+    for passes, ok in ((3, 1e-6 if kernel == "K1" else 3e-6), (1, None)):
         norm = _tf32_pool(x * x, gamma, passes) + beta.double()
-        y = x64 * (norm.sqrt() if inverse else norm.rsqrt())
+        if kernel == "K1":
+            y = x64 * (norm.sqrt() if inverse else norm.rsqrt())
+        else:
+            y, rb = _k2_epilogue(norm, x, inverse)
+            y = y.double()
         rel = float(((y - ref).abs() / ref.abs().clamp_min(1e-30)).max())
         if ok is None:
             assert rel > 1e-5, rel
-        else:
-            assert rel <= ok, rel
+            continue
+        assert rel <= ok, rel
+        if kernel == "K2":
+            assert _ulps(rb, rb_plain) <= 1
 
 
 @pytest.mark.parametrize("case", ["cpu", "bf16", "float16", "strided",
@@ -141,3 +166,4 @@ def test_gdn_cuda_refuses(case):
              "gamma": "do not match"}[case]
     with pytest.raises(ValueError, match=match):
         gdn_cuda(x, gamma, beta)
+
