@@ -188,8 +188,36 @@ Phases, in order; any failure exits non-zero:
    device encode and decode, K1 at C = 3 on 16 x 256^2 rows, against the
    plain versions.  The ms per step and peak memory of (a) are printed
    beside phase 8's RateMSE step.
-11. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
-   runs of phases 3, 5, 8 (a), 9 and 10), then the last line
+11. Evaluation and the compressed-domain heads on the frozen flagship:
+   (a) the RD harness (``cli/test_cae.py:test_cae``) over phase 7's 4096^2
+   slide, patch 512, float32 and bf16: the stats file's keys exactly the
+   JAX harness's, launches exactly 4 batches' worth (K1 12, K4 4), bpp
+   within 0.1 %, PSNR within 0.01 dB, SSIM, MS-SSIM and delta-E within
+   1e-4 of the same run through the plain versions, its seconds, the round
+   trip's MP/s and each metric's seconds; (b) a ViT-B/16 head (768, 12
+   heads, MLP 3072, cut 6, 10 classes) trained through the train CLI
+   (``-cr RateMSECE -cmt ViT -ccp 6 -trm class_model``) on a synthetic
+   10-class set in the CIFAR-10 pickle layout, batch 64 of 32^2, 3 steps
+   and 1 validation per mode: launches exact (the codec's serving kernels,
+   K1 3 and K4 1 a step and a validation batch), losses against the plain
+   versions' run (1e-5 / 2e-2), every step-1 head gradient finite and
+   non-zero (the attention's key biases, whose exact gradient is 0,
+   finite), the encoder bit-equal after training; then
+   ``cli/test_cae_classifier.py`` on its checkpoint: the prediction tree's
+   groups, classes equal to the plain run's where the scores are not
+   tied, the metrics equal to its within what the tied images can move;
+   (c) a JNet segmenter (the CLI's 128 / 48 / 1) trained with BCE on
+   phase 8's slides with a label group, batch 16 x 256^2, checked as (b),
+   then the harness with ``-ccm`` on the val slide at the threshold that
+   marks the labels' share of pixels positive, twice and through the
+   plain versions: ROC arrays, ``auc``, the object-level metrics with
+   true positives, both runs bit-equal, scores, classes and metrics
+   against the plain run's; (d) ViT-B/16
+   cut 6, ResNet-152 cut 3, InceptionV3 with its cut from the patch size
+   and JNet on the flagship's latent of 16 x 256^2, float32 and bf16: ms,
+   device busy share and peak memory.
+12. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3, 5, 8 (a), 9, 10 and 11), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
@@ -3112,10 +3140,11 @@ def recorded_steps(torch, cli, rec=None):
 
 
 def cli_run(torch, work, mode, label, steps=CLI_STEPS - 1, extra=(),
-            rec=None):
+            rec=None, argv=None):
     """One in-process ``main`` of the train CLI on the card, in ``mode``'s
     precision; returns (log dir, losses, step times, launches, wall s).
-    ``rec``: as in ``recorded_steps``."""
+    ``rec``: as in ``recorded_steps``; ``argv(log_dir)``, when given, the
+    CLI's arguments in place of phase 8's."""
     from cnn_autoencoder_tpu_torch.cli import train_cae as cli
     from cnn_autoencoder_tpu_torch.ops import convops
     from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
@@ -3124,7 +3153,8 @@ def cli_run(torch, work, mode, label, steps=CLI_STEPS - 1, extra=(),
     from cnn_autoencoder_tpu_torch.utils.loggers import setup_logger
     log_dir = os.path.join(work, label)
     args = get_args("autoencoder", "training",
-                    args_list=cli_argv(work, log_dir, steps, extra))
+                    args_list=(argv(log_dir) if argv else
+                               cli_argv(work, log_dir, steps, extra)))
     setup_logger(args)
     saved = convops.get_default_precision()
     convops.set_default_precision("highest" if mode == "float32" else "bf16")
@@ -4193,6 +4223,548 @@ def phase_arch_options(torch, cli_ms):
     return totals
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+# (a) the RD harness over phase 7's slide: one 'cae' round trip is 4
+# batches of 16 tiles, each K4 and K1 (down_0) in the encode and K1 twice
+# (up_0, up_1) in the decode; the metrics launch no kernel
+RD_LAUNCHES = {"float32": {"gdn_fwd": 12, "conv_gdn_fwd": 4},
+               "bf16": {"gdn_fwd_bf16": 12, "conv_gdn_fwd": 4}}
+RD_METRICS = ("dist", "rate", "ms-ssim", "ssim", "psnr", "delta_cielab")
+# the JAX harness's stats file, key for key (tests/test_harnesses.py:68-85)
+RD_KEYS = (set(RD_METRICS) | {"execution_time", "evaluation_time"}
+           | {k + "_stats" for k in RD_METRICS + ("execution_time",
+                                                  "evaluation_time")}
+           | {"codec", "seed"})
+# the kernel run against the plain versions' run: bpp relative (at most
+# 1e-4 of the symbols flipped), PSNR in dB, the rest absolute
+RD_LIMITS = {"rate": 1e-3, "psnr": 0.01, "ssim": 1e-4, "ms-ssim": 1e-4,
+             "delta_cielab": 1e-4}
+# (b), (c): a head trains on the frozen codec, so nothing upstream of it
+# asks for a gradient and the encoder and decoder run their serving
+# kernels in a train step as in a validation batch (VAL_LAUNCHES); -s 2
+# with -cs 5 gives 3 steps and one validation
+HEAD_STEPS, HEAD_VALIDATIONS = 3, 1
+HEAD_RUN_FLAGS = ["-s", "2", "-cs", "5", "-esp", "100", "-rs", "0",
+                  "-act", "GDN"]
+# (b) the CIFAR-10-layout set: 5 train pickles of 128 images (576 train,
+# 64 val after the loader's split) and a test pickle of 128
+CIFAR_PER_BATCH, VIT_BATCH, VIT_CLASSES = 128, 64, 10
+VIT_FLAGS = ["-cmt", "ViT", "-ccp", "6", "-cr", "RateMSECE", "-trm",
+             "class_model"]
+# (c) JNet with the CLI's -snch / -sbch / -sech defaults (128 / 48 / 1),
+# one class, BCE on phase 8's slides with a label group
+JNET_FLAGS = ["-smt", "JNet", "-cr", "RateMSEBCE", "-trm", "seg_model",
+              "-ncl", "1", "-ldn", "1", "-lda", "YXC"]
+# the attention's key biases: softmax ignores them, so their exact
+# gradient is 0 and the computed one is rounding noise
+ZERO_GRAD = ".self_attention.key.bias"
+
+
+def same_metrics(a, b):
+    """Two metric dicts equal key for key, NaN equal to NaN."""
+    return set(a) == set(b) and all(
+        a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in a)
+
+
+def head_cli_launches(mode, steps, validations):
+    return {k: n * (steps + validations)
+            for k, n in VAL_LAUNCHES[mode].items()}
+
+
+def rd_run(torch, slide_path, work, mode, label):
+    """One ``cli/test_cae.py:test_cae`` over the slide in ``mode``; returns
+    (saved stats, per-image metrics with their seconds, launches, wall s,
+    the reconstruction)."""
+    from cnn_autoencoder_tpu_torch.cli import test_cae as tc
+    from cnn_autoencoder_tpu_torch.ops import convops
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    from cnn_autoencoder_tpu_torch.utils.args import get_args
+    from cnn_autoencoder_tpu_torch.utils.loggers import setup_logger
+    log_dir = os.path.join(work, label)
+    out = os.path.join(work, f"{label}.zarr")
+    args = get_args("autoencoder", "test", args_list=[
+        "-dd", slide_path, "-if", "zarr", "-dg", "0/0", "-da", "YXC",
+        "-chk", CHECKPOINT, "-ps", str(SLIDE_PATCH), "-o", out, "-ld",
+        log_dir, "-rs", "0"])
+    setup_logger(args)
+    saved_precision = convops.get_default_precision()
+    convops.set_default_precision("highest" if mode == "float32" else "bf16")
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, per_image = tc.test_cae(args, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()
+                    if hasattr(fn, "kernel_name")}
+    finally:
+        convops.set_default_precision(saved_precision)
+    saved = torch.load(os.path.join(log_dir, "metrics_stats_0_CAE_.pth"),
+                       weights_only=False)
+    check(set(saved) == RD_KEYS, f"RD {label}: stats keys "
+          f"{sorted(set(saved) ^ RD_KEYS)} differ from the JAX harness's")
+    check(saved["codec"] == "CAE" and saved["seed"] == 0
+          and all(len(saved[k]) == 1 and set(saved[k + "_stats"]) ==
+                  {"avg", "std", "med", "min", "max"}
+                  for k in RD_KEYS if k + "_stats" in RD_KEYS),
+          f"RD {label}: stats schema")
+    one = per_image[0]
+    check(one["compress_time"] > 0 and one["decompress_time"] > 0 and abs(
+        one["compress_time"] + one["decompress_time"]
+        - one["execution_time"]) <= 1e-6 * one["execution_time"],
+        f"RD {label}: stage times {one}")
+    rec = zarrlib.open(out, mode="r")["decompressed/0/0"][...]
+    return saved, one, launches, wall, rec
+
+
+def store_symbols(core, path):
+    """The latent symbols of a 'cae' store's chunks (host-decoded frames)."""
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    arr = zarrlib.open(path, mode="r")["0/0"]
+    return core.entropy_decode([arr.read_chunk_raw(ij)
+                                for ij in sorted(arr.chunk_ids())])[0]
+
+
+def rd_harness(torch, work, model, totals):
+    """(a) The RD harness over the 4096^2 slide in both modes, each against
+    the same run through the plain versions: the metrics and the symbols
+    of the two stores."""
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    from cnn_autoencoder_tpu_torch.storage.cae_codec import CAECodecCore
+    core = CAECodecCore(model, device="cuda")
+    img = synth_histology(SLIDE, SLIDE, seed=0)
+    slide_path = os.path.join(work, "slide.zarr")
+    arr = zarrlib.Group.create(slide_path).create_dataset(
+        "0/0", shape=img.shape, chunks=(SLIDE_PATCH, SLIDE_PATCH, 3),
+        dtype=np.uint8, compressor=None)
+    arr[...] = img
+    mp = SLIDE * SLIDE / 1e6
+    for mode in ("float32", "bf16"):
+        saved, one, launches, wall, rec = rd_run(torch, slide_path, work,
+                                                 mode, f"rd_{mode}")
+        want = RD_LAUNCHES[mode]
+        log(f"RD harness {mode}: launches {launches}")
+        check(launches == {k: want.get(k, 0) for k in launches},
+              f"RD harness {mode}: launches {launches}, expected {want}")
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        with plain_versions():
+            ref, _, _, _, ref_rec = rd_run(torch, slide_path, work, mode,
+                                           f"rd_{mode}_plain")
+        diffs = {}
+        for key, limit in RD_LIMITS.items():
+            a, b = saved[key][0], ref[key][0]
+            diffs[key] = abs(a - b) / abs(b) if key == "rate" else abs(a - b)
+            check(np.isfinite(a) and diffs[key] <= limit,
+                  f"RD harness {mode}: {key} {a} against the plain "
+                  f"versions' {b} ({diffs[key]:.3e} > {limit})")
+        sym, ref_sym = (store_symbols(core, os.path.join(work, f"{n}.zarr"))
+                        for n in (f"rd_{mode}", f"rd_{mode}_plain"))
+        flips = float(np.mean(sym != ref_sym))
+        check(sym.shape == ref_sym.shape and flips <= 1e-4,
+              f"RD harness {mode}: {flips:.3e} of the symbols flipped "
+              "against the plain versions' run (limit 1e-4)")
+        d = np.abs(rec.astype(np.int32) - ref_rec)
+        times = ", ".join(f"{k} {one[k + '_time']:.3f} s"
+                          for k in RD_METRICS)
+        log(f"RD harness {mode} [{CARD}]: {SLIDE}^2 slide, patch "
+            f"{SLIDE_PATCH}: test_cae {wall:.2f} s, round trip "
+            f"{one['execution_time']:.3f} s ({mp / one['execution_time']:.2f}"
+            f" MP/s: compress_image {one['compress_time']:.3f} s, "
+            f"decompress_image {one['decompress_time']:.3f} s with its "
+            f"Blosc-zlib level-9 store), metrics {one['evaluation_time']:.3f}"
+            f" s ({times}); "
+            + ", ".join(f"{k} {saved[k][0]:.6f}" for k in RD_METRICS)
+            + "; against the plain versions' run: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+            + f" (limits {RD_LIMITS}); symbols flipped {flips:.3e} of "
+            f"{sym.size} (limit 1e-4), u8 pixels differing "
+            f"{np.mean(d != 0):.3e} (by up to {d.max()}); stats file keys "
+            "equal to the JAX harness's")
+
+
+def write_cifar(work):
+    """A synthetic 10-class set in the CIFAR-10 pickle layout: each class a
+    mean color and a stripe period, with seeded noise."""
+    import pickle
+    root = os.path.join(work, "cifar")
+    os.makedirs(root)
+    rng = np.random.RandomState(17)
+    colors = rng.rand(VIT_CLASSES, 3) * 160 + 48
+    yy, xx = np.mgrid[0:32, 0:32]
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        labels = rng.randint(0, VIT_CLASSES, CIFAR_PER_BATCH)
+        stripes = np.stack([np.sin((xx + yy) * (c + 1) / 6.0)
+                            for c in labels])[..., None] * 30
+        imgs = (colors[labels][:, None, None, :] + stripes
+                + rng.randn(CIFAR_PER_BATCH, 32, 32, 3) * 12)
+        data = np.clip(imgs, 0, 255).astype(np.uint8).transpose(0, 3, 1, 2)
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump({b"data": data.reshape(CIFAR_PER_BATCH, -1),
+                         b"labels": labels.tolist()}, f)
+    return root
+
+
+def write_labels(work):
+    """A label group (``labels/0/0``, YXC, one channel) in each of phase
+    8's slides: the darker 32^2 blocks of the slide (a few connected
+    regions, not the noise's speckle)."""
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    for name, side, seed in CLI_SLIDES:
+        img = synth_histology(side, side, seed=seed)
+        n = side // 32
+        dark = img.astype(np.float32).mean(-1).reshape(n, 32, n, 32) \
+            .mean((1, 3)) < 150
+        labels = np.repeat(np.repeat(dark, 32, 0), 32, 1)[..., None] \
+            .astype(np.uint8)
+        arr = zarrlib.Group.create(os.path.join(work, f"{name}.zarr")) \
+            .create_dataset("labels/0/0", shape=labels.shape,
+                            chunks=(CLI_PATCH, CLI_PATCH, 1),
+                            dtype=np.uint8, compressor=None)
+        arr[...] = labels
+
+
+def head_train(torch, work, model, kind, mode, argv):
+    """One counted train-CLI run of a head on the frozen flagship and the
+    same run through the plain versions: launches exact, losses within
+    phase 8's limits, every step-1 head gradient finite and non-zero (the
+    attention's key biases finite), the encoder bit-equal after training.
+    Returns (launches, log dir, ms per step, images/s, losses)."""
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    rtol = 1e-5 if mode == "float32" else 2e-2
+    module = "class_model" if kind == "ViT" else "seg_model"
+    label = f"{kind}_{mode}"
+    rec = {}
+    log_dir, losses, times, launches, _ = cli_run(
+        torch, work, mode, label, rec=rec, argv=argv)
+    want = head_cli_launches(mode, HEAD_STEPS, HEAD_VALIDATIONS)
+    log(f"{label}: launches {launches}")
+    check(len(losses) == HEAD_STEPS, f"{label}: {len(losses)} steps")
+    check(launches == {k: want.get(k, 0) for k in launches},
+          f"{label}: launches {launches}, expected {want}")
+    with plain_versions():
+        _, plain, _, _, _ = cli_run(torch, work, mode, label + "_plain",
+                                    argv=argv)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    check(len(plain) == len(losses) and rel <= rtol,
+          f"{label}: losses {losses} against the plain versions' {plain} "
+          f"(max relative {rel:.3e} > {rtol})")
+    check(set(rec["grads"]) == {module}, f"{label}: gradients of "
+          f"{sorted(rec['grads'])}")
+    zero = 0.0
+    for name, g in rec["grads"][module].items():
+        check(bool(torch.isfinite(g).all()), f"{label} step 1: the gradient "
+              f"of {name} is not finite")
+        if name.endswith(ZERO_GRAD):
+            zero = max(zero, float(g.abs().max()))
+        else:
+            check(float(g.abs().max()) > 0, f"{label} step 1: the gradient "
+                  f"of {name} is zero")
+    last = cli_checkpoints(log_dir)["last"]
+    trained = autoencoder_from_state_dict(last, device="cuda")
+    for name, p in model.encoder.state_dict().items():
+        check(torch.equal(trained.encoder.state_dict()[name], p),
+              f"{label}: the encoder's {name} moved")
+    ms = float(np.mean(times[1:])) * 1e3
+    batch = VIT_BATCH if kind == "ViT" else CLI_BATCH
+    keys = (f" but the attention's key biases' (max {zero:.3e})"
+            if kind == "ViT" else "")
+    log(f"{label} [{CARD}]: {HEAD_STEPS} steps of {batch} and "
+        f"{HEAD_VALIDATIONS} validation on the frozen flagship; losses "
+        f"{losses}; plain versions {plain}, max relative {rel:.3e} (limit "
+        f"{rtol}); all {len(rec['grads'][module])} step-1 head gradients "
+        f"finite and non-zero{keys}; encoder bit-equal; {ms:.3f} ms per "
+        f"step after the first, {batch / ms * 1e3:.2f} images/s")
+    return launches, last, ms
+
+
+def classifier_run(torch, work, label, argv):
+    """``cli/test_cae_classifier.py:test`` on the card; returns (metrics,
+    the prediction tree's arrays by path, object-level metrics or None)."""
+    from cnn_autoencoder_tpu_torch.cli import test_cae_classifier as tcc
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    from cnn_autoencoder_tpu_torch.utils.args import get_args
+    from cnn_autoencoder_tpu_torch.utils.loggers import setup_logger
+    log_dir = os.path.join(work, label)
+    args = get_args("autoencoder", "test", args_list=argv(log_dir))
+    setup_logger(args)
+    metrics = tcc.test(args, device="cuda")
+    objects = metrics.pop("object_level", None)
+    tree = {}
+
+    def walk(node, prefix):
+        for key in node.keys():
+            child = node[key]
+            path = f"{prefix}/{key}" if prefix else key
+            if isinstance(child, zarrlib.Group):
+                walk(child, path)
+            else:
+                tree[path] = child[...]
+    walk(zarrlib.open(os.path.join(log_dir, "output.zarr"), mode="r"), "")
+    return metrics, tree, objects
+
+
+def vit_phase(torch, work, model, totals):
+    """(b) ViT-B/16 cut 6 through the train CLI on the CIFAR-10-layout set,
+    both modes, then the classifier harness on the float32 checkpoint."""
+    root = write_cifar(work)
+
+    def train_argv(log_dir):
+        return (["-ds", "CIFAR10", "-dd", root, "-chk", CHECKPOINT, "-bs",
+                 str(VIT_BATCH), "-vbs", str(VIT_BATCH), "-ps", "32",
+                 "-ld", log_dir] + HEAD_RUN_FLAGS + VIT_FLAGS)
+    ms = {}
+    for mode in ("float32", "bf16"):
+        launches, last, ms[mode] = head_train(torch, work, model, "ViT",
+                                              mode, train_argv)
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        if mode == "float32":
+            chk = last
+
+    def test_argv(log_dir):
+        return ["-ds", "CIFAR10", "-dd", root, "-chk", chk, "-bs",
+                str(VIT_BATCH), "-ps", "32", "-ld", log_dir]
+    metrics, tree, _ = classifier_run(torch, work, "vit_test", test_argv)
+    with plain_versions():
+        ref, ref_tree, _ = classifier_run(torch, work, "vit_test_plain",
+                                          test_argv)
+    check({k.split("/")[0] for k in tree} == {"target", "scores", "class",
+                                              "topk"}
+          and set(tree) == set(ref_tree),
+          f"ViT harness: prediction tree {sorted(tree)}")
+    clear = tied = 0
+    differ = {"class": 0, "topk": 0}
+    for path, scores in tree.items():
+        if not path.startswith("scores/"):
+            continue
+        top2 = np.sort(scores, -1)[:, -2:]
+        ok = top2[:, 1] - top2[:, 0] > 1e-4
+        sub = path.split("/", 1)[1]
+        check(np.array_equal(tree["class/" + sub][ok],
+                             ref_tree["class/" + sub][ok]),
+              f"ViT harness: classes of {sub} differ from the plain run's")
+        clear, tied = clear + int(ok.sum()), tied + int((~ok).sum())
+        for group in differ:
+            a, b = tree[f"{group}/{sub}"], ref_tree[f"{group}/{sub}"]
+            differ[group] += int(np.any((a != b).reshape(len(a), -1),
+                                        1).sum())
+    # an image whose class (top-k) differs moves acc (top_acc) by 1 / p at
+    # most; where none differs, every metric is the plain run's
+    if differ["class"] == differ["topk"] == 0:
+        check(same_metrics(metrics, ref), f"ViT harness: metrics {metrics} "
+              f"against the plain versions' {ref}")
+    for key, group in (("acc", "class"), ("top_acc", "topk")):
+        bound = differ[group] / metrics["p"] + 1e-12
+        check(abs(metrics[key] - ref[key]) <= bound, f"ViT harness: {key} "
+              f"{metrics[key]} against the plain versions' {ref[key]} "
+              f"({differ[group]} images' {group} differ)")
+    log(f"ViT harness [{CARD}]: {metrics['p']} test images, acc "
+        f"{metrics['acc']:.4f}, top-5 {metrics['top_acc']:.4f} (plain "
+        f"versions {ref['acc']:.4f} / {ref['top_acc']:.4f}); classes equal "
+        f"on {clear} untied images ({tied} tied within 1e-4); class / top-5 "
+        f"differing on {differ['class']} / {differ['topk']} images, "
+        "metrics held to the plain run's within those")
+    return ms
+
+
+def jnet_phase(torch, work, model, totals):
+    """(c) JNet through the train CLI on phase 8's slides with a label
+    group, both modes, then the harness on the float32 checkpoint
+    (``jnet_harness``)."""
+    write_cli_slides(work)
+    write_labels(work)
+    val = os.path.join(work, "val_0.zarr")
+
+    def train_argv(log_dir):
+        return (cli_argv(work, log_dir, 2) + HEAD_RUN_FLAGS + JNET_FLAGS)
+    ms = {}
+    for mode in ("float32", "bf16"):
+        launches, last, ms[mode] = head_train(torch, work, model, "JNet",
+                                              mode, train_argv)
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        if mode == "float32":
+            chk = last
+    jnet_harness(torch, work, val, chk)
+    return ms
+
+
+def jnet_harness(torch, work, val, chk):
+    """(c) ``cli/test_cae_classifier.py`` with ``-ccm`` on JNet's
+    checkpoint over the val slide: at a threshold that gives positives,
+    twice (bit-equal) and through the plain versions."""
+    def test_argv(thr):
+        def argv(log_dir):
+            return (["-ds", "Zarr", "-dd", val, "-dg", "0/0", "-da", "YXC",
+                     "-chk", chk, "-bs", str(CLI_BATCH), "-ps",
+                     str(CLI_PATCH), "-ccm", "-thr", repr(thr), "-ld",
+                     log_dir] + JNET_FLAGS[-6:])
+        return argv
+    # 3 steps from seed 0 leave every score below the default 0.5; the
+    # threshold that marks as many pixels positive as the labels hold
+    # gives the object-level path true and false positives to count
+    _, first, _ = classifier_run(torch, work, "jnet_test_0.5",
+                                 test_argv(0.5))
+    scores = np.concatenate([v.ravel() for k, v in first.items()
+                             if k.startswith("scores/") and k.endswith("/0")])
+    labels = np.concatenate([v.ravel() for k, v in first.items()
+                             if k.startswith("target/") and k.endswith("/0")])
+    thr = float(np.quantile(scores, 1.0 - float(np.mean(labels > 0))))
+    runs = [classifier_run(torch, work, f"jnet_test_{i}", test_argv(thr))
+            for i in range(2)]
+    (metrics, tree, objects), (again, tree2, again_objects) = runs
+    for key in ("image_level/fpr", "image_level/tpr", "image_level/thrsh",
+                "object_level/fpr", "object_level/tpr"):
+        check(key in tree, f"JNet harness: no {key} in the tree")
+    crops = [k for k in tree if k.startswith("scores/")
+             and not k.endswith("/0")]
+    check(set(tree) == set(tree2) and all(
+        np.array_equal(tree[k], tree2[k]) for k in tree),
+        "JNet harness: two runs' prediction trees differ")
+    check(np.isfinite(metrics["auc"]) and objects is not None
+          and same_metrics(metrics, again)
+          and same_metrics(objects, again_objects),
+          f"JNet harness: metrics {metrics} and {again}")
+    check(metrics["f1"] > 0 and objects["f1"] > 0, f"JNet harness at "
+          f"{thr}: no true positive ({metrics}, objects {objects})")
+    with plain_versions():
+        ref, ref_tree, ref_objects = classifier_run(
+            torch, work, "jnet_test_plain", test_argv(thr))
+    # a symbol flipped between the two runs' latents moves the scores
+    # around it: held as a share of the pixels, and the metrics to within
+    # a share of that order
+    check(set(tree) == set(ref_tree), "JNet harness: the plain run's "
+          "tree has other arrays")
+    n = sum(tree[k].size for k in tree if k.startswith("class/"))
+    moved = sum(int(np.sum(np.abs(tree[k] - ref_tree[k]) > 1e-4))
+                for k in tree if k.startswith("scores/"))
+    flipped = sum(int(np.sum(tree[k] != ref_tree[k]))
+                  for k in tree if k.startswith("class/"))
+    check(all(np.array_equal(tree[k], ref_tree[k]) for k in tree
+              if k.startswith("target/")), "JNet harness: targets differ")
+    check(moved <= 1e-3 * n and flipped <= 1e-3 * n, f"JNet harness: "
+          f"{moved} scores moved by more than 1e-4 and {flipped} classes "
+          f"of {n} differ from the plain run's (limit 1e-3 of them)")
+    gaps = {f"{level} {k}": (0.0 if np.isnan(a[k]) and np.isnan(b[k])
+                             else abs(a[k] - b[k]))
+            for level, a, b in (("image", metrics, ref),
+                                ("object", objects, ref_objects))
+            for k in ("acc", "prec", "rec", "f1", "auc") if k in a}
+    check(all(v <= 1e-3 for v in gaps.values()), f"JNet harness: metrics "
+          f"against the plain versions' {gaps} (limit 1e-3)")
+    log(f"JNet harness [{CARD}]: {CLI_SLIDES[2][1]}^2 val slide, "
+        f"{len(crops)} component crops, threshold {thr:.6f} (the "
+        f"labels' {np.mean(labels > 0):.4f} positive share); image level "
+        f"acc {metrics['acc']:.4f}, f1 {metrics['f1']:.4f}, auc "
+        f"{metrics['auc']:.4f} ({len(tree['image_level/fpr'])} ROC points);"
+        f" object level acc {objects['acc']:.4f}, f1 {objects['f1']:.4f}, "
+        f"auc {objects.get('auc', float('nan')):.4f}; two runs bit-equal; "
+        f"against the plain versions' run: {moved} scores moved by more "
+        f"than 1e-4 and {flipped} classes differ of {n}, largest metric "
+        f"gap {max(gaps.values()):.3e} (limit 1e-3)")
+
+
+def head_modules(torch):
+    """The four heads at full width on the flagship's latent (48 channels,
+    32^2 for 256^2 inputs), from seed 0."""
+    from cnn_autoencoder_tpu_torch.models.classifiers import (
+        InceptionV3ClassifierHead, ResNetClassifierHead, ViTClassifierHead)
+    from cnn_autoencoder_tpu_torch.models.segmenters import JNet
+    side = TRAIN_PATCH // 8
+    heads = {
+        "ViT-B/16 cut 6": ViTClassifierHead(
+            channels_bn=48, cut_position=6, num_classes=VIT_CLASSES,
+            input_size=(side, side)),
+        "ResNet-152 cut 3": ResNetClassifierHead(
+            channels_bn=48, cut_position=3, num_classes=VIT_CLASSES),
+        "InceptionV3 cut from the patch": InceptionV3ClassifierHead(
+            channels_bn=48, cut_position=None, patch_size=TRAIN_PATCH,
+            compression_level=3, num_classes=VIT_CLASSES),
+        "JNet": JNet(channels_bn=48, seg_channels_net=128,
+                     seg_channels_bn=48, seg_channels_expansion=1,
+                     compression_level=3, num_classes=1, batch_norm=False),
+    }
+    gen = torch.Generator().manual_seed(0)
+    for head in heads.values():
+        for m in head.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters(gen)
+        head.cuda().eval()
+    return heads
+
+
+def head_forwards(torch, model):
+    """(d) Each head's forward at full width on the flagship's latent of a
+    16 x 256^2 batch, float32 and bf16: ms (CUDA events), device busy
+    share (torch.profiler) and peak memory."""
+    from cnn_autoencoder_tpu_torch.models.tasks import make_forward_fn
+    x = synthetic_batch(torch)
+    forward = make_forward_fn(model, ["encoder", "fact_ent"])
+    heads = head_modules(torch)
+    lines = []
+    for mode, dtype in (("float32", torch.float32),
+                        ("bf16", torch.bfloat16)):
+        with torch.no_grad():
+            y_q = forward(x.to(dtype), compute_dtype=dtype)[0]["y_q"]
+        for name, head in heads.items():
+            def run():
+                with torch.no_grad():
+                    return head(y_q)[0]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = run()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            check(bool(torch.isfinite(out).all()), f"{name} {mode}: "
+                  "logits not finite")
+            ms = cuda_ms(torch, run, 5)
+            busy = profile_device(torch, run, f"{name} forward, {mode}")
+            lines.append(f"{name} {mode} {ms:.3f} ms, busy "
+                         f"{busy * 1e3 / ms:.2f} of the call (profiled), "
+                         f"{peak:.3f} GiB over the latent, out "
+                         f"{tuple(out.shape)}")
+    log(f"head forwards [{CARD}], the flagship's latent of {TRAIN_BATCH} x "
+        f"{TRAIN_PATCH}^2 (the heads compute in float32 in both modes): "
+        + "; ".join(lines))
+
+
+def phase_eval_heads(torch, model):
+    """Phase 11: the RD harness, a ViT and a JNet head trained through the
+    train CLI on the frozen flagship, the classifier harness, and each
+    head's forward at full width; returns the launches of the counted
+    runs."""
+    import shutil
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase11")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    totals = {}
+    try:
+        rd_harness(torch, work, model, totals)
+        t1 = time.perf_counter()
+        vit_ms = vit_phase(torch, work, model, totals)
+        t2 = time.perf_counter()
+        jnet_ms = jnet_phase(torch, work, model, totals)
+        t3 = time.perf_counter()
+        head_forwards(torch, model)
+        log(f"phase 11 train steps [{CARD}], ms per step: ViT "
+            f"{vit_ms['float32']:.3f} / {vit_ms['bf16']:.3f}, JNet "
+            f"{jnet_ms['float32']:.3f} / {jnet_ms['bf16']:.3f} float32 / "
+            f"bf16; seconds: RD harness {t1 - t0:.1f}, ViT {t2 - t1:.1f}, "
+            f"JNet {t3 - t2:.1f}, forwards {time.perf_counter() - t3:.1f}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"evaluation and heads phase: {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4226,6 +4798,8 @@ def main():
     for name, n in phase_energy_multiscale(torch, model, core, cli_ms).items():
         launches[name] += n
     for name, n in phase_arch_options(torch, cli_ms).items():
+        launches[name] += n
+    for name, n in phase_eval_heads(torch, model).items():
         launches[name] += n
     check(all(launches[name] > 0 for name in records),
           f"a kernel was not launched on the main paths: {launches}")

@@ -20,6 +20,15 @@ training noise come from one ``torch.Generator`` on the device, seeded from
 widths) reach the model; ``last_`` and ``best_`` checkpoints carry a
 batch-norm model's running statistics (``batch_stats``).
 
+The compressed-domain heads train through the same loop: ``-cmt ViT|ResNet|
+InceptionV3`` with ``-ccp`` (the cut) or ``-smt UNet|JNet`` (with ``-snch``,
+``-sbch``, ``-sech``) add the head to the model (a checkpoint without one
+starts it from seed 0), a criterion with a class loss (``-cr RateMSECE``,
+``RateMSEBCE``, ... ``WithAux`` / ``Weighted`` by name) takes the batches'
+targets, ``-trm class_model`` or ``-trm seg_model`` trains the head alone on
+the frozen codec, and the log line reports ``C=`` (the class error).
+``num_classes`` comes from the dataset (``get_data``; ``-ncl`` for zarr).
+
 Left out: the JAX CLI's mesh and multi-host branches (``ROADMAP.md`` §1 item
 10).
 """
@@ -183,10 +192,12 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
         int(args.seed or 0))
 
     def placed_batches(data):
-        """Host batches -> float32 tensors on the device."""
+        """Host batches -> float32 tensors on the device, and their targets
+        (labels or label maps) as tensors there."""
         for x, t in data:
-            yield torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-                device), t
+            yield (torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+                device), None if t is None else
+                torch.from_numpy(np.ascontiguousarray(t)).to(device))
 
     best_valid_loss = float("inf")
     train_loss_history, valid_loss_history = [], []
@@ -200,7 +211,7 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
     while keep_training:
         sum_loss = 0.0
         epoch_start_step = step
-        for i, (x, _) in enumerate(placed_batches(train_data)):
+        for i, (x, t) in enumerate(placed_batches(train_data)):
             step += 1
 
             if "penalty" in stopping_criteria:
@@ -212,7 +223,8 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
             sub_step_loss = 0.0
             while True:
                 sub_step += 1
-                stats, _ = train_step(x, lrs, step, generator=generator)
+                stats, _ = train_step(x, lrs, step, generator=generator,
+                                      t=t)
                 stats = _host(stats)
                 sub_step_loss += float(stats["loss"])
                 channel_e_history.append(int(stats.get("channel_e", -1)))

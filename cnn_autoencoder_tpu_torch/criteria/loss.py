@@ -8,12 +8,14 @@ JAX package's ``criteria/loss.py:37-168``.  It sums, in this order:
 * rate (bpp), with the bottleneck's auxiliary quantile loss returned as
   ``entropy_loss`` for the train step to add;
 * the energy penalty A or B, weighted by ``penalty_beta`` (the registry
-  indexed by ``penalty_loss_type``).
+  indexed by ``penalty_loss_type``);
+* the classification or segmentation loss (``criteria/classification.py``)
+  of the classifier's logits ``t_pred`` / ``t_aux_pred``, else the
+  segmenter's ``s_pred`` / ``s_aux_pred``, against ``targets``, weighted by
+  ``class_error_mu`` and ``class_error_aux_mu``.
 
 ``net`` carries what the losses need from the model: ``fact_ent_params``
 and ``num_filters`` (the auxiliary loss) and ``decoder_fn`` (PenaltyB).
-A criterion that asks for a classification loss raises: the heads are not
-ported yet.
 """
 
 from typing import Dict, Optional
@@ -21,6 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from ..models.entropy import aux_loss_fn
+from .classification import CLASSLOSS_LIST
 from .ratedist import (DIST_LOSS_LIST, PENALTY_LOSS_LIST, RATE_LOSS_LIST,
                        penalty_a, penalty_b)
 
@@ -38,10 +41,10 @@ class GeneralLoss:
                  class_loss_type: Optional[str] = None,
                  distortion_lambda=0.1,
                  penalty_beta: float = 0.001,
+                 class_error_mu: float = 1.0,
+                 class_error_aux_mu: float = 1.0,
                  channel_e: int = 0,
                  **kwargs):
-        if class_loss_type is not None and class_loss_type.lower() != "none":
-            raise ValueError(f"class loss {class_loss_type} is not ported yet")
         self.dist_loss = None
         if dist_loss_type is not None:
             _check("distortion", dist_loss_type, DIST_LOSS_LIST)
@@ -61,10 +64,22 @@ class GeneralLoss:
             self._penalty_type = penalty_loss_type
             self._penalty_beta = penalty_beta
             self._channel_e = channel_e
+        self.class_loss = None
+        if class_loss_type is not None and class_loss_type.lower() != "none":
+            _check("class", class_loss_type, CLASSLOSS_LIST)
+            self.class_loss = CLASSLOSS_LIST[class_loss_type](**kwargs)
+            self._class_error_mu = class_error_mu
+            self._class_error_aux_mu = class_error_aux_mu
+
+    def _class_loss(self, outputs, targets) -> Dict[str, torch.Tensor]:
+        if outputs.get("t_pred") is not None:
+            pred, aux_pred = outputs["t_pred"], outputs.get("t_aux_pred")
+        else:
+            pred, aux_pred = outputs["s_pred"], outputs.get("s_aux_pred")
+        return self.class_loss(pred=pred, aux_pred=aux_pred, t=targets)
 
     def __call__(self, inputs: torch.Tensor, outputs, targets=None,
                  net=None) -> Dict[str, torch.Tensor]:
-        del targets
         loss = torch.zeros((), device=inputs.device)
         loss_dict = {"channel_e": torch.tensor(-1, device=inputs.device)}
         if self.dist_loss is not None:
@@ -90,13 +105,19 @@ class GeneralLoss:
                                        channel_e=self._channel_e))
         if self._penalty_type is not None:
             loss = loss + self._penalty_beta * loss_dict["weighted_penalty"]
+        if self.class_loss is not None:
+            loss_dict.update(self._class_loss(outputs, targets))
+            loss = (loss + self._class_error_mu * loss_dict["class_error"]
+                    + self._class_error_aux_mu
+                    * loss_dict["aux_class_error"])
         loss_dict["loss"] = loss
         return loss_dict
 
 
 def setup_loss(criterion: str, **kwargs) -> GeneralLoss:
     """Parse a criterion string (``"RateMSE"``, ``"MultiscaleRateMSSSIM"``,
-    ``"RateMSEPA"``, ...) into a GeneralLoss, by the JAX package's rules."""
+    ``"RateMSEPA"``, ``"RateMSECE"``, ...) into a GeneralLoss, by the JAX
+    package's rules: BCE before CE, then "weighted", then "aux"."""
     crit = criterion.lower()
     rate_loss_type = "Rate" if "rate" in crit else None
     if "mse" in crit:
@@ -119,5 +140,9 @@ def setup_loss(criterion: str, **kwargs) -> GeneralLoss:
         class_loss_type = "CELoss"
     else:
         class_loss_type = None
+    if class_loss_type is not None and "weighted" in crit:
+        class_loss_type = "Weighted" + class_loss_type
+    if class_loss_type is not None and "aux" in crit:
+        class_loss_type += "WithAux"
     return GeneralLoss(dist_loss_type, rate_loss_type, penalty_loss_type,
                        class_loss_type, **kwargs)

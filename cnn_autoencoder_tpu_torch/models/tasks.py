@@ -11,8 +11,11 @@ the counterpart of the JAX package's ``stop_gradient`` on its variables: its
 own parameters get no gradient, while gradients flow through it to
 trainable modules upstream.  As in the JAX package, such a module cannot
 run its batch norms in train mode (JAX raises ``ModifyScopeVariableError``;
-the port raises ``ValueError``).  Disabled modules are identity stubs.  The
-classifier and segmenter heads are not ported and raise.
+the port raises ``ValueError``).  Disabled modules are identity stubs.
+The classifier (``t_pred``, ``t_aux_pred``) and the segmenter (``s_pred``,
+``s_aux_pred``) run on the quantized latent ``y_q``, the segmenter with
+the decoder's bridges ``fx_brg`` too (JAX ``models/tasks.py:90-104``), in
+float32 in both compute modes (``models/classifiers.py``).
 """
 
 from typing import Callable, Dict, Optional, Sequence
@@ -23,7 +26,6 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.batchnorm import BatchNorm
 
 ALL_MODULES = ("encoder", "decoder", "fact_ent", "class_model", "seg_model")
-_PORTED = ("encoder", "decoder", "fact_ent")
 
 
 def module_runner(model, trainable_modules: Optional[Sequence[str]] = None
@@ -76,32 +78,29 @@ def make_forward_fn(model, enabled_modules: Optional[Sequence[str]] = None,
     anything else runs.  ``compute_dtype`` is the network's compute type
     (None: x's), handed to every layer.  The decoder's input takes the
     latent's dtype, as in the JAX package.  ``remat`` recomputes the
-    encoder's and the decoder's forwards in the backward
+    encoder's, the decoder's and the heads' forwards in the backward
     (``torch.utils.checkpoint``), the JAX package's ``jax.checkpoint``: the
     masks and the bottleneck's noise are drawn outside the recomputed
     parts, so the recompute sees the same values."""
     if enabled_modules is None:
         enabled_modules = [m for m in ALL_MODULES if hasattr(model, m)]
     enabled = [m for m in enabled_modules if hasattr(model, m)]
-    for name in enabled:
-        if name not in _PORTED:
-            raise ValueError(f"module {name} is not ported yet")
     trainable = set(trainable_modules or ())
     run = module_runner(model, trainable)
     # each module's batch norms, by their names in its state dict
     norms = {name: {m: path for path, m in getattr(model, name)
                     .named_modules() if isinstance(m, BatchNorm)}
-             for name in ("encoder", "decoder") if name in enabled}
+             for name in ("encoder", "decoder", "class_model", "seg_model")
+             if name in enabled}
 
-    def run_net(name, inp, train, compute_dtype, masks, collected):
+    def run_net(name, inp, train, collected, **kwargs):
         if train and norms[name] and name not in trainable:
             raise ValueError(f"{name} is not trainable, so its batch norms "
                              "cannot update their statistics in train mode "
                              "(the JAX package raises "
                              "ModifyScopeVariableError)")
         stats = {} if train and norms[name] else None
-        kwargs = dict(train=train, compute_dtype=compute_dtype,
-                      masks=(masks or {}).get(name), batch_stats=stats)
+        kwargs.update(train=train, batch_stats=stats)
         if remat and train:
             out = checkpoint(run, name, inp, use_reentrant=False,
                              preserve_rng_state=False, **kwargs)
@@ -123,21 +122,31 @@ def make_forward_fn(model, enabled_modules: Optional[Sequence[str]] = None,
             masks = draw_masks(model, enabled, x.shape[0], generator,
                                x.device)
         new_state: Dict[str, Dict[str, torch.Tensor]] = {}
-        y = (run_net("encoder", x, train, compute_dtype, masks, new_state)
-             if "encoder" in enabled else x)
+        def run_cae(name, inp):
+            return run_net(name, inp, train, new_state,
+                           compute_dtype=compute_dtype,
+                           masks=(masks or {}).get(name))
+
+        y = run_cae("encoder", x) if "encoder" in enabled else x
         if "fact_ent" in enabled:
             y_q, p_y = run("fact_ent", y, training=train, noise=noise,
                            generator=generator)
         else:
             y_q, p_y = y, None
         if "decoder" in enabled:
-            x_r, fx_brg = run_net("decoder", y_q.to(y.dtype), train,
-                                  compute_dtype, masks, new_state)
+            x_r, fx_brg = run_cae("decoder", y_q.to(y.dtype))
         else:
             x_r, fx_brg = y_q, None
+        t_pred = t_aux_pred = s_pred = s_aux_pred = None
+        if "class_model" in enabled:
+            t_pred, t_aux_pred = run_net("class_model", y_q, train,
+                                         new_state)
+        if "seg_model" in enabled:
+            s_pred, s_aux_pred = run_net("seg_model", y_q, train, new_state,
+                                         fx_brg=fx_brg)
         outputs = dict(x_r=x_r, fx_brg=fx_brg, y=y, y_q=y_q, p_y=p_y,
-                       t_pred=None, t_aux_pred=None, s_pred=None,
-                       s_aux_pred=None)
+                       t_pred=t_pred, t_aux_pred=t_aux_pred, s_pred=s_pred,
+                       s_aux_pred=s_aux_pred)
         return outputs, new_state
 
     return forward

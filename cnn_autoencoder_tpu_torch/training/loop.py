@@ -65,10 +65,12 @@ def make_train_step(model, criterion, optimizers,
                     compute_dtype: torch.dtype = torch.float32,
                     remat: bool = False):
     """Build ``train_step(x, lrs, step, noise=None, generator=None,
-    masks=None) -> (stats, grads)``.
+    masks=None, t=None) -> (stats, grads)``.
 
-    ``x`` is a float32 NHWC batch on the model's device, ``lrs`` a dict of
-    learning rates per optimizer slot, ``step`` the 1-based step number.
+    ``x`` is a float32 NHWC batch on the model's device, ``t`` its targets
+    (labels or label maps, for a criterion with a class loss), ``lrs`` a
+    dict of learning rates per optimizer slot, ``step`` the 1-based step
+    number.
     The dropout masks are ``masks`` when given (``models/tasks.py:
     draw_masks``' layout), else drawn from ``generator``, and then the
     bottleneck's noise is ``noise`` when given, else drawn from
@@ -88,7 +90,8 @@ def make_train_step(model, criterion, optimizers,
     def train_step(x: torch.Tensor, lrs: Dict[str, float], step: int,
                    noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
-                   masks: Optional[Dict] = None):
+                   masks: Optional[Dict] = None,
+                   t: Optional[torch.Tensor] = None):
         # TF32 off for the forward and for autograd's backward kernels
         with full_f32():
             outputs, new_state = forward(
@@ -96,7 +99,8 @@ def make_train_step(model, criterion, optimizers,
                 generator=generator, masks=masks,
                 compute_dtype=compute_dtype)
             fold_batch_stats(model, new_state)
-            loss_dict = criterion(x, outputs, net=_net_aux(model, trainable))
+            loss_dict = criterion(x, outputs, targets=t,
+                                  net=_net_aux(model, trainable))
             total = torch.mean(loss_dict["loss"])
             if "entropy_loss" in loss_dict:
                 total = total + torch.mean(loss_dict["entropy_loss"])
@@ -116,17 +120,18 @@ def make_train_step(model, criterion, optimizers,
 def make_eval_step(model, criterion,
                    enabled_modules: Optional[Sequence[str]] = None,
                    compute_dtype: torch.dtype = torch.float32):
-    """Build ``eval_step(x) -> stats``: round-to-median quantization, batch
-    norms and dropout in eval mode, no gradient, in ``compute_dtype``."""
+    """Build ``eval_step(x, t=None) -> stats``: round-to-median
+    quantization, batch norms and dropout in eval mode, no gradient, in
+    ``compute_dtype``; ``t`` the batch's targets."""
     _check_dtype(compute_dtype)
     forward = make_forward_fn(model, enabled_modules, trainable_modules=[])
 
     @torch.no_grad()
-    def eval_step(x: torch.Tensor):
+    def eval_step(x: torch.Tensor, t: Optional[torch.Tensor] = None):
         with full_f32():
             outputs, _ = forward(x.to(compute_dtype), train=False,
                                  compute_dtype=compute_dtype)
-            loss_dict = criterion(x, outputs, net=_net_aux(model))
+            loss_dict = criterion(x, outputs, targets=t, net=_net_aux(model))
         return _summary_stats(outputs, loss_dict)
 
     return eval_step
@@ -162,8 +167,8 @@ def valid(eval_step, data):
     sum_loss, count = 0.0, 0
     rec: Dict[str, list] = {}
     for batch in data:
-        x = batch[0] if isinstance(batch, (tuple, list)) else batch
-        stats = eval_step(x)
+        x, t = (batch if isinstance(batch, (tuple, list)) else (batch, None))
+        stats = eval_step(x, t)
         sum_loss += float(stats["loss"])
         count += 1
         for k, v in stats.items():

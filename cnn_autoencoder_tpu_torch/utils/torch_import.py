@@ -23,9 +23,11 @@ arrays), which ``utils/weights.py:state_from_jax`` and
 
 The torch Sequential index layout inside each unit depends on the
 architecture flags; ``_unit_layout`` rebuilds it from the config as the
-reference's constructors build it.  A checkpoint holding classifier or
-segmenter state raises: the heads' importers (JAX ``:279-509``) are not
-ported yet.
+reference's constructors build it.  The heads' importers (JAX
+``:279-509``: ``import_vit``, ``import_resnet``, ``import_inception``,
+``import_class_model``, ``import_unet``) turn torchvision-layout state
+dicts of the cut ViT, ResNet and Inception heads and the reference's
+UNet / JNet into the JAX package's variable trees.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -233,12 +235,8 @@ def convert_reference_checkpoint(chk: Dict[str, Any]) -> Dict[str, Any]:
     optimizer and scheduler states are dropped.  The reference's persisted
     CDF buffers are ignored: the tables are baked again from the quantiles
     (the reference itself updates them on load, ``_autoencoders.py:502``).
-    Classifier or segmenter state raises "not ported"."""
-    for head in ("class_model", "seg_model"):
-        if chk.get(head):
-            raise ValueError(f"the checkpoint holds {head} state: importing "
-                             "the classifier and segmenter heads is not "
-                             "ported yet")
+    A classifier (``class_model_type``) or segmenter (``seg_model_type``)
+    state dict goes through the head importers below."""
     state: Dict[str, Any] = {}
     module_keys = ("encoder", "decoder", "fact_ent", "class_model",
                    "seg_model")
@@ -264,7 +262,258 @@ def convert_reference_checkpoint(chk: Dict[str, Any]) -> Dict[str, Any]:
             bool(chk.get("multiscale_analysis", False)))
     if isinstance(chk.get("fact_ent"), dict):
         state["fact_ent"] = import_fact_ent(chk["fact_ent"], k_filters)
+    if isinstance(chk.get("class_model"), dict) and \
+            chk.get("class_model_type"):
+        state["class_model"] = import_class_model(
+            chk["class_model"], chk["class_model_type"],
+            cut_position=chk.get("cut_position"))
+    if isinstance(chk.get("seg_model"), dict) and chk.get("seg_model_type"):
+        state["seg_model"] = import_unet(
+            chk["seg_model"], compression_level=level,
+            use_analysis_track=chk.get("seg_model_type") == "UNet")
     return state
+
+
+# --- classifier / segmenter head importers ----------------------------------
+#
+# The reference's heads are torchvision modules cut and re-headed (reference
+# src/models/tasks/_classifiers.py); the JAX package's heads, and the
+# port's after them, keep torchvision's module names, so importing is a
+# per-layer-kind conversion into the JAX package's variable trees, which
+# ``utils/weights.py:head_from_jax`` takes to the port's heads.
+
+
+def _linear(sd, key):
+    """torch Linear -> flax Dense params."""
+    p = {"kernel": _np(sd[key + ".weight"]).T}
+    if key + ".bias" in sd:
+        p["bias"] = _np(sd[key + ".bias"])
+    return p
+
+
+def _conv(sd, key):
+    p = {"kernel": conv_weight_to_hwio(sd[key + ".weight"])}
+    if key + ".bias" in sd:
+        p["bias"] = _np(sd[key + ".bias"])
+    return p
+
+
+def _norm_affine(sd, key):
+    return {"scale": _np(sd[key + ".weight"]), "bias": _np(sd[key + ".bias"])}
+
+
+def _bn_stats(sd, key):
+    return {"mean": _np(sd[key + ".running_mean"]),
+            "var": _np(sd[key + ".running_var"])}
+
+
+def import_vit(sd: Dict[str, Any], num_layers: int, num_heads: int = 12
+               ) -> Dict[str, Any]:
+    """torchvision VisionTransformer state dict -> ViTClassifierHead vars.
+
+    Handles the reference's cut variant: ``conv_proj`` may be the re-headed
+    1x1 conv (reference _classifiers.py:46-50)."""
+    sd = _strip_module_prefix(sd)
+    params: Dict[str, Any] = {}
+    params["conv_proj"] = _conv(sd, "conv_proj")
+    params["class_token"] = _np(sd["class_token"])
+    params["pos_embedding"] = _np(sd["encoder.pos_embedding"])
+    hidden = params["class_token"].shape[-1]
+    dh = hidden // num_heads
+
+    for i in range(num_layers):
+        base = f"encoder.layers.encoder_layer_{i}"
+        blk: Dict[str, Any] = {}
+        blk["ln_1"] = _norm_affine(sd, base + ".ln_1")
+        blk["ln_2"] = _norm_affine(sd, base + ".ln_2")
+
+        in_w = _np(sd[base + ".self_attention.in_proj_weight"])  # (3D, D)
+        in_b = _np(sd[base + ".self_attention.in_proj_bias"])
+        out_w = _np(sd[base + ".self_attention.out_proj.weight"])
+        out_b = _np(sd[base + ".self_attention.out_proj.bias"])
+        qw, kw, vw = np.split(in_w, 3, axis=0)
+        qb, kb, vb = np.split(in_b, 3, axis=0)
+
+        def proj(w, b):
+            # torch (D_out, D_in) -> flax (D_in, heads, dh)
+            return {"kernel": w.T.reshape(hidden, num_heads, dh),
+                    "bias": b.reshape(num_heads, dh)}
+
+        blk["self_attention"] = {
+            "query": proj(qw, qb), "key": proj(kw, kb),
+            "value": proj(vw, vb),
+            "out": {"kernel": out_w.T.reshape(num_heads, dh, hidden),
+                    "bias": out_b},
+        }
+        blk["mlp"] = {"fc1": _linear(sd, base + ".mlp.0"),
+                      "fc2": _linear(sd, base + ".mlp.3")}
+        params[f"encoder_layer_{i}"] = blk
+
+    params["ln"] = _norm_affine(sd, "encoder.ln")
+    if "heads.head.weight" in sd:
+        params["head"] = _linear(sd, "heads.head")
+    elif "heads.weight" in sd:
+        params["head"] = _linear(sd, "heads")
+    return {"params": params}
+
+
+def import_resnet(sd: Dict[str, Any], layers=(3, 8, 36, 3)
+                  ) -> Dict[str, Any]:
+    """torchvision ResNet (GroupNorm norm layer) state dict ->
+    ResNetClassifierHead vars.  Cut stages simply have no keys."""
+    sd = _strip_module_prefix(sd)
+    params: Dict[str, Any] = {}
+
+    def gn(key):
+        return {"GroupNorm_0": _norm_affine(sd, key)}
+
+    if "conv1.weight" in sd:
+        params["conv1"] = _conv(sd, "conv1")
+    if "bn1.weight" in sd:
+        params["bn1"] = gn("bn1")
+
+    for stage in range(4):
+        for blk in range(layers[stage]):
+            base = f"layer{stage + 1}.{blk}"
+            if base + ".conv1.weight" not in sd:
+                continue
+            p: Dict[str, Any] = {}
+            for j in (1, 2, 3):
+                p[f"conv{j}"] = _conv(sd, f"{base}.conv{j}")
+                p[f"bn{j}"] = gn(f"{base}.bn{j}")
+            if base + ".downsample.0.weight" in sd:
+                p["downsample_conv"] = _conv(sd, base + ".downsample.0")
+                p["downsample_bn"] = gn(base + ".downsample.1")
+            params[f"layer{stage + 1}_block{blk}"] = p
+
+    if "fc.weight" in sd:
+        params["fc"] = _linear(sd, "fc")
+    return {"params": params}
+
+
+def import_inception(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """torchvision Inception3 state dict -> InceptionV3ClassifierHead vars.
+
+    Exploits the 1:1 module naming: every torchvision submodule path maps to
+    the same flax module name; BasicConv2d's conv/bn pairs convert per kind.
+    Identity-replaced (cut) stages have no keys and are skipped."""
+    sd = _strip_module_prefix(sd)
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    conv_keys = [k[:-len(".conv.weight")] for k in sd
+                 if k.endswith(".conv.weight")]
+    for path in conv_keys:
+        parts = path.split(".")
+        node_p = params
+        node_s = stats
+        for part in parts[:-1]:
+            node_p = node_p.setdefault(part, {})
+            node_s = node_s.setdefault(part, {})
+        leaf = parts[-1]
+        node_p[leaf] = {"conv": _conv(sd, path + ".conv"),
+                        "bn": _norm_affine(sd, path + ".bn")}
+        node_s[leaf] = {"bn": _bn_stats(sd, path + ".bn")}
+
+    # the reference's cut>0 1x1 re-head is a bare conv (no bn)
+    if "Conv2d_1a_3x3.weight" in sd:
+        params["Conv2d_1a_1x1"] = _conv(sd, "Conv2d_1a_3x3")
+
+    if "AuxLogits.fc.weight" in sd:
+        params.setdefault("AuxLogits", {})["fc"] = _linear(sd, "AuxLogits.fc")
+        if "AuxLogits.conv1.weight" in sd and \
+                "AuxLogits.conv1.bn.weight" not in sd:
+            params["AuxLogits"]["conv1_override"] = _conv(sd,
+                                                          "AuxLogits.conv1")
+    if "fc.weight" in sd:
+        params["fc"] = _linear(sd, "fc")
+
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+HEAD_IMPORTERS = {
+    "ViT": import_vit,
+    "ResNet": import_resnet,
+    "InceptionV3": import_inception,
+}
+
+
+def import_class_model(sd: Dict[str, Any], class_model_type: str,
+                       cut_position=None, **kwargs) -> Dict[str, Any]:
+    if class_model_type == "ViT":
+        cut = 6 if cut_position is None else cut_position
+        return import_vit(sd, num_layers=12 - cut)
+    if class_model_type == "ResNet":
+        return import_resnet(sd)
+    if class_model_type == "InceptionV3":
+        return import_inception(sd)
+    raise ValueError(class_model_type)
+
+
+def import_unet(sd: Dict[str, Any], compression_level: int = 4,
+                use_analysis_track: bool = True) -> Dict[str, Any]:
+    """Reference UNet/JNet state dict -> flax segmenter vars.
+
+    Reference layout (src/models/tasks/_segmenters.py): tracks are
+    ModuleLists of units with submodules ``_c1/_c2/_bn1/_bn2/_up_sample/
+    _dwn_sample``; bridges in ``bridges_projection``; the JNet bottleneck's
+    1x1 ingest conv is ``bottleneck._c1``.
+    """
+    sd = _strip_module_prefix(sd)
+    params: Dict[str, Any] = {}
+
+    def gn(key):
+        if key + ".weight" not in sd:
+            return None
+        return {"GroupNorm_0": _norm_affine(sd, key)}
+
+    def unit(prefix, names):
+        p = {}
+        for torch_name, flax_name, kind in names:
+            key = f"{prefix}.{torch_name}"
+            if kind == "conv" and key + ".weight" in sd:
+                p[flax_name] = _conv(sd, key)
+            elif kind == "deconv" and key + ".weight" in sd:
+                p[flax_name] = {
+                    "kernel": deconv_weight_to_hwio_flipped(
+                        sd[key + ".weight"])}
+                if key + ".bias" in sd:
+                    p[flax_name]["bias"] = _np(sd[key + ".bias"])
+            elif kind == "gn":
+                g = gn(key)
+                if g is not None:
+                    p[flax_name] = g
+        return p
+
+    conv_pair = [("_c1", "c1", "conv"), ("_bn1", "bn1", "gn"),
+                 ("_c2", "c2", "conv"), ("_bn2", "bn2", "gn")]
+
+    if use_analysis_track:
+        for i in range(compression_level):
+            p = unit(f"analysis_track.{i}", conv_pair)
+            if p:
+                params[f"analysis_{i}"] = p
+
+    for i in range(compression_level):
+        p = unit(f"synthesis_track.{i}",
+                 conv_pair + [("_up_sample", "up", "deconv")])
+        if p:
+            params[f"synthesis_{i}"] = p
+        bp = unit(f"bridges_projection.{i}",
+                  [("_bn1", "bn1", "gn"), ("_c2", "c2", "conv"),
+                   ("_bn2", "bn2", "gn")])
+        if bp:
+            params[f"bridge_proj_{i}"] = bp
+
+    p = unit("bottleneck", conv_pair + [("_up_sample", "up", "deconv")])
+    if p:
+        params["bottleneck"] = p
+    if "fc.weight" in sd:
+        params["fc"] = _conv(sd, "fc")
+    return {"params": params}
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, Any]:

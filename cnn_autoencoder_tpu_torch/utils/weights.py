@@ -20,7 +20,13 @@ port uses PyTorch's layouts.  This inverts
   norms' buffers of the same names;
 * a multiscale decoder's color layers (``decoder/color_i``, a conv whose
   ``kernel`` and ``bias`` sit at the unit's level) map to
-  ``decoder.color_i.weight`` / ``.bias``.
+  ``decoder.color_i.weight`` / ``.bias``;
+* the heads (``class_model``, ``seg_model``; ``models/layers.py``) keep
+  flax's paths: a 4-D ``kernel`` (a conv's HWIO, or a 2x2 transposed
+  conv's (kh, kw, in, out)) is an OIHW ``weight``, a 2-D one (dense,
+  (in, out)) a (out, in) ``weight``; every other leaf (biases, scales,
+  the attention's 3-D kernels, ViT's tokens, ``batch_stats``) as stored
+  (``head_from_jax`` / ``head_to_jax``).
 
 A grouped model (config ``groups``) gives each unit's convolutions as many
 groups as the unit has input channels, so the decoder's group counts come
@@ -36,6 +42,8 @@ import torch
 from ..models.autoencoder import _synthesizer_stage_channels
 
 _STATS = ("mean", "var")
+# the model's head children, carried by head_from_jax / head_to_jax
+HEADS = ("class_model", "seg_model")
 
 
 def _kind(where: str) -> str:
@@ -94,9 +102,10 @@ def _layer(prefix: str, layer: str, params: Dict[str, Any],
 
 def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
                    ) -> Dict[str, torch.Tensor]:
-    """``{"encoder"|"decoder"|"fact_ent": {"params": tree[, "batch_stats":
-    tree]}}`` (numpy arrays, as a checkpoint holds them) -> the port's
-    ``CAEModel`` state dict.  Other top-level entries (config scalars,
+    """``{"encoder"|"decoder"|"fact_ent"|"class_model"|"seg_model":
+    {"params": tree[, "batch_stats": tree]}}`` (numpy arrays, as a
+    checkpoint holds them) -> the port's ``CAEModel`` state dict.  Other
+    top-level entries (config scalars,
     optimizer state) are ignored, and so are None leaves (the holes of an
     optimizer slot's moment trees, where a parameter belongs to the other
     slot of its module)."""
@@ -136,8 +145,59 @@ def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
         for name, value in fact_ent["params"].items():
             if value is not None:
                 arrays[f"fact_ent.{name}"] = np.asarray(value)
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in arrays.items()}
+    out = {k: torch.from_numpy(np.array(v, np.float32))
+           for k, v in arrays.items()}
+    for module in HEADS:
+        if variables.get(module) is not None:
+            out.update({f"{module}.{k}": v for k, v in
+                        head_from_jax(variables[module]).items()})
+    return out
+
+
+def _leaves(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def head_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A head's ``{"params": tree[, "batch_stats": tree]}`` -> its module's
+    state dict (None leaves skipped)."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise ValueError(f"head: unknown collections {sorted(unknown)}")
+    out = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(collection) or {}):
+            if value is None:
+                continue
+            value = np.asarray(value, np.float32)
+            if path[-1] == "kernel" and value.ndim in (2, 4):
+                value = value.T if value.ndim == 2 else _conv(value)
+                path = path[:-1] + ("weight",)
+            out[".".join(path)] = torch.from_numpy(np.array(value))
+    return out
+
+
+def head_to_jax(weights: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``head_from_jax`` on a head's state dict (keys
+    relative to the head; None values stay None leaves)."""
+    tree: Dict[str, Any] = {"params": {}}
+    for key, value in weights.items():
+        arr = None if value is None else value.detach().cpu().float().numpy()
+        *where, name = key.split(".")
+        node = tree.setdefault("batch_stats" if name in _STATS else "params",
+                               {})
+        if name == "weight":
+            if arr is not None:
+                arr = arr.T if arr.ndim == 2 else _conv_to_hwio(arr)
+            name = "kernel"
+        for part in where:
+            node = node.setdefault(part, {})
+        node[name] = _contiguous(arr)
+    return tree
 
 
 def _conv_to_hwio(weight: np.ndarray) -> np.ndarray:
@@ -154,15 +214,20 @@ def _deconv_to_hwio(weight: np.ndarray, groups: int = 1) -> np.ndarray:
 def state_to_jax(weights: Dict[str, torch.Tensor], config: Dict[str, Any]
                  ) -> Dict[str, Any]:
     """The port's ``CAEModel`` state dict -> the JAX package's variable
-    trees ``{"encoder"|"decoder"|"fact_ent": {"params": tree[,
-    "batch_stats": tree]}}`` of contiguous float32 numpy arrays (the inverse
+    trees ``{"encoder"|"decoder"|"fact_ent"|"class_model"|"seg_model":
+    {"params": tree[, "batch_stats": tree]}}`` of contiguous float32 numpy
+    arrays (the inverse
     of ``state_from_jax``; ``config`` gives a grouped model's layout).  A
     None value stays a None leaf at its parameter's place."""
     tree: Dict[str, Any] = {}
     groups = _deconv_groups(config)
+    heads: Dict[str, Dict[str, Any]] = {}
     for key, value in weights.items():
-        arr = None if value is None else value.detach().cpu().float().numpy()
         module, *path = key.split(".")
+        if module in HEADS:
+            heads.setdefault(module, {})[".".join(path)] = value
+            continue
+        arr = None if value is None else value.detach().cpu().float().numpy()
         collections = tree.setdefault(module, {"params": {}})
         if module == "fact_ent":
             collections["params"][path[0]] = _contiguous(arr)
@@ -179,6 +244,8 @@ def state_to_jax(weights: Dict[str, torch.Tensor], config: Dict[str, Any]
         for part in where:
             params = params.setdefault(part, {})
         params[name] = _contiguous(arr)
+    for module, head in heads.items():
+        tree[module] = head_to_jax(head)
     return tree
 
 

@@ -102,12 +102,18 @@ def test_flagship_fixture_one_tile():
 
 
 def test_unported_options_raise():
-    """The heads are not ported and raise; the architecture options build
-    (tests/test_torch_arch_options.py holds them to the JAX package)."""
-    for key, value in (("class_model_type", "ResNet"),
-                       ("seg_model_type", "UNet")):
-        with pytest.raises(ValueError, match="not ported"):
-            CAEModel({"channels_bn": 8, "compression_level": 2, key: value})
+    """The heads build (tests/test_torch_heads.py holds them to the JAX
+    package) and so do the architecture options
+    (tests/test_torch_arch_options.py); an unknown head or activation
+    raises."""
+    for key, value, child in (("class_model_type", "ResNet", "class_model"),
+                              ("seg_model_type", "UNet", "seg_model")):
+        model = CAEModel({"channels_bn": 8, "compression_level": 2,
+                          "cut_position": 4, key: value})
+        assert hasattr(model, child)
+        with pytest.raises(ValueError, match="unknown"):
+            CAEModel({"channels_bn": 8, "compression_level": 2,
+                      key: value + "X"})
     for key, value in (("batch_norm", True), ("use_residual", True),
                        ("dropout", 0.1), ("groups", True)):
         CAEModel({"channels_org": 3, "channels_net": 3, "channels_bn": 3,

@@ -168,7 +168,8 @@ def test_bottleneck_module_noise_and_eval():
 
 def test_rate_mse_loss_matches_jax():
     """RateMSE with the aux loss, on the same outputs, to 1e-6 relative;
-    what is not ported raises."""
+    with a cross-entropy term ("RateMSECrossEntropy", classifier logits
+    and labels) as well."""
     p_j, p_t = _fact_ent(FIXTURES[0])
     rng = np.random.RandomState(5)
     # quantiles away from their fit, so the aux loss is not rounding noise
@@ -191,5 +192,19 @@ def test_rate_mse_loss_matches_jax():
                                    rtol=1e-6, err_msg=key)
     np.testing.assert_allclose(float(got["dist"][0]), float(ref["dist"][0]),
                                rtol=1e-6)
-    with pytest.raises(ValueError, match="not ported"):
-        setup_loss("RateMSECrossEntropy")
+    logits = rng.randn(2, 5).astype(np.float32)
+    labels = np.asarray([1, 3])
+    ref = jax_setup_loss("RateMSECrossEntropy", distortion_lambda=0.01)(
+        jnp.asarray(x), {"x_r": [jnp.asarray(x_r)], "p_y": jnp.asarray(p_y),
+                         "t_pred": jnp.asarray(logits)},
+        targets=jnp.asarray(labels),
+        net={"fact_ent_params": p_j, "num_filters": 4})
+    got = setup_loss("RateMSECrossEntropy", distortion_lambda=0.01)(
+        torch.from_numpy(x), {"x_r": [torch.from_numpy(x_r)],
+                              "p_y": torch.from_numpy(p_y),
+                              "t_pred": torch.from_numpy(logits)},
+        targets=torch.from_numpy(labels),
+        net={"fact_ent_params": p_t, "num_filters": 4})
+    for key in ("loss", "class_error", "aux_class_error"):
+        np.testing.assert_allclose(float(got[key]), float(ref[key]),
+                                   rtol=1e-6, err_msg=key)

@@ -1,8 +1,8 @@
 """The port's reference ``.pth`` import (``utils/torch_import.py``, through
 ``training/checkpoint.py:load_checkpoint``) against the JAX package's:
 array-equal conversion for every unit layout, the imported model's forward,
-the compress CLI's chunks from ``-chk x.pth``, and the refusal of a
-checkpoint with heads.  The reference-layout modules are untrained
+the compress CLI's chunks from ``-chk x.pth``, and checkpoints with a
+classifier or segmenter head.  The reference-layout modules are untrained
 (``tests/test_torch_import.py``'s replicas, ``tests/torch_ref_cae.py``'s
 bottleneck and checkpoint layout)."""
 
@@ -140,14 +140,46 @@ def test_compress_cli_from_pth_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("head", ["class_model", "seg_model"])
 def test_heads_raise_not_ported(tmp_path, head):
+    """A checkpoint with a head (a cut ResNet in torchvision's layout, a
+    UNet in the reference's) converts to the JAX package's trees, array for
+    array, and ``autoencoder_from_state_dict`` loads it: the ResNet head
+    gives the torchvision oracle's logits, the UNet holds the imported
+    weights.  With weights missing from the head it raises."""
+    from cnn_autoencoder_tpu_torch.models.factory import CAEModel
+    from cnn_autoencoder_tpu_torch.utils.weights import head_from_jax
+    from tests.test_head_parity import _randomize
+    from tests.test_torch_heads import reference_unet_state_dict
+    from tests.torch_ref_heads import TorchResNetHead
     chk = _reference("GDN", False, False, False)
-    chk[head] = {"fc.weight": torch.zeros(2, 8)}
-    chk[head + "_type"] = "ResNet" if head == "class_model" else "UNet"
-    with pytest.raises(ValueError, match="not ported"):
-        T.convert_reference_checkpoint(chk)
+    if head == "class_model":
+        oracle = _randomize(TorchResNetHead(channels_bn=BN, cut_position=4,
+                                            num_classes=2), seed=4).eval()
+        chk.update(class_model_type="ResNet", cut_position=4, num_classes=2,
+                   class_model=oracle.state_dict())
+    else:
+        chk.update(seg_model_type="UNet", seg_channels_net=8,
+                   seg_channels_bn=8, seg_channels_expansion=2)
+        chk["seg_model"] = reference_unet_state_dict(
+            CAEModel(chk).seg_model)
+    tree = T.convert_reference_checkpoint(chk)[head]
+    _assert_same_tree(tree, J.convert_reference_checkpoint(chk)[head])
     path = str(tmp_path / "heads.pth")
     torch.save(chk, path)
-    with pytest.raises(ValueError, match="not ported"):
+    model = autoencoder_from_state_dict(path, device="cpu")
+    for key, value in head_from_jax(tree).items():
+        assert torch.equal(getattr(model, head).state_dict()[key], value)
+    if head == "class_model":
+        y = np.random.RandomState(2).randn(2, BN, 4, 4).astype(np.float32)
+        with torch.no_grad():
+            ref, _ = oracle(torch.from_numpy(y))
+            got, _ = model.class_model(torch.from_numpy(
+                np.ascontiguousarray(y.transpose(0, 2, 3, 1))))
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-4,
+                                   atol=2e-5)
+    chk[head] = {k: v for k, v in chk[head].items()
+                 if not k.startswith("fc.")}
+    torch.save(chk, path)
+    with pytest.raises(ValueError, match="lacks weights"):
         autoencoder_from_state_dict(path, device="cpu")
 
 
