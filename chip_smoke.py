@@ -216,8 +216,25 @@ Phases, in order; any failure exits non-zero:
    cut 6, ResNet-152 cut 3, InceptionV3 with its cut from the patch size
    and JNet on the flagship's latent of 16 x 256^2, float32 and bf16: ms,
    device busy share and peak memory.
-12. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
-   runs of phases 3, 5, 8 (a), 9, 10 and 11), then the last line
+12. The pixel transport (``coding/pixel_rans.py``, ``coding/pixel_pack.py``,
+   ``coding/link_probe.py``) at full width on phase 7's 4096^2 slide
+   (``synth_histology``, seed 0): (a) K6 (state pass, compaction) and K5 at
+   the transport's geometry, (16, 768, 1024) with one channel of 256
+   values, on the zigzag residuals of the slide's first batch under the
+   table the coded upload calibrates from it: bit-identical to the plain
+   versions as in phase 2, the transport's words equal to the host C++
+   coder's, decoded back to the tiles by K5 and by the host, timed beside
+   the plain versions and the byte bound; (b) ``cae`` and ``cae_tpu`` in
+   float32 and ``cae_tpu`` in bf16 through the pipeline, untransported,
+   with ``CAE_TPU_CODED_UPLOAD=1``, and with ``CAE_TPU_PACKED_FETCH=1``
+   under ``CAE_TPU_FETCH_CODEC=rans`` (a fresh transport, then the
+   persisted one) and ``pack``: chunks equal to the untransported store's,
+   pixels equal to the raw fetch's, launches exact, no overflow; MP/s,
+   link bytes each way, bits a value, the host coder's stage seconds; then
+   the link probe's rates and what ``auto`` chooses.  The transport's K5
+   and K6 launches enter the ``kernels`` line.
+13. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3, 5, 8 (a), 9, 10, 11 and 12 (b)), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
@@ -1160,60 +1177,51 @@ def check_rans_case(torch, label, sym, cmap, tab):
     return words, totals
 
 
-def rans_kernels(torch, core, b):
-    """K6 (state pass and compaction) and K5 against their plain versions
-    on every case of rans_cases, timed on each but the peaked table and
-    the plane, with their bounds and (at the serving geometry) the probe's
-    serial-chain figure; returns {name: record} for the serving
-    geometry."""
+def rans_times(torch, label, sym, cmap, tab, words, totals, plain):
+    """Device times of K6's two passes and of K5 on one case, compacted at
+    the capacity its totals fill, beside their bounds; with ``plain`` also
+    the plain versions' times and {name: record} of the three (else
+    None).  Returns (records, K6 ms, K5 ms, K6 bound, K5 bound, queue)."""
     from cnn_autoencoder_tpu_torch.ops.kernels import rans_kernel as rk
-    cases = rans_cases(torch, core, b, np.random.RandomState(4))
-    out = {}
-    for label, sym, cmap, tab in cases:
-        words, totals = check_rans_case(torch, label, sym, cmap, tab)
-        if label.startswith("peaked") or label.startswith("plane"):
-            continue
-        t, s = cmap.shape
-        bsz = sym.shape[0]
-        args = (sym, cmap, tab.freq, tab.start, tab.offset)
-        # the capacity the codec's last compaction of this batch takes
-        cap = int(totals.max())
-        state = rk.encode_states_cuda(*args)
-        queue = u16_prefix(torch, words, cap, -(-cap // 128) * 128)
-        lut = rk.pack_dec_lut(tab.freq, tab.start, tab.slot)
-        st_ms = device_ms(torch, lambda: rk.encode_states_cuda(*args), 20)
-        cp_ms = device_ms(torch, lambda: rk.compact_cuda(state, cap), 20)
-        k6_ms = st_ms + cp_ms
-        dec_ms = device_ms(torch, lambda: rk.decode_interleaved_cuda(
-            queue, cmap, lut, t), 20)
-        # the same calls with their wrappers' host work (CUDA events)
-        k6_wall = cuda_ms(torch, lambda: rk.compact_cuda(
-            rk.encode_states_cuda(*args), cap), 20)
-        dec_wall = cuda_ms(torch, lambda: rk.decode_interleaved_cuda(
-            queue, cmap, lut, t), 20)
-        n_words = int(totals.sum())
-        # K6 as one function: symbols, map and tables in, words and
-        # totals out; about a dozen integer operations per symbol.  The
-        # scratch between its two passes is the design's, not the
-        # function's: the passes share this one bound, the state pass the
-        # inputs' part, the compaction the outputs'.
-        k6_in = (4 * (sym.numel() + cmap.numel() + tab.offset.numel())
-                 + 8 * tab.freq.numel())
-        k6_out = 2 * n_words + 4 * bsz
-        k6_bms, k6_by = bound_ms(k6_in + k6_out, 12 * sym.numel(),
-                                 PEAK_I32_S)
-        dec_bms, dec_by = bound_ms(2 * n_words + 4 * (cmap.numel()
-                                                      + lut.numel()
-                                                      + sym.numel()),
-                                   12 * sym.numel(), PEAK_I32_S)
-        log(f"rans {label} {tuple(sym.shape)}, device time: state pass "
-            f"{st_ms:.4f} ms, compaction {cp_ms:.4f} ms (capacity {cap}), "
-            f"both {k6_ms:.4f} ms against K6's bound {k6_bms:.4f} ms "
-            f"({k6_by}); decode {dec_ms:.4f} ms against {dec_bms:.4f} ms "
-            f"({dec_by}); with the wrappers' host work (CUDA events) "
-            f"{k6_wall:.4f} and {dec_wall:.4f} ms")
-        if label != "flagship 64x64":
-            continue
+    t, s = cmap.shape
+    bsz = sym.shape[0]
+    args = (sym, cmap, tab.freq, tab.start, tab.offset)
+    # the capacity the codec's last compaction of this batch takes
+    cap = int(totals.max())
+    state = rk.encode_states_cuda(*args)
+    queue = u16_prefix(torch, words, cap, -(-cap // 128) * 128)
+    lut = rk.pack_dec_lut(tab.freq, tab.start, tab.slot)
+    st_ms = device_ms(torch, lambda: rk.encode_states_cuda(*args), 20)
+    cp_ms = device_ms(torch, lambda: rk.compact_cuda(state, cap), 20)
+    k6_ms = st_ms + cp_ms
+    dec_ms = device_ms(torch, lambda: rk.decode_interleaved_cuda(
+        queue, cmap, lut, t), 20)
+    # the same calls with their wrappers' host work (CUDA events)
+    k6_wall = cuda_ms(torch, lambda: rk.compact_cuda(
+        rk.encode_states_cuda(*args), cap), 20)
+    dec_wall = cuda_ms(torch, lambda: rk.decode_interleaved_cuda(
+        queue, cmap, lut, t), 20)
+    n_words = int(totals.sum())
+    # K6 as one function: symbols, map and tables in, words and totals
+    # out; about a dozen integer operations per symbol.  The scratch
+    # between its two passes is the design's, not the function's: the
+    # passes share this one bound, the state pass the inputs' part, the
+    # compaction the outputs'.
+    k6_in = (4 * (sym.numel() + cmap.numel() + tab.offset.numel())
+             + 8 * tab.freq.numel())
+    k6_out = 2 * n_words + 4 * bsz
+    k6_bms, k6_by = bound_ms(k6_in + k6_out, 12 * sym.numel(), PEAK_I32_S)
+    dec_bms, dec_by = bound_ms(2 * n_words + 4 * (cmap.numel() + lut.numel()
+                                                  + sym.numel()),
+                               12 * sym.numel(), PEAK_I32_S)
+    log(f"rans {label} {tuple(sym.shape)}, device time: state pass "
+        f"{st_ms:.4f} ms, compaction {cp_ms:.4f} ms (capacity {cap}), "
+        f"both {k6_ms:.4f} ms against K6's bound {k6_bms:.4f} ms "
+        f"({k6_by}); decode {dec_ms:.4f} ms against {dec_bms:.4f} ms "
+        f"({dec_by}); with the wrappers' host work (CUDA events) "
+        f"{k6_wall:.4f} and {dec_wall:.4f} ms")
+    records = None
+    if plain:
         st_plain = cuda_ms(torch, lambda: rk.rans_encode_states_plain(
             *args), 3)
         plain_state = rk.rans_encode_states_plain(*args)
@@ -1221,18 +1229,43 @@ def rans_kernels(torch, core, b):
             plain_state, cap), 3)
         dec_plain = cuda_ms(torch, lambda: rk.rans_decode_plain(
             queue, cmap, lut, t), 3)
-        st_bms = k6_bms * k6_in / (k6_in + k6_out)
-        cp_bms = k6_bms * k6_out / (k6_in + k6_out)
         shape = list(sym.shape)
-        out["rans_encode_states"] = dict(
-            max_abs_err=0.0, ms=st_ms, plain_ms=st_plain, bound_ms=st_bms,
-            bound_by=k6_by, shape=shape)
-        out["rans_compact"] = dict(
-            max_abs_err=0.0, ms=cp_ms, plain_ms=cp_plain, bound_ms=cp_bms,
-            bound_by=k6_by, shape=shape)
-        out["rans_decode"] = dict(
-            max_abs_err=0.0, ms=dec_ms, plain_ms=dec_plain,
-            bound_ms=dec_bms, bound_by=dec_by, shape=shape)
+        records = {
+            "rans_encode_states": dict(
+                max_abs_err=0.0, ms=st_ms, plain_ms=st_plain,
+                bound_ms=k6_bms * k6_in / (k6_in + k6_out), bound_by=k6_by,
+                shape=shape),
+            "rans_compact": dict(
+                max_abs_err=0.0, ms=cp_ms, plain_ms=cp_plain,
+                bound_ms=k6_bms * k6_out / (k6_in + k6_out), bound_by=k6_by,
+                shape=shape),
+            "rans_decode": dict(
+                max_abs_err=0.0, ms=dec_ms, plain_ms=dec_plain,
+                bound_ms=dec_bms, bound_by=dec_by, shape=shape)}
+        log(f"rans {label}: plain state pass {st_plain:.4f} ms, plain "
+            f"compaction {cp_plain:.4f} ms, plain decode {dec_plain:.4f} ms "
+            "(CUDA events)")
+    return records, k6_ms, dec_ms, k6_bms, dec_bms, queue
+
+
+def rans_kernels(torch, core, b):
+    """K6 (state pass and compaction) and K5 against their plain versions
+    on every case of rans_cases, timed on each but the peaked table and
+    the plane, with their bounds and (at the serving geometry) the probe's
+    serial-chain figure; returns {name: record} for the serving
+    geometry."""
+    cases = rans_cases(torch, core, b, np.random.RandomState(4))
+    out = {}
+    for label, sym, cmap, tab in cases:
+        words, totals = check_rans_case(torch, label, sym, cmap, tab)
+        if label.startswith("peaked") or label.startswith("plane"):
+            continue
+        serving = label == "flagship 64x64"
+        records, k6_ms, dec_ms, k6_bms, dec_bms, queue = rans_times(
+            torch, label, sym, cmap, tab, words, totals, serving)
+        if not serving:
+            continue
+        out.update(records)
         log(f"K6 at {tuple(sym.shape)}: both passes {k6_ms:.4f} ms, bound "
             f"{k6_bms:.4f} ms; K5 {dec_ms:.4f} ms, bound {dec_bms:.4f} ms")
         rans_chain_probe(torch, sym, cmap, tab, queue, k6_ms, dec_ms,
@@ -4765,6 +4798,268 @@ def phase_eval_heads(torch, model):
     return totals
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+PIXEL_BATCH = 16    # the slide pipeline's batch: 16 tiles of 512^2
+
+
+def pixel_kernels(torch, img):
+    """(a) K6 and K5 at the pixel transport's geometry: the zigzag residuals
+    of the slide's first batch (16 tiles of 512^2 RGB, T = 768 steps of
+    S = 1024 streams, one channel of 256 values) under the table the coded
+    upload calibrates from those tiles.  The state pass, the compaction at
+    two capacities and the decode of whole and cut queues bit-identical to
+    the plain versions (``check_rans_case``); the transport's own encode at
+    its capacity, its words equal to the host C++ coder's and decoded back
+    to the tiles on the card and on the host; timed.  Returns {name:
+    record}."""
+    from cnn_autoencoder_tpu_torch.coding.device_rans import pack_streams
+    from cnn_autoencoder_tpu_torch.coding.pixel_rans import (
+        STREAMS, PixelRansTransport, decode_residuals_device,
+        encode_residuals_device, residual_zigzag_device)
+    tiles = serial_batches(img, SLIDE_PATCH, PIXEL_BATCH)[0][1]
+    tr = PixelRansTransport("cuda")
+    tr.calibrate_from_tiles(tiles)
+    snap = tr.snapshot()
+    x = torch.from_numpy(tiles).cuda()
+    n = tiles[0].size
+    sym = pack_streams(residual_zigzag_device(x, snap.pred_mode).reshape(
+        PIXEL_BATCH, n), STREAMS).contiguous()
+    t = sym.shape[1]
+    check(tuple(sym.shape) == (PIXEL_BATCH, 768, STREAMS),
+          f"pixel transport geometry {tuple(sym.shape)}")
+    cmap = torch.zeros((t, STREAMS), dtype=torch.int32, device="cuda")
+    label = (f"pixel transport {SLIDE_PATCH}^2 (predictor {snap.pred_mode}, "
+             f"{tr.bits_per_value:.4f} bits a value)")
+    words, totals = check_rans_case(torch, label, sym, cmap, snap.tables)
+    cap = tr.capacity(n)
+    q, tot = encode_residuals_device(x, snap.tables, cap, snap.pred_mode)
+    torch.cuda.synchronize()
+    check(torch.equal(tot, totals) and int(tot.max()) <= cap,
+          f"{label}: totals {tot.tolist()} at capacity {cap}")
+    check(u16_equal(torch, q, u16_prefix(torch, words, cap)),
+          f"{label}: the transport's words differ from the compaction's")
+    q_host, tot_host = tr.encode_host(tiles, cap, snap.freq, snap.start,
+                                      snap.pred_mode)
+    q_np = q.view(torch.int16).cpu().numpy().view(np.uint16)
+    check(np.array_equal(tot_host, tot.cpu().numpy())
+          and np.array_equal(q_host, q_np),
+          f"{label}: the host C++ coder's words differ from K6's")
+    rec = decode_residuals_device(q, snap.dec_lut, tiles.shape,
+                                  snap.pred_mode)
+    check(np.array_equal(rec.cpu().numpy(), tiles),
+          f"{label}: K5's decode does not give back the tiles")
+    for i in range(PIXEL_BATCH):
+        back = tr.decode_host(q_np[i], int(tot_host[i]),
+                              (1,) + tiles.shape[1:], snap.freq, snap.start,
+                              snap.pred_mode)
+        check(np.array_equal(back[0], tiles[i]),
+              f"{label}: the host decode of tile {i} differs")
+    log(f"{label}: capacity {cap}, {int(tot.sum())} words for "
+        f"{PIXEL_BATCH} tiles ({16.0 * int(tot.sum()) / tiles.size:.4f} bits "
+        "a value with the flush); K6's words equal the host C++ coder's, "
+        "K5 and the host decode give back the tiles")
+    records = rans_times(torch, label, sym, cmap, snap.tables, words, totals,
+                         True)[0]
+    for name, rec_ in records.items():
+        log(f"phase 12 (a) {name} at {tuple(sym.shape)} [{CARD}]: "
+            f"{rec_['ms']:.4f} ms (device time), plain {rec_['plain_ms']:.4f}"
+            f" ms, bound {rec_['bound_ms']:.4f} ms ({rec_['bound_by']})")
+    return records
+
+
+# the switches of the pixel transports (coding/link_probe.py, pipeline/tiles)
+PIXEL_SWITCHES = ("CAE_TPU_CODED_UPLOAD", "CAE_TPU_PACKED_FETCH",
+                  "CAE_TPU_FETCH_CODEC")
+RANS_KERNELS = ("rans_encode_states", "rans_compact", "rans_decode")
+
+
+@contextlib.contextmanager
+def pixel_switches(**env):
+    """Run a block with exactly these transport switches set."""
+    saved = {k: os.environ.pop(k, None) for k in PIXEL_SWITCHES}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def plus(*dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def slide_transport(torch, kind, core, img, work, mode):
+    """(b) The slide through ``kind``'s pipeline ('cae': ``core.base``;
+    'cae_tpu': ``core``), after one untimed untransported pass each way:
+    untransported, with the coded upload (a fresh transport, which
+    calibrates, then the persisted one), untransported again; then the
+    same for the fetch by rANS (calibrating, persisted) and by the
+    bit-plane packer.  Each pass is timed on the host clock with the
+    launch counts and ``GLOBAL_TIMER`` reset just before; chunks equal to
+    the untransported store's, pixels equal to the raw fetch's, launches
+    exact (the transport's K5 and K6 on top of the untransported pass's),
+    no overflow.  Returns the transport's launches ({kernel: count})."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import reset_launch_counts
+    from cnn_autoencoder_tpu_torch.pipeline import tiles
+    from cnn_autoencoder_tpu_torch.utils.profiling import GLOBAL_TIMER
+    c = core.base if kind == "cae" else core
+    compress, decompress = ((tiles.compress_pixels_to_cae,
+                             tiles.decompress_cae_array) if kind == "cae"
+                            else (tiles.compress_pixels_to_cae_turbo,
+                                  tiles.decompress_cae_turbo_array))
+    for attr in ("_up_transport", "_fetch_transport"):
+        if hasattr(c, attr):
+            delattr(c, attr)
+    n = SLIDE_BATCHES
+    gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
+    enc, dec = {gdn: n, "conv_gdn_fwd": n}, {gdn: 2 * n}
+    if kind == "cae_tpu":
+        enc.update(rans_encode_states=n, rans_compact=n)
+        dec["rans_decode"] = n
+    # the fetch calibration's probe: one batch decoded raw ('cae_tpu': its
+    # latent decoded by K5, its pixels by the packer)
+    probe = {gdn: 2, "rans_decode": 1 if kind == "cae_tpu" else 0}
+    coded_fetch = {"rans_encode_states": n, "rans_compact": n}
+    label = f"{kind} ({mode})"
+    runs = {}
+    counters = ("capacity_retries", "host_fallbacks")
+    before = {k: getattr(c, k, 0) for k in counters}
+
+    def path(name):
+        return os.path.join(work, f"{kind}_{mode}_{name}.zarr")
+
+    def squeeze(p_):
+        return compress(c, img, path(p_), patch_size=SLIDE_PATCH,
+                        checkpoint_id=CHECKPOINT)
+
+    def run(name, env, fn, expect, base):
+        retries = getattr(c, "capacity_retries", 0)
+        with pixel_switches(**env):
+            GLOBAL_TIMER.reset()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = slide_launches(
+                torch, f"{label} {name}", expect,
+                getattr(c, "capacity_retries", 0) - retries)
+        runs[name] = dict(s=secs, launches=launches, base=base,
+                          link=GLOBAL_TIMER.link_bytes(),
+                          stages=GLOBAL_TIMER.totals())
+        return out
+
+    with pixel_switches():
+        decompress(squeeze("warm"), core=c)     # untimed warm-up
+        torch.cuda.synchronize()
+    arr = run("raw compress", {}, lambda: squeeze("raw"), enc, None)
+    up_env = {"CAE_TPU_CODED_UPLOAD": "1"}
+    for name in ("coded upload, calibrating", "coded upload"):
+        up = run(name, up_env, lambda: squeeze(f"up{len(runs)}"),
+                 plus(enc, {"rans_decode": n}), "raw compress")
+        check(slide_chunks(up) == slide_chunks(arr), f"{label} {name}: "
+              "chunks differ from the untransported store's")
+    run("raw compress again", {}, lambda: squeeze("raw2"), enc, None)
+    rec = run("raw decompress", {}, lambda: decompress(arr, core=c), dec,
+              None)
+    for name, codec, expect in (
+            ("rans fetch, calibrating", "rans", plus(dec, probe,
+                                                     coded_fetch)),
+            ("rans fetch", "rans", plus(dec, coded_fetch)),
+            ("pack fetch", "pack", dec)):
+        got = run(name, {"CAE_TPU_PACKED_FETCH": "1",
+                         "CAE_TPU_FETCH_CODEC": codec},
+                  lambda: decompress(arr, core=c), expect, "raw decompress")
+        check(np.array_equal(got, rec), f"{label} {name}: the pixels differ "
+              "from the raw fetch's")
+    run("raw decompress again", {}, lambda: decompress(arr, core=c), dec,
+        None)
+    trs = {d: getattr(c, f"_{d}_transport") for d in ("up", "fetch")}
+    check(all(tr.calibrated() and tr.fallbacks == 0 for tr in trs.values()),
+          f"{label}: a transport overflowed: "
+          f"{[(d, tr.fallbacks) for d, tr in trs.items()]}")
+
+    mpix = SLIDE * SLIDE / 1e6
+    values = SLIDE * SLIDE * 3
+    parts = []
+    transport = {}
+    for name, r in runs.items():
+        way, back = (("h2d", "d2h") if "compress" in name or "upload" in name
+                     else ("d2h", "h2d"))
+        host = {k.split("/")[1]: v for k, v in r["stages"].items()
+                if "host_" in k}
+        parts.append(
+            f"{name} {mpix / r['s']:.3f} MP/s ({r['s'] * 1e3:.1f} ms), "
+            f"{way} {r['link'][way]} bytes "
+            f"({8.0 * r['link'][way] / values:.4f} bits a value; {back} "
+            f"{r['link'][back]})"
+            + "".join(f", {k} {v:.3f} s" for k, v in sorted(host.items())))
+        if r["base"]:
+            for k in RANS_KERNELS:
+                extra = r["launches"][k] - runs[r["base"]]["launches"][k]
+                transport[k] = transport.get(k, 0) + extra
+    log(f"phase 12 (b) slide {label} [{CARD}]: {SLIDE}^2 in {n} batches; "
+        + "; ".join(parts))
+    log(f"phase 12 (b) slide {label}: upload predictor "
+        f"{trs['up'].pred_mode}, {trs['up'].bits_per_value:.4f} bits a "
+        f"value calibrated; fetch predictor {trs['fetch'].pred_mode}, "
+        f"{trs['fetch'].bits_per_value:.4f}; overflows and raw fallbacks "
+        "0 in every pass; the latent coder's capacity retries and host "
+        f"fallbacks {[getattr(c, k, 0) - before[k] for k in counters]} "
+        "over the passes; chunks equal to the untransported store's, "
+        f"pixels to the raw fetch's; the transport's launches {transport}")
+    return transport
+
+
+def phase_pixel_transport(torch, core, core16):
+    """Phase 12: the pixel transport at full width on phase 7's 4096^2
+    slide; returns the transport's launches for the ``kernels`` line."""
+    import shutil
+
+    from cnn_autoencoder_tpu_torch.coding import link_probe
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase12")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    totals = {}
+    try:
+        img = synth_histology(SLIDE, SLIDE, seed=0)
+        pixel_kernels(torch, img)
+        t1 = time.perf_counter()
+        for kind, c, mode in (("cae", core, "float32"),
+                              ("cae_tpu", core, "float32"),
+                              ("cae_tpu", core16, "bf16")):
+            totals = plus(totals, slide_transport(torch, kind, c, img, work,
+                                                  mode))
+        t2 = time.perf_counter()
+        solo = [link_probe.probe_link_mbps(force=True, mb=mb)
+                for mb in (4, 64)]
+        duplex = link_probe.probe_link_duplex_mbps(mb=64)
+        with pixel_switches():
+            auto = (link_probe.coded_fetch_enabled(),
+                    link_probe.coded_upload_enabled())
+        log(f"phase 12 link probe [{CARD}]: d2h / h2d "
+            f"{solo[0][0]:.1f} / {solo[0][1]:.1f} MB/s (4 MB), "
+            f"{solo[1][0]:.1f} / {solo[1][1]:.1f} MB/s (64 MB), both at once "
+            f"{duplex[0]:.1f} / {duplex[1]:.1f} MB/s (64 MB); thresholds "
+            f"{link_probe._threshold('d2h'):.0f} / "
+            f"{link_probe._threshold('h2d'):.0f} MB/s; auto codes the fetch "
+            f"{auto[0]}, the upload {auto[1]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"pixel transport phase: {time.perf_counter() - t0:.1f} s ((a) "
+        f"{t1 - t0:.1f} s with the slide's synthesis, (b) {t2 - t1:.1f} s)")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4800,6 +5095,8 @@ def main():
     for name, n in phase_arch_options(torch, cli_ms).items():
         launches[name] += n
     for name, n in phase_eval_heads(torch, model).items():
+        launches[name] += n
+    for name, n in phase_pixel_transport(torch, core, core16).items():
         launches[name] += n
     check(all(launches[name] > 0 for name in records),
           f"a kernel was not launched on the main paths: {launches}")

@@ -8,9 +8,13 @@ Blosc|Jpeg|Jpeg2k|None``, ``-sbn`` bottleneck store, ``--add-offset`` halo,
 ``-ps`` patch size, data axes and ROI handling) and the same stores.  The
 CAE codecs run the batched tile pipeline (``pipeline/tiles.py``) on the
 card; ``compress_image`` and ``compress`` take ``device`` (``None``: the
-card; tests pass ``"cpu"``).  PNG and other PIL inputs need PIL.  ``cli()``
-runs one process on one GPU: the JAX CLI's serving mesh and multi-host
-start wait for ``ROADMAP.md`` §1 item 10.
+card; tests pass ``"cpu"``).  PNG and other PIL inputs need PIL.  The
+pixel upload of the CAE codecs crosses the link coded with
+``CAE_TPU_CODED_UPLOAD=1`` (``auto``, the default, codes it only on a link
+under ``CAE_TPU_PACKED_THRESHOLD_MBPS``): environment variables, as in the
+JAX CLI, with no flag.  ``cli()`` runs one process on one GPU: the JAX
+CLI's serving mesh and multi-host start wait for ``ROADMAP.md`` §1 item
+10.
 """
 
 import logging

@@ -11,7 +11,12 @@ general-codec array), reconstructs through the batched decode pipeline
 ``<label>/<group>/0`` with Blosc-zlib recompression (and optionally its
 pyramid) or a PIL-supported image file, which needs PIL.
 ``decompress_image`` and ``decompress`` take ``device`` (``None``: the card;
-tests pass ``"cpu"``).  ``cli()`` runs one process on one GPU
+tests pass ``"cpu"``).  The pixel fetch of 'cae' and 'cae_tpu' stores
+crosses the link coded with ``CAE_TPU_PACKED_FETCH=1``, by rANS
+(``CAE_TPU_FETCH_CODEC=rans``, the default) or the bit-plane packer
+(``pack``); ``auto`` codes it only on a link under
+``CAE_TPU_PACKED_THRESHOLD_MBPS``.  These are environment variables, as in
+the JAX CLI, with no flag.  ``cli()`` runs one process on one GPU
 (``ROADMAP.md`` §1 item 10 brings the JAX CLI's mesh).
 """
 

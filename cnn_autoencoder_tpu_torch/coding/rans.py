@@ -1,4 +1,5 @@
-"""Host rANS coder of the 'cae' / 'cae_bn' frames: a ctypes binding to the
+"""Host rANS coder of the 'cae' / 'cae_bn' frames, of the interleaved
+(frame-v4) word queues and of the pixel transport: a ctypes binding to the
 port's C++ coder (``csrc/rans.cpp``).
 
 The library is built with ``g++`` at first use, never at import, into
@@ -13,7 +14,9 @@ message: there is no Python fallback (``_rans_py`` is the plain version
 the tests hold the library to).
 
 All entries take numpy arrays.  The batched entries release the
-interpreter lock in C++ (OpenMP over tiles).
+interpreter lock in C++ (OpenMP over tiles).  The pixel entries
+(``pixel_*``) are called by ``coding/pixel_rans.py`` and
+``coding/pixel_pack.py`` through ``load_library()``.
 """
 
 import ctypes
@@ -145,6 +148,7 @@ def load_library() -> ctypes.CDLL:
         p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         p_u32 = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
         p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        p_u16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
         sigs = {
             "rans_encode_with_indexes": (i64, [p_i32, p_i32, i64, p_u32, i64,
                                                p_i32, p_i32, p_u8, i64]),
@@ -154,6 +158,18 @@ def load_library() -> ctypes.CDLL:
                                         p_i32, p_i32, p_u8, i64, p_i64]),
             "rans_decode_batch": (None, [p_u8, p_i64, p_i64, p_i32, i64, i64,
                                          p_u32, i64, p_i32, p_i32, p_i32]),
+            "ilv_encode": (i64, [p_i32, p_i32, i64, p_i32, p_i32, i64,
+                                 p_i32, p_i32, i64, p_u16, i64]),
+            "ilv_decode": (i32, [p_u16, i64, p_i32, i64, p_i32, p_i32, i64,
+                                 p_i32, p_i32, i64, i64, p_i32]),
+            "pixel_unpack_blocks": (i64, [p_u32, i64, p_u8, i64, i64, i64,
+                                          i64, i64, p_u8]),
+            "pixel_rans_decode": (i32, [p_u16, i64, p_i32, p_i32, i32, i64,
+                                        i64, i64, i64, i64, p_u8, i64]),
+            "pixel_predict_zigzag": (None, [p_u8, i64, i64, i64, i64, p_u8,
+                                            i64]),
+            "pixel_rans_encode": (i64, [p_u8, i64, i64, i64, i64, p_i32,
+                                        p_i32, i32, i64, p_u16, i64, i64]),
             "rans_num_threads": (i32, []),
         }
         for name, (restype, argtypes) in sigs.items():
@@ -248,4 +264,77 @@ def decode_batch(streams, indexes, cdfs, cdf_lengths,
     out = np.empty((batch, n), np.int32)
     lib.rans_decode_batch(data, data_offsets, sizes, indexes, batch, n, cdfs,
                           cdfs.shape[1], cdf_lengths, offsets, out)
+    return out
+
+
+def _ilv_tables(indexes, freqs, starts, lengths, offsets):
+    """The tables as contiguous int32, after checking that every index
+    names one of their channels (the C++ coder reads the rows unchecked)."""
+    freqs, starts, lengths, offsets = (
+        np.ascontiguousarray(a, np.int32)
+        for a in (freqs, starts, lengths, offsets))
+    channels = freqs.shape[0]
+    if (starts.shape != freqs.shape or lengths.shape != (channels,)
+            or offsets.shape != (channels,)):
+        raise ValueError(f"interleaved rANS tables: freqs {freqs.shape}, "
+                         f"starts {starts.shape}, lengths {lengths.shape}, "
+                         f"offsets {offsets.shape}")
+    if indexes.size and not 0 <= indexes.min() <= indexes.max() < channels:
+        raise ValueError(f"channel indexes outside 0..{channels - 1}")
+    if lengths.size and lengths.max() > freqs.shape[1]:
+        raise ValueError(f"a channel length past the tables' "
+                         f"{freqs.shape[1]} columns")
+    return freqs, starts, lengths, offsets
+
+
+def encode_interleaved(symbols, indexes, freqs, starts, lengths, offsets,
+                       num_streams: int) -> np.ndarray:
+    """Interleaved multi-stream rANS-32/16 encode, the host twin of the
+    device coder's frame-v4 queue (``coding/device_rans.py``).  ``symbols``
+    are step-major (symbol i goes to stream i % num_streams) with their
+    channel in ``indexes``; the tables are 12-bit (freq, start) rows per
+    channel, ``lengths`` values from ``offsets``.
+
+    Returns the uint16 words (flush, then payload).  Raises ValueError on a
+    symbol outside its channel's support (the format has no escapes) or a
+    channel of more than 256 values."""
+    symbols = np.ascontiguousarray(symbols, np.int32).ravel()
+    indexes = np.ascontiguousarray(indexes, np.int32).ravel()
+    freqs, starts, lengths, offsets = _ilv_tables(indexes, freqs, starts,
+                                                  lengths, offsets)
+    if indexes.shape != symbols.shape:
+        raise ValueError(f"{indexes.shape[0]} indexes for "
+                         f"{symbols.shape[0]} symbols")
+    lib = load_library()
+    n = symbols.shape[0]
+    capacity = 2 * num_streams + n + 16  # at most one word a symbol
+    out = np.empty(capacity, np.uint16)
+    total = lib.ilv_encode(symbols, indexes, n, freqs, starts,
+                           freqs.shape[1], lengths, offsets, num_streams,
+                           out, capacity)
+    if total == -1:
+        raise ValueError("symbol outside its channel support")
+    if total == -3:
+        raise ValueError("interleaved rANS supports <=256 values/channel")
+    if total < 0:
+        raise RuntimeError("interleaved rANS capacity overflow")
+    return out[:total].copy()
+
+
+def decode_interleaved(words, indexes, freqs, starts, lengths, offsets,
+                       num_streams: int) -> np.ndarray:
+    """Decode an interleaved word queue back to int32 symbols; reads past
+    a truncated queue take zero words (garbage out, no overread)."""
+    words = np.ascontiguousarray(words, np.uint16).ravel()
+    indexes = np.ascontiguousarray(indexes, np.int32).ravel()
+    freqs, starts, lengths, offsets = _ilv_tables(indexes, freqs, starts,
+                                                  lengths, offsets)
+    lib = load_library()
+    n = indexes.shape[0]
+    out = np.empty(n, np.int32)
+    rc = lib.ilv_decode(words, words.shape[0], indexes, n, freqs, starts,
+                        freqs.shape[1], lengths, offsets, freqs.shape[0],
+                        num_streams, out)
+    if rc != 0:
+        raise ValueError("interleaved rANS supports <=256 values/channel")
     return out

@@ -18,12 +18,23 @@ so the bytes a store holds do not depend on how the threads are scheduled
 ``utils.device.full_f32`` counts its blocks across threads for the same
 reason.
 
-Left out, each until the ``ROADMAP.md`` §1 item named:
+The pixel transports (``coding/pixel_rans.py``, ``coding/pixel_pack.py``)
+move tiles across the link coded, in the same places as the JAX module:
+``CAE_TPU_CODED_UPLOAD`` codes the compress paths' uploads,
+``CAE_TPU_PACKED_FETCH`` the decompress paths' fetches, by rANS
+(``CAE_TPU_FETCH_CODEC=rans``, the default) or the bit-plane packer
+(``pack``); ``auto`` probes the link (``coding/link_probe.py``).  The
+transports persist on the core (``_up_transport``, ``_fetch_transport``),
+so a serving process calibrates once.  An upload calibrates from the first
+batch's tiles, a fetch from a probe batch decoded raw and discarded, both
+on the calling thread before any batch is dispatched coded, so every
+stored byte and decoded pixel is the same as without the transport.
+``roundtrip_cae_turbo`` calibrates its fetch transport on the calling
+thread from batch 0's frames while encode jobs hold theirs, so no decode
+job ever waits for it.
 
-* the pixel transports (coded upload and coded fetch, and the batch-0
-  calibration gate of ``roundtrip_cae_turbo``, which serves only them):
-  item 9;
-* the mesh branch of ``default_batch_tiles``: item 10.
+Left out until ``ROADMAP.md`` §1's item 10: the mesh branch of
+``default_batch_tiles``.
 
 ``decompress_latents_to_pixels`` takes ``rec_level`` other than full
 scale through a multiscale decoder's color layers, as the JAX package does.
@@ -43,6 +54,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..coding.link_probe import coded_upload_enabled
+from ..coding.pixel_pack import packed_fetch_enabled
+from ..coding.pixel_rans import PixelRansTransport
 from ..data.imageio import map_axes_order
 from ..storage import zarr as zarrlib
 from ..storage.cae_codec import (CAECodecCore, ConvolutionalAutoencoder,
@@ -132,6 +146,62 @@ def _drain(jobs: List, limit: int) -> None:
         jobs.pop(0).result()
 
 
+def _persisted_transport(core, attr: str) -> PixelRansTransport:
+    """The core's transport of one direction, made on first use: a serving
+    process that codes many images calibrates once."""
+    tr = getattr(core, attr, None)
+    if tr is None:
+        tr = PixelRansTransport(core.device)
+        setattr(core, attr, tr)
+    return tr
+
+
+def _upload_transport(core) -> Optional[PixelRansTransport]:
+    """The core's upload transport when the coded upload is on."""
+    if not coded_upload_enabled(core.device):
+        return None
+    return _persisted_transport(core, "_up_transport")
+
+
+def _fetch_codec() -> str:
+    codec = os.environ.get("CAE_TPU_FETCH_CODEC", "rans")
+    if codec not in ("rans", "pack"):
+        raise ValueError(f"CAE_TPU_FETCH_CODEC={codec!r}: 'rans' or 'pack'")
+    return codec
+
+
+def _fetch_transport(core) -> Optional[PixelRansTransport]:
+    """The core's fetch transport when the coded fetch is on with the rANS
+    codec (the packer needs none)."""
+    if not packed_fetch_enabled(core.device) or _fetch_codec() != "rans":
+        return None
+    return _persisted_transport(core, "_fetch_transport")
+
+
+def _gate_upload(tr, tiles_np: np.ndarray, n_values: int):
+    """``tr``, calibrated from ``tiles_np`` if it is not (first use, or a
+    refit after overflows), or None where coding would expand on the
+    wire."""
+    if (tr is not None and not tr.calibrated()
+            and not tr.calibrate_and_gate_upload(tiles_np, n_values)):
+        return None
+    return tr
+
+
+def _gate_fetch(tr, rec, batch: int, padded_hw):
+    """``tr``, calibrated from the reconstructions ``rec`` (a stacked
+    array, or a list of tile arrays) if it is not, or None where coding a
+    batch of ``batch`` tiles, padded by ``padded_hw``, would expand on the
+    wire."""
+    if tr is None or tr.calibrated():
+        return tr
+    if not isinstance(rec, np.ndarray):
+        rec = np.stack([r for r in rec if r.shape == rec[0].shape])
+    ph, pw = padded_hw(*rec.shape[1:3])
+    return tr if tr.calibrate_and_gate_fetch(rec, ph * pw * 3, batch) \
+        else None
+
+
 def compress_pixels_to_cae(core: CAECodecCore, src: np.ndarray,
                            out_path: str, data_group: str = "0/0",
                            patch_size: int = 512,
@@ -172,14 +242,41 @@ def compress_pixels_to_cae(core: CAECodecCore, src: np.ndarray,
 
     pool = ThreadPoolExecutor(max_workers=4)
     workers = ThreadPoolExecutor(max_workers=FETCH_WORKERS)
+    n_values = pe * pe * c
+    up_transport = _upload_transport(core)
+    if (up_transport is not None and up_transport.calibrated()
+            and not up_transport.worthwhile(n_values)):
+        up_transport = None  # this call's tiles are too small to code
 
-    def compress_one(idxs):
+    def read_group(idxs):
+        with GLOBAL_TIMER.stage("compress/read", len(idxs) * p * p / 1e6):
+            return _stacked_batch(pool, read_tile, idxs, batch)
+
+    def compress_one(idxs, tiles_np=None):
+        nonlocal up_transport
         mp = len(idxs) * p * p / 1e6
-        with GLOBAL_TIMER.stage("compress/read", mp):
-            tiles_np = _stacked_batch(pool, read_tile, idxs, batch)
+        if tiles_np is None:
+            tiles_np = read_group(idxs)
+        tr = _gate_upload(up_transport, tiles_np, n_values)
+        if tr is None:
+            up_transport = None
+        snap = tr.snapshot() if tr is not None else None
+        coded = snap is not None
+        if coded:
+            with GLOBAL_TIMER.stage("compress/host_rans_up", mp):
+                cap = tr.capacity(n_values)
+                queues, totals = tr.encode_host(tiles_np, cap, snap.freq,
+                                                snap.start, snap.pred_mode)
+                coded = bool((totals >= 0).all())
+                if not coded:
+                    tr.note_overflow()
         with GLOBAL_TIMER.stage("compress/h2d+dispatch", mp):
-            GLOBAL_TIMER.add_link_bytes("h2d", tiles_np.nbytes)
-            sym_dev = core.encode_tiles_device(tiles_np)
+            if coded:
+                sym_dev = core.encode_tiles_device_coded(
+                    queues, totals, tiles_np.shape, snap, cap)
+            else:
+                GLOBAL_TIMER.add_link_bytes("h2d", tiles_np.nbytes)
+                sym_dev = core.encode_tiles_device(tiles_np)
         with GLOBAL_TIMER.stage("compress/d2h_sym", mp):
             sym_np = core.fetch_symbols(sym_dev)[:len(idxs)]
         with GLOBAL_TIMER.stage("compress/rans", mp):
@@ -191,7 +288,14 @@ def compress_pixels_to_cae(core: CAECodecCore, src: np.ndarray,
     try:
         inflight: List = []
         for group in _iter_batches(_tile_grid(h, w, p), batch):
-            inflight.append(workers.submit(compress_one, group))
+            pre = None
+            if up_transport is not None and not up_transport.calibrated():
+                # calibrate here, from the first batch's tiles, before any
+                # batch is dispatched: every batch then rides the coded
+                # upload
+                pre = read_group(group)
+                up_transport = _gate_upload(up_transport, pre, n_values)
+            inflight.append(workers.submit(compress_one, group, pre))
             _drain(inflight, MAX_INFLIGHT)
         _drain(inflight, 0)
     finally:
@@ -376,12 +480,31 @@ def decompress_cae_array(src: zarrlib.Array,
     pool.shutdown()
 
     mp_batch = batch * p * p / 1e6
+    # the coded fetch (rANS, or the bit-plane packer) gives the pixels of a
+    # raw fetch; its transport persists on the core
+    ph, pw = core.padded_hw(p + 2 * offset, p + 2 * offset)
+    n_values = ph * pw * 3
+    use_packed = (packed_fetch_enabled(core.device) and _fetch_codec() ==
+                  "pack" and n_values % 128 == 0)
+    transport = _fetch_transport(core)
+    if (transport is not None and transport.calibrated()
+            and not transport.worthwhile_fetch(n_values, batch)):
+        transport = None  # this call's tiles are too small to code
 
-    def fetch_and_stitch(idxs, rec_dev):
+    def fetch_and_stitch(idxs, rec_dev, tr):
+        # ``tr`` is the transport the batch was dispatched with: another
+        # job's refit may drop ``transport`` for later batches meanwhile
+        nonlocal transport
         with GLOBAL_TIMER.stage("decompress/fetch_total", mp_batch):
-            rec = rec_dev[:len(idxs)]
-            GLOBAL_TIMER.add_link_bytes("d2h", rec.numel())
-            rec_np = rec.cpu().numpy()
+            if torch.is_tensor(rec_dev):
+                rec_dev = rec_dev[:len(idxs)]
+            rec_np = core.fetch_pixels(rec_dev, (batch, ph, pw, 3),
+                                       tr)[:len(idxs)]
+        if tr is not None and not tr.calibrated():
+            # a third overflow dropped the table in this fetch: refit from
+            # these (raw) pixels so later batches go coded again
+            if _gate_fetch(tr, rec_np, batch, core.padded_hw) is None:
+                transport = None
         if offset:
             rec_np = rec_np[:, offset:-offset, offset:-offset]
         with GLOBAL_TIMER.stage("decompress/stitch", mp_batch):
@@ -404,9 +527,21 @@ def decompress_cae_array(src: zarrlib.Array,
             sym = np.concatenate([sym, pad], axis=0)
         return sym, ids
 
+    starts = list(range(0, len(grid), batch))
+    if transport is not None and not transport.calibrated():
+        # the calibration probe: the first present batch decoded raw, the
+        # table fit from its reconstructions and the pixels discarded, so
+        # every output batch goes through the coded fetch
+        for i0 in starts:
+            sym0, _ = rans_decode_group(i0)
+            if sym0 is not None:
+                rec0 = core.fetch_pixels(core.decode_tiles_device(sym0))
+                transport = _gate_fetch(transport, rec0, batch,
+                                        core.padded_hw)
+                break
+
     rans_pool = ThreadPoolExecutor(max_workers=1)
     fetchers = ThreadPoolExecutor(max_workers=FETCH_WORKERS)
-    starts = list(range(0, len(grid), batch))
     try:
         futures = {}
         jobs: List = []
@@ -417,9 +552,11 @@ def decompress_cae_array(src: zarrlib.Array,
             sym, ids = futures.pop(i).result()
             if sym is None:
                 continue
+            tr = transport  # once: a fetch job's refit may change it
             with GLOBAL_TIMER.stage("decompress/h2d+dispatch", mp_batch):
-                rec = core.decode_tiles_device(sym)
-            jobs.append(fetchers.submit(fetch_and_stitch, ids, rec))
+                rec = core.decode_tiles_device(sym, packed=use_packed,
+                                               transport=tr)
+            jobs.append(fetchers.submit(fetch_and_stitch, ids, rec, tr))
             _drain(jobs, MAX_INFLIGHT)
         _drain(jobs, 0)
     finally:
@@ -501,11 +638,16 @@ def compress_pixels_to_cae_turbo(core: CAETurboCore, src: np.ndarray,
     read_tile = _read_tile_fn(src, p)
     pool = ThreadPoolExecutor(max_workers=4)
     workers = ThreadPoolExecutor(max_workers=FETCH_WORKERS)
+    up_transport = _upload_transport(core)
 
     def encode_and_write(idxs, tiles_np):
+        nonlocal up_transport
+        tr = _gate_upload(up_transport, tiles_np, p * p * c)
+        if tr is None:
+            up_transport = None
         with GLOBAL_TIMER.stage("compress/turbo_encode",
                                 len(idxs) * p * p / 1e6):
-            bufs = core.encode_tiles(tiles_np)
+            bufs = core.encode_tiles(tiles_np, up_transport=tr)
         for (i, j), buf in zip(idxs, bufs[:len(idxs)]):
             arr.write_chunk_raw((i, j, 0), buf)
 
@@ -513,6 +655,9 @@ def compress_pixels_to_cae_turbo(core: CAETurboCore, src: np.ndarray,
         inflight: List = []
         for group in _iter_batches(_tile_grid(h, w, p), batch):
             tiles_np = _stacked_batch(pool, read_tile, group, batch)
+            # the first batch calibrates the upload here, before any
+            # dispatch
+            up_transport = _gate_upload(up_transport, tiles_np, p * p * c)
             inflight.append(workers.submit(encode_and_write, group,
                                            tiles_np))
             _drain(inflight, MAX_INFLIGHT)
@@ -541,10 +686,27 @@ def decompress_cae_turbo_array(src: zarrlib.Array,
     raw = list(pool.map(src.read_chunk_raw, grid))
     pool.shutdown()
 
+    transport = _fetch_transport(core)
+    if transport is not None and not transport.calibrated():
+        # the calibration probe: the first present batch decoded raw, the
+        # table fit from its reconstructions and the pixels discarded
+        for i0 in range(0, len(grid), batch):
+            bufs0 = [b for b in raw[i0:i0 + batch] if b is not None]
+            if bufs0:
+                transport = _gate_fetch(transport, core.decode_tiles(bufs0),
+                                        batch, core.base.padded_hw)
+                break
+
     def decode_and_stitch(ids, bufs):
+        nonlocal transport
+        tr = transport  # once: another job's refit may change it
         with GLOBAL_TIMER.stage("decompress/turbo_decode",
                                 len(ids) * p * p / 1e6):
-            rec = core.decode_tiles(bufs)
+            rec = core.decode_tiles(bufs, transport=tr)
+        if tr is not None and not tr.calibrated():
+            # a third overflow dropped the table: refit from these pixels
+            if _gate_fetch(tr, rec, batch, core.base.padded_hw) is None:
+                transport = None
         _stitch_turbo(src, out, ids, rec)
 
     workers = ThreadPoolExecutor(max_workers=FETCH_WORKERS)
@@ -574,7 +736,14 @@ def roundtrip_cae_turbo(core: CAETurboCore, src: np.ndarray, out_path: str,
     (JAX ``tiles.py:795``): batch ``k``'s decode runs while batch ``k+1``
     encodes, on separate worker pools, so neither direction waits for the
     other.  Stored bytes and the reconstruction are those of
-    ``compress_pixels_to_cae_turbo`` then ``decompress_cae_turbo_array``.
+    ``compress_pixels_to_cae_turbo`` then ``decompress_cae_turbo_array``,
+    with the transports as those calibrate them.
+
+    An uncalibrated fetch transport is calibrated on this thread from batch
+    0's frames (a raw probe decode, discarded) as soon as its encode is
+    done; until then finished encode jobs leave their frames here instead
+    of submitting decode jobs.  A decode job never waits, so the decode
+    pool cannot fill with waiting jobs while batch 0's waits behind them.
 
     Returns ``(arr, rec)``: the written zarr array and the reconstructed
     (h, w, c) uint8 image."""
@@ -592,33 +761,69 @@ def roundtrip_cae_turbo(core: CAETurboCore, src: np.ndarray, out_path: str,
     # one pool per direction: encode jobs never queue behind decode jobs
     enc_workers = ThreadPoolExecutor(max_workers=FETCH_WORKERS)
     dec_workers = ThreadPoolExecutor(max_workers=FETCH_WORKERS)
+    up_transport = _upload_transport(core)
+    fetch_tr = _fetch_transport(core)
     dec_jobs: List = []
+    held: List = []   # frames waiting for the fetch calibration
     dec_lock = threading.Lock()
+    released = fetch_tr is None or fetch_tr.calibrated()
 
     def decode_and_stitch(ids, bufs):
+        nonlocal fetch_tr
+        tr = fetch_tr
         with GLOBAL_TIMER.stage("decompress/turbo_decode",
                                 len(ids) * p * p / 1e6):
-            rec = core.decode_tiles(bufs)
+            rec = core.decode_tiles(bufs, transport=tr)
+        if tr is not None and not tr.calibrated():
+            # a third overflow dropped the table: refit from these pixels
+            if _gate_fetch(tr, rec, batch, core.base.padded_hw) is None:
+                fetch_tr = None
         _stitch_turbo(arr, out, [(i, j, 0) for i, j in ids], rec)
 
     def encode_and_roundtrip(idxs, tiles_np):
+        nonlocal up_transport
+        tr = _gate_upload(up_transport, tiles_np, p * p * c)
+        if tr is None:
+            up_transport = None
         with GLOBAL_TIMER.stage("compress/turbo_encode",
                                 len(idxs) * p * p / 1e6):
-            bufs = core.encode_tiles(tiles_np)
+            bufs = core.encode_tiles(tiles_np, up_transport=tr)
         bufs = [bytes(b) for b in bufs[:len(idxs)]]
         for (i, j), buf in zip(idxs, bufs):
             arr.write_chunk_raw((i, j, 0), buf)
         with dec_lock:
-            dec_jobs.append(dec_workers.submit(decode_and_stitch, idxs,
-                                               bufs))
+            if released:
+                dec_jobs.append(dec_workers.submit(decode_and_stitch, idxs,
+                                                   bufs))
+            else:
+                held.append((idxs, bufs))
+        return bufs
+
+    def calibrate_fetch(bufs0):
+        nonlocal fetch_tr, released
+        fetch_tr = _gate_fetch(fetch_tr, core.decode_tiles(bufs0), batch,
+                               core.base.padded_hw)
+        with dec_lock:
+            released = True
+            dec_jobs.extend(dec_workers.submit(decode_and_stitch, *job)
+                            for job in held)
+            held.clear()
 
     try:
         inflight: List = []
+        first = None
         for group in _iter_batches(_tile_grid(h, w, p), batch):
             tiles_np = _stacked_batch(read_pool, read_tile, group, batch)
+            up_transport = _gate_upload(up_transport, tiles_np, p * p * c)
             inflight.append(enc_workers.submit(encode_and_roundtrip, group,
                                                tiles_np))
+            if first is None:
+                first = inflight[0]
+            if not released and first.done():
+                calibrate_fetch(first.result())
             _drain(inflight, MAX_INFLIGHT)
+        if not released:
+            calibrate_fetch(first.result())
         _drain(inflight, 0)
         with dec_lock:
             pending = list(dec_jobs)

@@ -13,6 +13,15 @@ Tiles whose sides are not multiples of ``2**compression_level`` are
 reflect-padded before encoding and cropped after decoding.  The 'cae_tpu'
 codec writes these frames for a batch its device coder cannot take.
 
+The pixels may cross the link coded (``coding/pixel_rans.py``,
+``coding/pixel_pack.py``): ``encode_tiles_device_coded`` takes host-coded
+tiles and decodes them on the device (K5) before the encoder;
+``decode_tiles_device`` with a transport codes the reconstruction's
+residuals on the device (K6), or packs their bit-planes, and
+``fetch_pixels`` fetches and decodes any of the three forms on the host.
+Every form gives the same pixels; a batch past its coded budget falls back
+to the device's raw pixels.  ``GLOBAL_TIMER`` counts the bytes each way.
+
 The model runs at a compute type fixed when the core is built: float32, or
 bf16 activations end to end (``ops.convops.set_default_precision("bf16")``
 or CAE_TPU_PRECISION=bf16), as the JAX codec casts them at the model's
@@ -28,11 +37,20 @@ import numpy as np
 import torch
 
 from ..coding import rans
+from ..coding.pixel_pack import (pack_pixels_device_with_head,
+                                 unpack_pixels_host)
+from ..coding.pixel_rans import (_CAP_BUCKET, RansFetchResult,
+                                 TransportSnapshot, compact_host,
+                                 compact_queues_device,
+                                 decode_residuals_device,
+                                 encode_residuals_device,
+                                 expand_queues_device)
 from ..models.entropy import medians_fn, update_cdf_tables
 from ..models.factory import autoencoder_from_state_dict
 from ..ops.convops import get_activations_dtype
 from ..training.checkpoint import msgpack_restore, msgpack_serialize
 from ..utils.device import resolve_device
+from ..utils.profiling import GLOBAL_TIMER
 from .codecs import (Codec, check_frame_hw, latent_hw, ndarray_copy,
                      padded_hw, register_codec)
 
@@ -156,6 +174,33 @@ class CAECodecCore:
         Pass the result to ``fetch_symbols``."""
         return self.narrow_symbols(self.latent_symbols(tiles_u8))
 
+    @torch.no_grad()
+    def encode_from_rans(self, offsets: torch.Tensor, flat: torch.Tensor,
+                         snap: TransportSnapshot, shape, px_capacity: int
+                         ) -> torch.Tensor:
+        """The coded upload's device step: the flat host-coded words of
+        ``compact_host`` expanded to rows, decoded by K5 to the (B, H, W, 3)
+        tiles of ``shape`` and encoded (reflect-padded as raw tiles are) ->
+        (B, C, lh, lw) int32 symbols."""
+        queues = expand_queues_device(flat, offsets, px_capacity)
+        return self.latent_symbols(decode_residuals_device(
+            queues, snap.dec_lut, shape, snap.pred_mode))
+
+    def encode_tiles_device_coded(self, queues_u16: np.ndarray,
+                                  totals: np.ndarray, shape,
+                                  snap: TransportSnapshot, px_capacity: int):
+        """``encode_tiles_device`` of tiles coded on the host: the (B,
+        px_capacity) uint16 queues of ``PixelRansTransport.encode_host``
+        with ``snap``'s tables, compacted to one flat buffer, which is all
+        that crosses the link.  Returns what ``encode_tiles_device``
+        does."""
+        flat, offs = compact_host(queues_u16, totals, px_capacity)
+        GLOBAL_TIMER.add_link_bytes("h2d", flat.nbytes + offs.nbytes)
+        return self.narrow_symbols(self.encode_from_rans(
+            torch.from_numpy(offs).to(self.device),
+            torch.from_numpy(flat).to(self.device), snap, shape,
+            px_capacity))
+
     @staticmethod
     def fetch_symbols(sym_dev) -> np.ndarray:
         """Device-to-host symbol copy: the int8 symbols and the overflow
@@ -164,19 +209,144 @@ class CAECodecCore:
         buf = torch.cat([overflow.reshape(1).view(torch.uint8),
                          sym8.reshape(-1).view(torch.uint8)])
         host = buf.cpu().numpy()
+        GLOBAL_TIMER.add_link_bytes("d2h", host.nbytes)
         if int(host[:4].view(np.int32)[0]) == 0:
             return host[4:].view(np.int8).reshape(tuple(sym8.shape))
-        return sym_wide.cpu().numpy()
+        wide = sym_wide.cpu().numpy()
+        GLOBAL_TIMER.add_link_bytes("d2h", wide.nbytes)
+        return wide
 
     @torch.no_grad()
-    def decode_tiles_device(self, sym) -> torch.Tensor:
+    def decode_tiles_device(self, sym, packed: bool = False, transport=None):
         """(B, C, lh, lw) symbols -> (B, lh·2^level, lw·2^level, 3) uint8
         reconstructions on the device.  Host symbols go up the link in the
-        narrowest lossless integer type (int8, else int16, else int32)."""
+        narrowest lossless integer type (int8, else int16, else int32).
+
+        With a calibrated ``transport`` (``PixelRansTransport``) the
+        result is ``decode_rans``'s coded form instead, with ``packed``
+        the bit-plane packer's (head, words, widths, total); pass either to
+        ``fetch_pixels``."""
+        snap = transport.snapshot() if transport is not None else None
+        if snap is not None:
+            b, _, lh, lw = sym.shape
+            n = (lh << self.level) * (lw << self.level) * 3
+            return self.decode_rans(sym, snap, transport.capacity(n),
+                                    transport.pooled_head_words(n, b))
+        if packed:
+            return self.decode_packed(sym)
         if not torch.is_tensor(sym):
             sym = torch.from_numpy(narrowest(sym))
+            GLOBAL_TIMER.add_link_bytes("h2d", sym.numel()
+                                        * sym.element_size())
         y = sym.to(self.device).permute(0, 2, 3, 1).float() + self._med
         return self._synthesize(y)
+
+    def decode_packed(self, sym):
+        """Decode, then pack the residuals' bit-planes on the device:
+        ``pack_pixels_device_with_head``'s (head, words, widths, total)."""
+        return pack_pixels_device_with_head(self.decode_tiles_device(sym))
+
+    @torch.no_grad()
+    def decode_rans(self, sym, snap: TransportSnapshot, capacity: int,
+                    head_words: int) -> RansFetchResult:
+        """Decode, then code the reconstruction's residuals with K6 at
+        ``capacity`` words a tile and compact the queues into one head of
+        ``head_words``; the raw pixels stay on the device for an overflow's
+        fallback."""
+        rec = self.decode_tiles_device(sym)
+        bufs, totals = encode_residuals_device(rec, snap.tables, capacity,
+                                               snap.pred_mode)
+        head = compact_queues_device(bufs, totals, head_words)
+        return RansFetchResult(head[None], totals, rec, capacity, snap.freq,
+                               snap.start, snap.pred_mode)
+
+    @classmethod
+    def fetch_pixels(cls, rec_dev, shape=None, transport=None) -> np.ndarray:
+        """Device-to-host pixels of any transport: a uint8 tensor (raw); the
+        packer's (head, words, widths, total), with ``shape`` the tiles'
+        (B, P, Q, C); or a ``RansFetchResult``, with the ``transport`` that
+        coded it.  The copy is one in the common case; a coded batch past
+        its budget takes the raw pixels.  The copies are timed as
+        ``decompress/d2h_pixels``, the host decode as
+        ``decompress/host_rans_px`` or ``decompress/host_unpack_px``."""
+        if torch.is_tensor(rec_dev):
+            with GLOBAL_TIMER.stage("decompress/d2h_pixels",
+                                    rec_dev.numel() / 1e6):
+                out = rec_dev.cpu().numpy()
+            GLOBAL_TIMER.add_link_bytes("d2h", out.nbytes)
+            return out
+        if isinstance(rec_dev, RansFetchResult):
+            return cls._fetch_rans(rec_dev, shape, transport)
+        return cls._fetch_packed(rec_dev, shape)
+
+    @staticmethod
+    def _fetch_rans(res: RansFetchResult, shape, transport) -> np.ndarray:
+        # the totals and a predicted slice of the head come in one copy
+        # (the estimate + 4 % covers almost every batch); a second copy
+        # fetches the tail of an under-predicted one
+        n_shards, hw = res.head.shape
+        b = res.totals.shape[0]
+        per = b // n_shards
+        p, q, c = shape[1:]
+        est = transport.estimate_coded_words(p * q * c, per)
+        nb = min(hw, -(-int(est * 1.04) // _CAP_BUCKET) * _CAP_BUCKET)
+        head16 = res.head.view(torch.int16)
+        with GLOBAL_TIMER.stage("decompress/d2h_pixels", b * p * q / 1e6):
+            host = torch.cat([res.totals.view(torch.int16),
+                              head16[:, :nb].reshape(-1)]).cpu().numpy()
+        totals = host[:2 * b].view(np.int32)
+        head = host[2 * b:].view(np.uint16).reshape(n_shards, nb)
+        offs = totals.reshape(n_shards, per)
+        # a tile past its own budget (its row was cut on the device) or the
+        # batch past the pooled head (words cut in the compaction)
+        if (int(totals.max()) > res.capacity
+                or int(np.cumsum(offs, axis=1).max()) > hw):
+            transport.note_overflow()
+            with GLOBAL_TIMER.stage("decompress/d2h_pixels",
+                                    b * p * q / 1e6):
+                out = res.rec.cpu().numpy()
+            GLOBAL_TIMER.add_link_bytes("d2h", out.nbytes + host.nbytes)
+            return out
+        needed = int(offs.sum(axis=1).max())
+        if needed > nb:
+            nb2 = min(hw, -(-needed // _CAP_BUCKET) * _CAP_BUCKET)
+            with GLOBAL_TIMER.stage("decompress/d2h_pixels", 0.0):
+                tail = head16[:, nb:nb2].cpu().numpy().view(np.uint16)
+            head = np.concatenate([head, tail], axis=1)
+        GLOBAL_TIMER.add_link_bytes("d2h", head.nbytes + totals.nbytes)
+        out = np.empty((b, p, q, c), np.uint8)
+        with GLOBAL_TIMER.stage("decompress/host_rans_px", b * p * q / 1e6):
+            for s in range(n_shards):
+                off = 0
+                for j in range(per):
+                    tot = int(offs[s, j])
+                    out[s * per + j] = transport.decode_host(
+                        head[s, off:off + tot], tot, (1, p, q, c), res.freq,
+                        res.start, res.pred_mode)[0]
+                    off += tot
+        return out
+
+    @staticmethod
+    def _fetch_packed(rec_dev, shape) -> np.ndarray:
+        # the used word count, the head and the widths in one copy; the
+        # tail only when the batch packed past the head
+        head, buf, widths, total = rec_dev
+        mp = shape[0] * shape[1] * shape[2] / 1e6
+        nh = head.shape[0]
+        with GLOBAL_TIMER.stage("decompress/d2h_pixels", mp):
+            host = torch.cat([total.reshape(1).view(torch.uint8),
+                              head.view(torch.uint8), widths]).cpu().numpy()
+            used = int(host[:4].view(np.int32)[0])
+            words = host[4:4 + 4 * nh].view(np.int32)
+            widths_np = host[4 + 4 * nh:]
+            if used > nh:
+                bucket = 1 << 14
+                hi = min(-(-used // bucket) * bucket, buf.shape[0])
+                words = np.concatenate([words, buf[nh:hi].cpu().numpy()])
+        GLOBAL_TIMER.add_link_bytes("d2h", words.nbytes + widths_np.nbytes
+                                    + 4)
+        with GLOBAL_TIMER.stage("decompress/host_unpack_px", mp):
+            return unpack_pixels_host(words, widths_np, shape)
 
     @torch.no_grad()
     def decode_latents_device(self, y, rec_level: int = -1) -> torch.Tensor:

@@ -16,6 +16,13 @@ channel's table (an escape) or because no capacity of six fits its words,
 is written as host 'cae' frames (``storage/cae_codec.py``), as the JAX codec
 writes it.  A store may therefore mix turbo and host frames, and
 ``decode_tiles`` reads the format of every buffer on its own.
+
+The pixels may cross the link coded: ``encode_tiles(..., up_transport=)``
+uploads host tiles as the transport's host-coded words, and
+``decode_tiles(..., transport=)`` fetches v4 groups' reconstructions as
+residuals coded on the device, or bit-plane packed when the coded fetch is
+on (``CAE_TPU_PACKED_FETCH``) but no transport is (``coding/pixel_rans.py``,
+``coding/pixel_pack.py``).  Frames and pixels are the same either way.
 """
 
 import struct
@@ -28,8 +35,10 @@ from ..coding.device_rans import (bake_device_tables, decode_device,
                                   decode_interleaved, encode_states,
                                   expected_bits_per_symbol, pack_streams,
                                   stream_channel_map, unpack_streams)
+from ..coding.pixel_pack import packed_fetch_enabled
 from ..models.factory import autoencoder_from_state_dict
 from ..ops.kernels.rans_kernel import rans_compact
+from ..utils.profiling import GLOBAL_TIMER
 from .cae_codec import CAECodecCore, host_frame_hw
 from .codecs import (Codec, check_frame_hw, ndarray_copy,
                      register_codec)
@@ -161,6 +170,7 @@ class CAETurboCore:
         rans_compact(state, cap, out=(buf[head:].view(bsz, cap), counts[1:]))
         counts[0] = esc
         host = buf.cpu().numpy()
+        GLOBAL_TIMER.add_link_bytes("d2h", host.nbytes)
         counts_h = host[:head].view(np.int32)
         return (int(counts_h[0]), counts_h[1:],
                 host[head:].reshape(bsz, cap))
@@ -177,11 +187,35 @@ class CAETurboCore:
                 words_le[i, :total].tobytes()]))
         return out
 
-    def encode_tiles(self, tiles_u8, true_hw=None) -> List[bytes]:
-        """(B, H, W, 3) uint8 (numpy or tensor) -> one frame per tile."""
-        bsz, h, w, _ = tiles_u8.shape
+    def encode_tiles(self, tiles_u8, true_hw=None,
+                     up_transport=None) -> List[bytes]:
+        """(B, H, W, 3) uint8 (numpy or tensor) -> one frame per tile.
+
+        With a calibrated ``up_transport`` (``PixelRansTransport``), host
+        tiles are coded on the host and decoded on the device, so only
+        their words cross the link; a tile past the transport's capacity
+        uploads the batch raw (and counts an overflow).  Tensors are past
+        the link already and go as they are."""
+        bsz, h, w, c = tiles_u8.shape
         if true_hw is None:
             true_hw = [(h, w)] * bsz
+        on_host = isinstance(tiles_u8, np.ndarray)
+        snap = (up_transport.snapshot()
+                if up_transport is not None and on_host else None)
+        n_px = h * w * c
+        if snap is not None and up_transport.worthwhile(n_px):
+            cap = up_transport.capacity(n_px)
+            with GLOBAL_TIMER.stage("compress/host_rans_px",
+                                    bsz * h * w / 1e6):
+                queues, totals = up_transport.encode_host(
+                    tiles_u8, cap, snap.freq, snap.start, snap.pred_mode)
+            if (totals >= 0).all():
+                sym = self.base.encode_tiles_device_coded(
+                    queues, totals, tiles_u8.shape, snap, cap)[2]
+                return self.frames_from_symbols(sym, true_hw)
+            up_transport.note_overflow()
+        if on_host:
+            GLOBAL_TIMER.add_link_bytes("h2d", tiles_u8.nbytes)
         return self.frames_from_symbols(self.latent_symbols(tiles_u8),
                                         true_hw)
 
@@ -231,6 +265,7 @@ class CAETurboCore:
         queues = np.zeros((batch, qcap), np.uint16)
         for i, payload in enumerate(payloads):
             queues[i, :totals[i]] = np.frombuffer(payload, "<u2")
+        GLOBAL_TIMER.add_link_bytes("h2d", queues.nbytes)
         sym_ts = decode_interleaved(torch.from_numpy(queues).to(self.device),
                                     self._ch_map(lh, lw, s), self.tables, t)
         flat = unpack_streams(sym_ts, self.channels_bn * lh * lw)
@@ -288,24 +323,44 @@ class CAETurboCore:
                     ) -> np.ndarray:
         """(B, C, lh, lw) symbols -> (B, th, tw, 3) uint8 pixels (host)."""
         rec = self.base.decode_tiles_device(sym_cm)
-        return rec[:, :th, :tw, :].cpu().numpy()
+        return CAECodecCore.fetch_pixels(rec[:, :th, :tw, :])
+
+    def reconstruct_coded(self, sym_cm: torch.Tensor, th: int, tw: int,
+                          transport=None) -> np.ndarray:
+        """``reconstruct`` with a coded fetch: by a calibrated
+        ``transport`` whose coded batch beats raw on the wire, else by the
+        bit-plane packer when the coded fetch is on
+        (``CAE_TPU_PACKED_FETCH``), else raw."""
+        b = sym_cm.shape[0]
+        ph, pw = self.base.padded_hw(th, tw)
+        n_px = ph * pw * 3
+        if (transport is not None and transport.calibrated()
+                and transport.worthwhile_fetch(n_px, b)):
+            rec = self.base.decode_tiles_device(sym_cm, transport=transport)
+        elif n_px % 128 == 0 and packed_fetch_enabled(self.device):
+            rec = self.base.decode_packed(sym_cm)
+        else:
+            return self.reconstruct(sym_cm, th, tw)
+        return CAECodecCore.fetch_pixels(rec, (b, ph, pw, 3),
+                                         transport)[:, :th, :tw, :]
 
     def _decode_group(self, version: int, s: int, th: int, tw: int,
-                      raws: List[bytes]) -> np.ndarray:
+                      raws: List[bytes], transport=None) -> np.ndarray:
         if version == HOST_FORMAT:
             return self.base.decode_tiles(raws)
         if version == VERSION:
-            sym = self.symbols_from_frames(raws, s, th, tw)
-        else:
-            sym = self.symbols_from_frames_v3(raws, s, th, tw)
-        return self.reconstruct(sym, th, tw)
+            return self.reconstruct_coded(
+                self.symbols_from_frames(raws, s, th, tw), th, tw, transport)
+        return self.reconstruct(self.symbols_from_frames_v3(raws, s, th, tw),
+                                th, tw)
 
-    def decode_tiles(self, bufs: List[bytes]):
+    def decode_tiles(self, bufs: List[bytes], transport=None):
         """Decode a batch of frames, each turbo v4, turbo v3 or host format
         on its own (a writer's fallback is per batch, and reader batches
         need not align with writer batches).  Returns a stacked (B, h, w, 3)
         uint8 array when all tiles share a shape, else a list of arrays, in
-        the order of ``bufs``."""
+        the order of ``bufs``.  ``transport``: a ``PixelRansTransport`` that
+        codes the v4 groups' pixel fetch (see ``reconstruct``)."""
         n = len(bufs)
         if n == 0:
             return np.zeros((0, 0, 0, 3), np.uint8)
@@ -315,7 +370,8 @@ class CAETurboCore:
             groups.setdefault(self._parse_header(raw), []).append((i, raw))
         recs: List[Optional[np.ndarray]] = [None] * n
         for key, group in groups.items():
-            rec = self._decode_group(*key, [r for _, r in group])
+            rec = self._decode_group(*key, [r for _, r in group],
+                                     transport)
             if len(groups) == 1:
                 return rec
             for (i, _), r in zip(group, rec):

@@ -6,7 +6,11 @@ the stage names the pipeline records (``pipeline/tiles.py``):
 ``compress/read``, ``compress/h2d+dispatch``, ``compress/d2h_sym``,
 ``compress/rans``, ``compress/write``, ``compress/turbo_encode``,
 ``decompress/fetch_total``, ``decompress/stitch``, ``decompress/rans``,
-``decompress/h2d+dispatch`` and ``decompress/turbo_decode``.  ``trace`` runs
+``decompress/h2d+dispatch`` and ``decompress/turbo_decode``, and the pixel
+transport's ``compress/host_rans_up``, ``compress/host_rans_px``,
+``decompress/d2h_pixels``, ``decompress/host_rans_px`` and
+``decompress/host_unpack_px``; the link bytes each way are counted where
+the codec cores copy.  ``trace`` runs
 ``torch.profiler`` around a block where the JAX package runs
 ``jax.profiler``.
 """
