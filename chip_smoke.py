@@ -233,9 +233,26 @@ Phases, in order; any failure exits non-zero:
    link bytes each way, bits a value, the host coder's stage seconds; then
    the link probe's rates and what ``auto`` chooses.  The transport's K5
    and K6 launches enter the ``kernels`` line.
-13. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
-   runs of phases 3, 5, 8 (a), 9, 10, 11 and 12 (b)), then the last line
-   ``{"ok": true, "device": {...}}``.
+13. The data mesh on the one card (two shards or two ranks on it; several
+   cards cannot be checked on a machine with one): (a) phase 3's 16 tiles
+   and a ragged 13 through ``CAETurboCore`` and ``CAECodecCore`` over
+   ``create_mesh(data=2, devices=["cuda:0", "cuda:0"])``, float32 and
+   bf16: frames byte-equal to the one-device cores', decodes bit-equal,
+   symbols lossless, launches exact per shard (K4 2, K1 6, K6's state
+   pass 2, K5 2 a round trip); the rANS fetch's ``(2, head_words)`` head
+   decoded to the raw fetch's pixels; the plain versions on a two-shard
+   CPU mesh within phase 3's tolerances; MP/s and busy share beside the
+   one-device cores'; ``serving_mesh()`` None; (b) the train CLI's
+   ``main`` over ``devices=["cuda:0", "cuda:0"]`` (two spawned ranks over
+   gloo) against one process, flagship float32 and bf16 and B bf16, 3
+   steps and a validation: losses, every rank's launches, step-1
+   gradients, B's running statistics, only rank 0 writing; ms a step and
+   the gradient all-reduce's ms; (c) NCCL at world size 1 in a subprocess
+   started from ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES=1`` /
+   ``PROCESS_ID=0``: one all-reduce and one CLI step.
+14. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3, 5, 8 (a), 9, 10, 11, 12 (b) and 13), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
 non-zero and prints no result.
@@ -5060,6 +5077,455 @@ def phase_pixel_transport(torch, core, core16):
     return totals
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+MESH_SHARDS = 2         # the one card's data mesh: two shards or ranks on it
+RAGGED = 13             # a batch that does not divide over the shards
+# (b) the train CLI's runs: phase 8's slides, 3 steps and one validation
+# (phase 10's -s 2 -cs 5), flagship float32 and bf16, B bf16
+MESH_RUNS = (("flagship", "float32"), ("flagship", "bf16"), ("B", "bf16"))
+ALLREDUCE_REPS = 10     # gradient all-reduces timed on the last step
+SERVE_REPS = 3          # timed round trips a core in (a)
+
+
+def busy_share(torch, fn):
+    """(wall ms, device busy ms) of one more call of ``fn`` under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(evt.self_device_time_total for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and evt.key != "Activity Buffer Request") / 1e3
+    return wall * 1e3, busy
+
+
+def counted(torch, fn):
+    """(fn's result, its launches by kernel), the counts reset just before
+    and read just after."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {f.kernel_name: f.launches for f in kernel_wrappers()}
+
+
+def expect_launches(label, launches, want):
+    check(launches == {k: want.get(k, 0) for k in launches},
+          f"{label}: launches {launches}, expected {want}")
+
+
+def mesh_turbo(torch, one, mesh_core, imgs, mode, totals):
+    """One counted round trip of ``imgs`` through the mesh's turbo core:
+    frames byte-equal to the one-device core's, decodes bit-equal,
+    symbols lossless, launches per shard exact.  Returns (frames, rec)."""
+    n = MESH_SHARDS
+    gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
+    label = f"(a) cae_tpu {mode}, {len(imgs)} tiles over {n} shards"
+    retries = mesh_core.capacity_retries
+    (frames, rec), launches = counted(torch, lambda: (
+        lambda f: (f, mesh_core.decode_tiles(f)))(
+            mesh_core.encode_tiles(imgs)))
+    retries = mesh_core.capacity_retries - retries
+    expect_launches(label, launches, {
+        gdn: 3 * n, "conv_gdn_fwd": n, "rans_encode_states": n,
+        "rans_compact": n * (1 + retries), "rans_decode": n})
+    plus_into(totals, launches)
+    check(frames == one.encode_tiles(imgs), f"{label}: frames differ from "
+          "the one-device core's")
+    check(np.array_equal(rec, one.decode_tiles(frames)), f"{label}: the "
+          "decode differs from the one-device core's")
+    with torch.no_grad():
+        check(torch.equal(mesh_core.latent_symbols(imgs),
+                          mesh_core.symbols_from_frames(frames, 1024, 512,
+                                                        512)),
+              f"{label}: decoded symbols differ from the encoded ones")
+    log(f"{label}: frames byte-equal to one device's, decode bit-equal, "
+        f"symbols lossless; launches {launches} ({retries} capacity "
+        "retries)")
+    return frames, rec
+
+
+def mesh_cae(torch, one, mesh_core, imgs, mode, totals):
+    """The 'cae' core over the mesh: host frames byte-equal to the
+    one-device core's, decodes bit-equal, K1 and K4 per shard."""
+    n = MESH_SHARDS
+    gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
+    label = f"(a) cae {mode}, {len(imgs)} tiles over {n} shards"
+    (frames, rec), launches = counted(torch, lambda: (
+        lambda f: (f, mesh_core.decode_tiles(f)))(
+            mesh_core.encode_tiles(imgs)))
+    expect_launches(label, launches, {gdn: 3 * n, "conv_gdn_fwd": n})
+    plus_into(totals, launches)
+    check(frames == one.encode_tiles(imgs) and np.array_equal(
+        rec, one.decode_tiles(frames)), f"{label}: frames or decode differ "
+        "from the one-device core's")
+    log(f"{label}: frames byte-equal, decode bit-equal; launches {launches}")
+
+
+def mesh_rans_fetch(torch, mesh_core, frames, rec, mode, totals):
+    """The rANS fetch through the mesh: one pooled head a shard, decoding
+    to the raw fetch's pixels."""
+    from cnn_autoencoder_tpu_torch.coding.pixel_rans import \
+        PixelRansTransport
+    from cnn_autoencoder_tpu_torch.storage.cae_codec import CAECodecCore
+    n, b = MESH_SHARDS, len(frames)
+    gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
+    tr = PixelRansTransport("cuda")
+    tr.calibrate_from_tiles(rec)
+    res, launches = counted(torch, lambda: mesh_core.base.decode_tiles_device(
+        mesh_core.symbols_from_frames(frames, 1024, 512, 512), transport=tr))
+    expect_launches(f"(a) rANS fetch {mode}", launches, {
+        gdn: 2 * n, "rans_decode": n, "rans_encode_states": n,
+        "rans_compact": n})
+    plus_into(totals, launches)
+    pb = mesh_core.per_shard_batch(b) * n
+    check(tuple(res.head.shape[:1]) == (n,) and res.totals.shape[0] == pb,
+          f"(a) rANS fetch: head {tuple(res.head.shape)}, totals "
+          f"{tuple(res.totals.shape)}")
+    px = CAECodecCore.fetch_pixels(res, (pb, 512, 512, 3), tr)[:b]
+    check(np.array_equal(px, rec) and tr.fallbacks == 0, "(a) rANS fetch: "
+          "the pixels differ from the raw fetch's, or it fell back")
+    log(f"(a) rANS fetch {mode}: head {tuple(res.head.shape)} (one pooled "
+        f"head a shard), {tr.bits_per_value:.4f} bits a value calibrated, "
+        "pixels equal to the raw fetch's; launches " + str(launches))
+
+
+def plus_into(totals, launches):
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def mesh_serving(torch, model, core, core16, totals):
+    """(a) Sharded serving on the card: phase 3's 16 tiles and a ragged 13
+    through both cores over a two-shard mesh of the one card, float32 and
+    bf16; the rANS fetch's per-shard heads; the plain versions on a
+    two-shard CPU mesh; rates beside the one-device cores'."""
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.parallel.mesh import (create_mesh,
+                                                         serving_mesh)
+    from cnn_autoencoder_tpu_torch.storage.cae_codec import CAECodecCore
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
+    check(serving_mesh() is None, "serving_mesh() is not None on one card")
+    mesh = create_mesh(data=MESH_SHARDS, devices=["cuda:0"] * MESH_SHARDS)
+    imgs = np.stack([image(512, 512, seed) for seed in range(TILES)])
+    mpix = TILES * 512 * 512 / 1e6
+    rates = []
+    for mode, one in (("float32", core), ("bf16", core16)):
+        dtype = one.base.compute_dtype
+        m_turbo = CAETurboCore(model, num_streams=1024, mesh=mesh,
+                               compute_dtype=dtype)
+        m_cae = CAECodecCore(model, mesh=mesh, compute_dtype=dtype)
+        m_turbo.decode_tiles(m_turbo.encode_tiles(imgs))    # warm-up
+        frames, rec = mesh_turbo(torch, one, m_turbo, imgs, mode, totals)
+        mesh_turbo(torch, one, m_turbo, imgs[:RAGGED], mode, totals)
+        mesh_cae(torch, one.base, m_cae, imgs, mode, totals)
+        mesh_cae(torch, one.base, m_cae, imgs[:RAGGED], mode, totals)
+        mesh_rans_fetch(torch, m_turbo, frames, rec, mode, totals)
+        for name, c in (("one device", one), (f"{MESH_SHARDS} shards",
+                                              m_turbo)):
+            enc, dec = [], []
+            for _ in range(SERVE_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fr = c.encode_tiles(imgs)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                c.decode_tiles(fr)
+                torch.cuda.synchronize()
+                enc.append(t1 - t0)
+                dec.append(time.perf_counter() - t1)
+            wall, busy = busy_share(torch, lambda: c.decode_tiles(
+                c.encode_tiles(imgs)))
+            rates.append(
+                f"{mode} {name}: encode {mpix / max(enc):.3f}–"
+                f"{mpix / min(enc):.3f}, decode {mpix / max(dec):.3f}–"
+                f"{mpix / min(dec):.3f} MP/s ({SERVE_REPS} round trips), "
+                f"busy {100 * busy / wall:.1f}% of {wall:.1f} ms")
+        if mode == "float32":
+            cpu_model = autoencoder_from_state_dict(CHECKPOINT, device="cpu")
+            cpu_core = CAETurboCore(cpu_model, num_streams=1024,
+                                    mesh=create_mesh(data=MESH_SHARDS,
+                                                     devices=["cpu"] * 2))
+            sym = m_turbo.latent_symbols(imgs).cpu()
+            flips = float((cpu_core.latent_symbols(imgs) != sym)
+                          .float().mean())
+            diff = np.abs(cpu_core.decode_tiles(frames).astype(np.int32)
+                          - rec)
+            frac = float(np.mean(diff != 0))
+            log(f"(a) plain versions on a {MESH_SHARDS}-shard CPU mesh "
+                f"(float32): symbol flips {flips:.3e}; u8 pixels differing "
+                f"{frac:.3e}, max difference {int(diff.max())}")
+            check(flips <= 1e-4 and frac < 5e-3 and int(diff.max()) <= 1,
+                  "(a) the CPU mesh's plain versions miss phase 3's "
+                  "tolerances")
+    log(f"(a) serving [{CARD}], {TILES} tiles of 512^2: " + "; ".join(rates))
+
+
+class StepProbe:
+    """The train CLI's ``on_step`` in phase 13 (b), picklable into the
+    ranks ``main`` spawns: each step's loss and host clock; at step 1
+    whether every gradient is finite and non-zero, and the batch norms'
+    running statistics (folded from step 1's batch, before any update
+    reaches them: the comparison phase 10 makes); at the last step, in a
+    multi-rank run, the host time of ``ALLREDUCE_REPS`` all-reduces of one
+    bucket of the gradients' size (both ranks call it at the same step)."""
+
+    def __init__(self, last_step):
+        self.last_step = last_step
+
+    def __call__(self, step, stats, grads, model):
+        import torch
+        import torch.distributed as dist
+
+        from cnn_autoencoder_tpu_torch.ops.batchnorm import BatchNorm
+        out = {"step": step, "loss": float(stats["loss"]),
+               "t": time.perf_counter()}
+        leaves = [g for gs in grads.values() for g in gs.values()]
+        if step == 1:
+            out["grads_ok"] = all(bool(torch.isfinite(g).all())
+                                  and float(g.abs().max()) > 0
+                                  for g in leaves)
+            out["norms"] = {f"{name}.{k}": getattr(m, k).float().tolist()
+                            for name, m in model.named_modules()
+                            if isinstance(m, BatchNorm)
+                            for k in ("mean", "var")}
+        if step == self.last_step and dist.is_initialized():
+            flat = torch.cat([g.reshape(-1).float() for g in leaves])
+            dist.all_reduce(flat)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ALLREDUCE_REPS):
+                dist.all_reduce(flat)
+            torch.cuda.synchronize()
+            out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 \
+                / ALLREDUCE_REPS
+            out["bucket_bytes"] = flat.numel() * 4
+        return out
+
+
+def mesh_cli_run(torch, work, kind, mode, chk, devices, label):
+    """One train CLI ``main`` over ``devices`` in ``mode``: its reports."""
+    from cnn_autoencoder_tpu_torch.cli import train_cae as cli
+    from cnn_autoencoder_tpu_torch.ops import convops
+    from cnn_autoencoder_tpu_torch.ops.kernels import reset_launch_counts
+    from cnn_autoencoder_tpu_torch.utils.args import get_args
+    from cnn_autoencoder_tpu_torch.utils.loggers import setup_logger
+    log_dir = os.path.join(work, label)
+    extra = ARCH_RUN_FLAGS + (ARCH_FLAGS["B"] + ["-chk", chk]
+                              if kind == "B" else [])
+    args = get_args("autoencoder", "training", args_list=cli_argv(
+        work, log_dir, ARCH_STEPS - 1, extra))
+    setup_logger(args)
+    saved = convops.get_default_precision()
+    convops.set_default_precision("highest" if mode == "float32" else "bf16")
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        reports = cli.main(args, devices=devices,
+                           on_step=StepProbe(ARCH_STEPS))
+        wall = time.perf_counter() - t0
+    finally:
+        convops.set_default_precision(saved)
+    return log_dir, reports, wall
+
+
+def tree_leaves(tree, path=""):
+    """(path, leaf) of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def mesh_training(torch, work, totals, started=None):
+    """(b) Data-parallel training through the train CLI: two ranks on the
+    one card (gloo: they share it) against one process, per run of
+    ``MESH_RUNS``; ``started(work)`` is called once the slides are
+    written."""
+    from cnn_autoencoder_tpu_torch.training.checkpoint import load_checkpoint
+    val_img = write_cli_slides(work)
+    if started is not None:
+        started(work)
+    chk = arch_checkpoint(torch, "B", os.path.join(work, "B.msgpack"),
+                          val_img)
+    lines = []
+    for kind, mode in MESH_RUNS:
+        label = f"{kind}_{mode}"
+        rtol = 1e-5 if mode == "float32" else 2e-2
+        one_dir, one, one_wall = mesh_cli_run(torch, work, kind, mode, chk,
+                                              ["cuda:0"], label + "_one")
+        two_dir, two, two_wall = mesh_cli_run(
+            torch, work, kind, mode, chk, ["cuda:0"] * MESH_SHARDS,
+            label + "_two")
+        check([r["rank"] for r in two] == list(range(MESH_SHARDS))
+              and all(r["ranks"] == MESH_SHARDS for r in two),
+              f"(b) {label}: reports {[(r['rank'], r['ranks']) for r in two]}")
+        if kind == "B":
+            want = arch_expected("B", mode, ARCH_STEPS, ARCH_VALIDATIONS
+                                 * VAL_BATCHES)
+        else:
+            want = cli_expected(mode, ARCH_STEPS, ARCH_VALIDATIONS)
+        ref = [s["loss"] for s in one[0]["on_step"]]
+        for r in [one[0]] + two:
+            tag = f"(b) {label} rank {r['rank']} of {r['ranks']}"
+            expect_launches(tag, r["launches"], want)
+            plus_into(totals, r["launches"])
+            steps = r["on_step"]
+            check(len(steps) == ARCH_STEPS and steps[0]["grads_ok"],
+                  f"{tag}: {len(steps)} steps, step-1 gradients finite and "
+                  f"non-zero: {steps[0].get('grads_ok')}")
+            losses = [s["loss"] for s in steps]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+            check(rel <= rtol, f"{tag}: losses {losses} against one "
+                  f"process's {ref} (max relative {rel:.3e} > {rtol})")
+        if kind == "B":
+            # relative to each statistic's largest value, as phase 10
+            ref_n = one[0]["on_step"][0]["norms"]
+            worst = max(float(np.abs(np.subtract(r["on_step"][0]["norms"][k],
+                                                 v)).max()
+                              / max(float(np.abs(v).max()), 1e-30))
+                        for r in two for k, v in ref_n.items())
+            check(len(ref_n) > 0 and worst <= 1e-4, f"(b) {label}: step 1's "
+                  f"running statistics {worst:.3e} (relative) from one "
+                  "process's")
+            a, b = ({p: np.asarray(v) for p, v in tree_leaves({
+                m: load_checkpoint(cli_checkpoints(d)["last"])[m][
+                    "batch_stats"] for m in ("encoder", "decoder")})}
+                for d in (two_dir, one_dir))
+            last = max(float(np.abs(a[k] - b[k]).max()
+                             / max(float(np.abs(b[k]).max()), 1e-30))
+                       for k in b)
+            lines.append(f"{label}: running statistics after step 1 within "
+                         f"{worst:.3e} (relative to each one's max) of one "
+                         f"process's, after step {ARCH_STEPS} {last:.3e}")
+        with open(next(os.path.join(two_dir, f) for f in os.listdir(two_dir)
+                       if f.endswith(".log"))) as f:
+            logs = f.read()
+        check(set(cli_checkpoints(two_dir)) == {"last", "best"}
+              and "Rank 0 of 2" in logs and "Rank 1" not in logs
+              and not any(f.startswith(".rendezvous")
+                          for f in os.listdir(two_dir)),
+              f"(b) {label}: the files of the two-rank run: "
+              f"{sorted(os.listdir(two_dir))}")
+
+        def step_ms(report):
+            t = [s["t"] for s in report["on_step"]]
+            return 1e3 * (t[-1] - t[0]) / (len(t) - 1)
+
+        ar = two[0]["on_step"][-1]
+        lines.append(
+            f"{label}: {step_ms(one[0]):.3f} ms a step on one process, "
+            f"{step_ms(two[0]):.3f} / {step_ms(two[1]):.3f} on the two ranks "
+            f"(steps 2-3, host clock); the gradient all-reduce over gloo "
+            f"{ar['allreduce_ms']:.3f} ms for {ar['bucket_bytes']} bytes; "
+            f"main() {one_wall:.1f} / {two_wall:.1f} s; losses "
+            f"{[round(s['loss'], 6) for s in two[0]['on_step']]}")
+    log(f"(b) data-parallel training [{CARD}], global batch {CLI_BATCH} x "
+        f"{CLI_PATCH}^2 ({CLI_BATCH // MESH_SHARDS} a rank), {ARCH_STEPS} "
+        "steps and 1 validation; every rank's launches exact, step-1 "
+        "gradients finite and non-zero, only rank 0 wrote: "
+        + "; ".join(lines))
+
+
+def nccl_child(work):
+    """(c)'s subprocess: join the group ``COORDINATOR_ADDRESS`` names (one
+    process), one all-reduce, one train CLI step; prints its report."""
+    import torch
+    import torch.distributed as dist
+    from cnn_autoencoder_tpu_torch.cli import train_cae as cli
+    from cnn_autoencoder_tpu_torch.parallel.distributed import \
+        initialize_multihost
+    from cnn_autoencoder_tpu_torch.utils.args import get_args
+    from cnn_autoencoder_tpu_torch.utils.loggers import setup_logger
+    check(initialize_multihost(), "initialize_multihost formed no group")
+    try:
+        backend, world = dist.get_backend(), dist.get_world_size()
+        x = torch.arange(4, dtype=torch.float32, device="cuda")
+        dist.all_reduce(x)
+        check(x.tolist() == [0.0, 1.0, 2.0, 3.0], f"all-reduce {x}")
+        args = get_args("autoencoder", "training", args_list=cli_argv(
+            work, os.path.join(work, "nccl"), 0))
+        setup_logger(args)
+        reports = cli.main(args, on_step=StepProbe(1))
+    finally:
+        dist.destroy_process_group()
+    print("NCCL_REPORT " + json.dumps(dict(
+        backend=backend, world=world, reports=reports)), flush=True)
+
+
+def mesh_nccl_start(work):
+    """(c) NCCL at world size 1: a subprocess started as rank 0 of 1 (on
+    phase 8's slides, which (b) writes first); it runs beside (b)."""
+    env = dict(os.environ, COORDINATOR_ADDRESS="file://" + os.path.join(
+        work, "nccl_rendezvous"), NUM_PROCESSES="1", PROCESS_ID="0")
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.nccl_child(sys.argv[1])", work], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def mesh_nccl(proc, t0, totals):
+    """(c)'s checks on the subprocess of ``mesh_nccl_start``."""
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    check(proc.returncode == 0, f"(c) NCCL subprocess exited "
+          f"{proc.returncode}: {stdout[-2000:]} {stderr[-3000:]}")
+    out = json.loads(stdout.split("NCCL_REPORT ", 1)[1].splitlines()[0])
+    (report,) = out["reports"]
+    check(out["backend"] == "nccl" and out["world"] == 1
+          and report["ranks"] == 1
+          and report["on_step"][0]["grads_ok"],
+          f"(c) backend {out['backend']}, report {report}")
+    want = cli_expected("float32", 1, 1)
+    expect_launches("(c) NCCL CLI step", report["launches"], want)
+    plus_into(totals, report["launches"])
+    log(f"(c) NCCL at world size 1: initialize_multihost from "
+        "COORDINATOR_ADDRESS / NUM_PROCESSES=1 / PROCESS_ID=0, one all-reduce"
+        f" and one CLI step over {out['backend']} on {report['device']}, "
+        f"loss {report['on_step'][0]['loss']:.6f}, launches "
+        f"{report['launches']}; subprocess {time.perf_counter() - t0:.1f} s")
+
+
+def phase_mesh(torch, model, core, core16):
+    """Phase 13: the data mesh on the one card; returns its launches for
+    the ``kernels`` line."""
+    import shutil
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase13")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    totals, nccl = {}, []
+    try:
+        mesh_serving(torch, model, core, core16, totals)
+        t1 = time.perf_counter()
+        mesh_training(torch, work, totals, started=lambda w: nccl.append(
+            (mesh_nccl_start(w), time.perf_counter())))
+        t2 = time.perf_counter()
+        mesh_nccl(*nccl[0], totals)
+    finally:
+        for proc, _ in nccl:
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} "
+        f"s, (b) {t2 - t1:.1f} s with (c) beside it, then (c)'s end "
+        f"{time.perf_counter() - t2:.1f} s)")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5097,6 +5563,8 @@ def main():
     for name, n in phase_eval_heads(torch, model).items():
         launches[name] += n
     for name, n in phase_pixel_transport(torch, core, core16).items():
+        launches[name] += n
+    for name, n in phase_mesh(torch, model, core, core16).items():
         launches[name] += n
     check(all(launches[name] > 0 for name in records),
           f"a kernel was not launched on the main paths: {launches}")

@@ -18,6 +18,10 @@ kernels on those paths (GDN, fused conv+GDN, rANS encode and decode) are
 CUDA C++ for ``sm_90a`` under ``csrc/``; each has a plain PyTorch version
 beside it that CPU tensors take.
 
+Several cards (``parallel/``): the CAE cores shard a batch over a data
+mesh, one contiguous shard a device, and training runs one process a card
+in a ``torch.distributed`` group (the train CLI starts them).
+
 Public entry points take ``device=None``, which means ``"cuda"``; without a
 card that raises ``RuntimeError``.  Pass ``device="cpu"`` explicitly to run
 the plain versions on the CPU.

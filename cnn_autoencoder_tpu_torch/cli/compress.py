@@ -12,9 +12,13 @@ card; tests pass ``"cpu"``).  PNG and other PIL inputs need PIL.  The
 pixel upload of the CAE codecs crosses the link coded with
 ``CAE_TPU_CODED_UPLOAD=1`` (``auto``, the default, codes it only on a link
 under ``CAE_TPU_PACKED_THRESHOLD_MBPS``): environment variables, as in the
-JAX CLI, with no flag.  ``cli()`` runs one process on one GPU: the JAX
-CLI's serving mesh and multi-host start wait for ``ROADMAP.md`` §1 item
-10.
+JAX CLI, with no flag.  On the card (``device=None``) the CAE cores serve
+over ``parallel/mesh.py:serving_mesh()``: with more than one visible card
+every batch shards over all of them, one contiguous shard a card (off
+with ``CAE_TPU_SERVE_MESH=0``; the ``model`` axis waits for
+``ROADMAP.md`` item 10b).  ``cli()`` joins a multi-process start
+(``parallel/distributed.py:initialize_multihost``); only rank 0 writes
+the store, the other ranks log and exit, as the JAX CLI's do.
 """
 
 import logging
@@ -25,6 +29,8 @@ import numpy as np
 from ..data.datautils import get_filenames
 from ..data.imageio import image2array, parse_roi
 from ..models.factory import autoencoder_from_state_dict
+from ..parallel.distributed import initialize_multihost, is_primary
+from ..parallel.mesh import serving_mesh
 from ..pipeline.tiles import (compress_pixels_to_bottleneck,
                               compress_pixels_to_cae,
                               compress_pixels_to_cae_turbo,
@@ -38,6 +44,12 @@ from ..utils import loggers
 from ..utils.args import get_args
 
 LOGGER_NAME = "inference_log"
+
+
+def core_mesh(device):
+    """The serving mesh of a core built on ``device``: every visible card
+    for the card (``None``), else none."""
+    return serving_mesh() if device is None else None
 
 
 def _load_yxc(input_filename, source_format, data_group, data_axes, device):
@@ -71,7 +83,7 @@ def compress_image(codec, checkpoint, input_filename, output_filename,
         if not isinstance(core, CAETurboCore):
             core = CAETurboCore(
                 autoencoder_from_state_dict(checkpoint, device=device),
-                device=device)
+                device=device, mesh=core_mesh(device))
         compress_pixels_to_cae_turbo(
             core, src, output_filename, data_group=data_group,
             patch_size=patch_size, batch_tiles=batch_tiles,
@@ -80,7 +92,7 @@ def compress_image(codec, checkpoint, input_filename, output_filename,
         if core is None:
             core = CAECodecCore(
                 autoencoder_from_state_dict(checkpoint, device=device),
-                device=device)
+                device=device, mesh=core_mesh(device))
         if save_as_bottleneck:
             compress_pixels_to_bottleneck(
                 core, src, output_filename, data_group=data_group,
@@ -149,11 +161,11 @@ def compress(args, device=None):
     if args.codec == "CAETPU" and args.checkpoint:
         core = CAETurboCore(
             autoencoder_from_state_dict(args.checkpoint, device=device),
-            device=device)
+            device=device, mesh=core_mesh(device))
     elif "CAE" in args.codec and args.checkpoint:
         core = CAECodecCore(
             autoencoder_from_state_dict(args.checkpoint, device=device),
-            device=device)
+            device=device, mesh=core_mesh(device))
 
     for in_fn, out_fn in zip(input_fn_list, output_fn_list):
         compress_image(codec=args.codec, checkpoint=args.checkpoint,
@@ -172,8 +184,14 @@ def cli():
     """Entry point of ``python -m cnn_autoencoder_tpu_torch.cli.compress``:
     parse argv and compress on the card."""
     args = get_args(task="encoder", mode="inference")
+    initialize_multihost()
     loggers.setup_logger(args)
-    compress(args)
+    if is_primary():
+        compress(args)
+    else:
+        # one store, one writer: a second process would race its chunks
+        logging.getLogger(LOGGER_NAME).info(
+            "secondary process: store writes are rank 0's; exiting")
     logging.shutdown()
 
 

@@ -16,8 +16,11 @@ crosses the link coded with ``CAE_TPU_PACKED_FETCH=1``, by rANS
 (``CAE_TPU_FETCH_CODEC=rans``, the default) or the bit-plane packer
 (``pack``); ``auto`` codes it only on a link under
 ``CAE_TPU_PACKED_THRESHOLD_MBPS``.  These are environment variables, as in
-the JAX CLI, with no flag.  ``cli()`` runs one process on one GPU
-(``ROADMAP.md`` §1 item 10 brings the JAX CLI's mesh).
+the JAX CLI, with no flag.  On the card (``device=None``) the decode
+shards every batch over ``serving_mesh()``'s cards ('cae' stores and
+latents through a mesh core built here, 'cae_tpu' stores through their
+codec's), as ``cli/compress.py`` says; ``cli()`` joins a multi-process
+start and only rank 0 writes.
 """
 
 import logging
@@ -29,6 +32,8 @@ import numpy as np
 from ..data.datautils import get_filenames
 from ..data.imageio import array_to_image, parse_roi
 from ..models.factory import autoencoder_from_state_dict
+from ..parallel.distributed import initialize_multihost, is_primary
+from .compress import core_mesh
 from ..pipeline.tiles import (copy_sidecar_metadata, decompress_cae_array,
                               decompress_cae_turbo_array,
                               decompress_latents_to_pixels)
@@ -79,7 +84,7 @@ def decompress_image(input_filename, output_filename,
         if core is None:
             core = CAECodecCore(
                 autoencoder_from_state_dict(checkpoint, device=device),
-                device=device)
+                device=device, mesh=core_mesh(device))
         halo = 2 if add_offset else 0  # latent-space halo for stitching
         # image outputs: stage the pixel store next to the target, not at
         # the target (a zarr directory at 'x.png' would block the image)
@@ -100,7 +105,14 @@ def decompress_image(input_filename, output_filename,
                 "decoding them needs the model: pass the checkpoint "
                 "(-chk) that wrote the store." % (input_filename,))
         if stored_id == "cae":
-            rec = decompress_cae_array(z_arr)
+            # the store's own codec keeps one device for chunk-by-chunk
+            # reads; the batched decode shards over the serving mesh
+            mesh, mesh_core = core_mesh(device), None
+            if mesh is not None:
+                own = z_arr.compressor.core
+                mesh_core = CAECodecCore(own.model, mesh=mesh,
+                                         compute_dtype=own.compute_dtype)
+            rec = decompress_cae_array(z_arr, core=mesh_core)
         elif stored_id == "cae_tpu":
             rec = decompress_cae_turbo_array(z_arr)
         else:
@@ -184,7 +196,7 @@ def decompress(args, device=None):
     if args.checkpoint:
         core = CAECodecCore(
             autoencoder_from_state_dict(args.checkpoint, device=device),
-            device=device)
+            device=device, mesh=core_mesh(device))
 
     for in_fn, out_fn in zip(input_fn_list, output_fn_list):
         logger.info("Decompressing %s into %s" % (in_fn, out_fn))
@@ -204,8 +216,13 @@ def cli():
     """Entry point of ``python -m cnn_autoencoder_tpu_torch.cli.decompress``:
     parse argv and decompress on the card."""
     args = get_args(task="decoder", mode="inference")
+    initialize_multihost()
     loggers.setup_logger(args)
-    decompress(args)
+    if is_primary():
+        decompress(args)
+    else:
+        logging.getLogger(LOGGER_NAME).info(
+            "secondary process: store writes are rank 0's; exiting")
     logging.shutdown()
 
 

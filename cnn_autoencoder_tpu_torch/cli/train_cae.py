@@ -1,9 +1,8 @@
 """Training entry point: the port of the JAX package's ``cli/train_cae.py``.
 
 Usage: ``python -m cnn_autoencoder_tpu_torch.cli.train_cae -ds Zarr ...``
-with the JAX CLI's flags.  One process trains on one card (``main``'s
-``device``; ``None`` is the card and raises without one, the tests pass
-``"cpu"``).  The host loop keeps the JAX CLI's control: a train step per
+with the JAX CLI's flags.  The host loop keeps the JAX CLI's control: a
+train step per
 batch, validation and ``last_`` / ``best_`` checkpoints every
 ``checkpoint_steps`` (and when training stops), warm-up and plateau
 schedulers, early stopping, the energy penalties' sub-iterations on one
@@ -29,21 +28,48 @@ targets, ``-trm class_model`` or ``-trm seg_model`` trains the head alone on
 the frozen codec, and the log line reports ``C=`` (the class error).
 ``num_classes`` comes from the dataset (``get_data``; ``-ncl`` for zarr).
 
-Left out: the JAX CLI's mesh and multi-host branches (``ROADMAP.md`` §1 item
-10).
+Devices and processes (the JAX CLI's training mesh and multi-host start,
+in PyTorch's idiom of one process a card): ``main(args, device=None,
+devices=None)`` trains on ``devices`` (default: ``[device]`` when it is
+given, else every visible card; ``None`` without a card raises, the tests
+pass ``"cpu"``).  Data parallelism takes the largest divisor of both batch
+sizes that fits the devices (JAX ``cli/train_cae.py:396-403``); above one,
+``main`` starts one rank a device with ``torch.multiprocessing`` (spawn)
+and a ``file://`` rendezvous in the log directory, over NCCL when every
+rank has a card of its own and gloo on the CPU or where ranks share a card
+(``parallel/distributed.py``), and waits for them.  A process already
+started as a rank (the JAX package's ``COORDINATOR_ADDRESS`` /
+``NUM_PROCESSES`` / ``PROCESS_ID``, or torchrun's variables) joins its
+group instead, on ``cuda:LOCAL_RANK``, and both batch sizes must divide by
+the number of ranks.  Every rank reads the same global batches, keeps its
+contiguous share (``local_batch_slice``; a ragged batch is cut to a
+multiple of the ranks, with one log line) and steps data-parallel
+(``training/loop.py``); only rank 0 writes the log, ``last_`` / ``best_``
+and the stats.  ``CAE_TPU_TRAIN_MESH=0`` trains on the first device alone;
+``CAE_TPU_MODEL_PARALLEL`` above 1 raises (``ROADMAP.md`` item 10b).
 """
 
 import logging
-from typing import Dict
+import math
+import os
+import uuid
+from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..criteria.loss import setup_loss
 from ..criteria.stopping import setup_stopping_criteria
 from ..data.datautils import get_data
 from ..models.factory import CAEModel, autoencoder_from_state_dict, build_model
-from ..ops.convops import get_default_precision
+from ..ops.convops import get_default_precision, set_default_precision
+from ..ops.kernels import kernel_wrappers
+from ..parallel.distributed import (backend_for, initialize_multihost,
+                                    local_batch_slice, rank_device,
+                                    world_size)
+from ..parallel.mesh import (check_model_axis, create_mesh,
+                             visible_devices)
 from ..training import checkpoint as ckpt
 from ..training.loop import make_eval_step, make_train_step, valid
 from ..training.optim import (load_optimizer_state_dict,
@@ -174,9 +200,16 @@ def _host(stats: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 def train(model, train_data, valid_data, criterion, stopping_criteria,
           optimizers, schedulers, lrs, args,
-          compute_dtype: torch.dtype = torch.float32) -> bool:
+          compute_dtype: torch.dtype = torch.float32, group=None,
+          on_step=None) -> Dict:
     """The host training loop (JAX ``cli/train_cae.py:150``) on the model's
-    device; returns whether it ran to the end of its epochs."""
+    device, data-parallel over ``group`` when one is given (this rank
+    feeds its share of every global batch).  ``on_step(step, stats, grads,
+    model)``, when given, runs after every train step (sub-steps
+    included) with the host stats, the step's gradients and the updated
+    model.  Returns
+    ``{"completed": whether it ran to the end of its epochs, "on_step":
+    on_step's return values in step order}``."""
     logger = logging.getLogger(args.mode + "_log")
     device = next(model.parameters()).device
     trainable = [m for m in args.trainable_modules if hasattr(model, m)]
@@ -184,17 +217,35 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
     train_step = make_train_step(model, criterion, optimizers,
                                  enabled_modules=args.enabled_modules,
                                  trainable_modules=trainable,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype, group=group)
     eval_step = make_eval_step(model, criterion,
                                enabled_modules=args.enabled_modules,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, group=group)
     generator = torch.Generator(device=device).manual_seed(
         int(args.seed or 0))
+    n_ranks = world_size(group)
+    ragged_logged = [False]
+    observed = []
 
     def placed_batches(data):
         """Host batches -> float32 tensors on the device, and their targets
-        (labels or label maps) as tensors there."""
+        (labels or label maps) as tensors there.  Over ranks, a batch not
+        divisible by them is cut to a multiple (one log line), one that
+        gives each rank nothing is dropped, and each rank keeps its
+        share."""
         for x, t in data:
+            if group is not None:
+                keep = len(x) // n_ranks * n_ranks
+                if keep < len(x) and not ragged_logged[0]:
+                    ragged_logged[0] = True
+                    logger.info("Ragged batch of %d (not divisible by %d "
+                                "processes): keeping %d"
+                                % (len(x), n_ranks, keep))
+                if keep == 0:
+                    continue
+                sl = local_batch_slice(keep)
+                x = x[sl]
+                t = None if t is None else t[sl]
             yield (torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
                 device), None if t is None else
                 torch.from_numpy(np.ascontiguousarray(t)).to(device))
@@ -223,9 +274,11 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
             sub_step_loss = 0.0
             while True:
                 sub_step += 1
-                stats, _ = train_step(x, lrs, step, generator=generator,
-                                      t=t)
+                stats, grads = train_step(x, lrs, step, generator=generator,
+                                          t=t)
                 stats = _host(stats)
+                if on_step is not None:
+                    observed.append(on_step(step, stats, grads, model))
                 sub_step_loss += float(stats["loss"])
                 channel_e_history.append(int(stats.get("channel_e", -1)))
 
@@ -325,21 +378,127 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
                 break
         else:
             if step == epoch_start_step:
-                raise RuntimeError("the training data gave no batch this "
-                                   "epoch")
+                raise RuntimeError(
+                    "no training batch survived this epoch: the loader "
+                    "gave none, or its batch size is too small for %d "
+                    "processes (see the 'Ragged batch' log line)" % n_ranks)
             continue
         break
     else:
         completed = True
 
-    return completed
+    return {"completed": completed, "on_step": observed}
 
 
-def main(args, device=None) -> None:
-    """Train as the args say, on ``device`` (``None``: the card)."""
+def data_parallel_size(args, n_devices: int) -> int:
+    """The largest divisor of both batch sizes that fits ``n_devices``, so
+    that no batch is cut (JAX ``cli/train_cae.py:396-403``)."""
+    bs = int(getattr(args, "batch_size", 0) or 0)
+    vbs = int(getattr(args, "val_batch_size", 0) or 0) or bs
+    if not bs:
+        return n_devices
+    g = math.gcd(bs, vbs)
+    return max(d for d in range(1, n_devices + 1) if g % d == 0)
+
+
+def _check_rank_batches(args, n_ranks: int) -> None:
+    """Ranks started from outside must divide both batch sizes (the JAX
+    CLI's multi-host rule)."""
+    bs = int(getattr(args, "batch_size", 0) or 0)
+    vbs = int(getattr(args, "val_batch_size", 0) or 0) or bs
+    for name, b in (("batch size", bs), ("validation batch size", vbs)):
+        if b % n_ranks:
+            raise ValueError("multi-process training needs the global %s "
+                             "(%d) divisible by the process count (%d)"
+                             % (name, b, n_ranks))
+
+
+def main(args, device=None, devices=None, on_step=None) -> List[Dict]:
+    """Train as the args say on ``devices`` (the module's docstring), one
+    rank a device.  ``on_step`` (picklable, for ranks that are started
+    here) is ``train``'s.  Returns one report a rank, in rank order:
+    ``{"rank", "ranks", "device", "completed", "on_step", "launches"}``
+    (``launches``: the rank's process's kernel launches by kernel)."""
+    check_model_axis(int(os.environ.get("CAE_TPU_MODEL_PARALLEL", "1")
+                         or 1))
+    if initialize_multihost(device=device) or dist.is_initialized():
+        n = dist.get_world_size()
+        _check_rank_batches(args, n)
+        dev = rank_device() if device is None else resolve_device(device)
+        return [_train_rank(args, dev, dist.group.WORLD, on_step)]
+    if devices is None:
+        devices = [device] if device is not None else visible_devices()
+    # the training mesh's devices: one spelling a card, so that ranks
+    # sharing one are seen to
+    devices = list(create_mesh(devices=devices).devices)
+    if os.environ.get("CAE_TPU_TRAIN_MESH", "1") == "0":
+        devices = devices[:1]
+    n = data_parallel_size(args, len(devices))
+    if n == 1:
+        return [_train_rank(args, devices[0], None, on_step)]
+    devices = devices[:n]
+    shared = len(set(devices)) < n
+    backend = backend_for(devices[0], shared)
+    logging.getLogger(args.mode + "_log").info(
+        "Training mesh: data=%d over %s (%s)" % (n, [str(d) for d in devices],
+                                                backend))
+    return _spawn_ranks(args, devices, backend, on_step)
+
+
+def _spawn_ranks(args, devices, backend: str, on_step) -> List[Dict]:
+    """One spawned process a device, joined through a ``file://``
+    rendezvous in the log directory; their reports in rank order.  A rank
+    that raises stops the others and raises here."""
+    import torch.multiprocessing as mp
+    os.makedirs(args.log_dir, exist_ok=True)
+    rendezvous = os.path.join(os.path.abspath(args.log_dir),
+                              ".rendezvous_%s" % uuid.uuid4().hex)
+    ctx = mp.get_context("spawn")
+    queue = ctx.SimpleQueue()
+    procs = mp.start_processes(
+        _rank_worker, args=(len(devices), "file://" + rendezvous, args,
+                            devices, backend, get_default_precision(),
+                            on_step, queue),
+        nprocs=len(devices), join=False, start_method="spawn")
+    reports = []
+    try:
+        while not procs.join(timeout=0.5):
+            while not queue.empty():
+                reports.append(queue.get())
+        while not queue.empty():
+            reports.append(queue.get())
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.terminate()
+        if os.path.exists(rendezvous):
+            os.remove(rendezvous)
+    return sorted(reports, key=lambda r: r["rank"])
+
+
+def _rank_worker(rank: int, n: int, rendezvous: str, args, devices,
+                 backend: str, precision: str, on_step, queue) -> None:
+    """A spawned rank: join the group, train, report, leave."""
+    device = devices[rank]
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    set_default_precision(precision)
+    dist.init_process_group(backend, init_method=rendezvous, world_size=n,
+                            rank=rank)
+    try:
+        loggers.setup_logger(args)
+        queue.put(_train_rank(args, device, dist.group.WORLD, on_step))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_rank(args, dev: torch.device, group, on_step) -> Dict:
+    """One process's training on ``dev``: data-parallel over ``group``, or
+    alone for ``None``."""
     logger = logging.getLogger(args.mode + "_log")
-    dev = resolve_device(device)
     compute_dtype = COMPUTE_DTYPES[get_default_precision()]
+    rank, n_ranks = (0, 1) if group is None else (dist.get_rank(group),
+                                                  world_size(group))
 
     train_data, valid_data, num_classes = get_data(args, device=dev)
     args.num_classes = num_classes
@@ -358,14 +517,26 @@ def main(args, device=None) -> None:
     logger.info("Criterion: %s" % args.criterion)
     logger.info("Optimizers: %s" % {k: lrs[k] for k in optimizers})
     logger.info("Compute type: %s on %s" % (compute_dtype, dev))
+    if group is not None:
+        logger.info("Rank %d of %d on %s over %s"
+                    % (rank, n_ranks, dev, dist.get_backend(group)))
 
-    train(model, train_data, valid_data, criterion, stopping_criteria,
-          optimizers, schedulers, lrs, args, compute_dtype=compute_dtype)
+    result = train(model, train_data, valid_data, criterion,
+                   stopping_criteria, optimizers, schedulers, lrs, args,
+                   compute_dtype=compute_dtype, group=group, on_step=on_step)
+    # (a wrapper swapped for its plain version has no count)
+    return dict(result, rank=rank, ranks=n_ranks, device=str(dev),
+                launches={fn.kernel_name: fn.launches
+                          for fn in kernel_wrappers()
+                          if hasattr(fn, "kernel_name")})
 
 
 def cli():
-    """Console entry point: parse argv and train on the card."""
+    """Console entry point: parse argv and train on every visible card
+    (one rank a card), or as the rank the environment names."""
     args = get_args(task="autoencoder", mode="training")
+    # before the logger: its file is rank 0's
+    initialize_multihost()
     loggers.setup_logger(args)
     main(args)
 

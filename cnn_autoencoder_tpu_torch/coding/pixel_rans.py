@@ -55,6 +55,11 @@ class TransportSnapshot(NamedTuple):
     start: np.ndarray          # (256,) int32
     pred_mode: int             # 0 hybrid, 1 plane
 
+    def to(self, device) -> "TransportSnapshot":
+        """The same snapshot with its device tables on ``device``."""
+        return self._replace(tables=self.tables.to(device),
+                             dec_lut=self.dec_lut.to(device))
+
 
 class RansFetchResult(NamedTuple):
     """A dispatched coded fetch: device outputs and the coding state they
@@ -63,7 +68,7 @@ class RansFetchResult(NamedTuple):
     ``capacity`` is the per-tile word budget: a tile whose total exceeds it
     was cut on the device, so the host takes the raw pixels even when the
     pooled head holds (wrong) words."""
-    head: torch.Tensor     # (1, head_words) uint16: the compacted queues
+    head: torch.Tensor     # (shards, head_words) uint16: compacted queues
     totals: torch.Tensor   # (B,) int32 true totals
     rec: torch.Tensor      # (B, P, Q, C) uint8 raw pixels (the fallback)
     capacity: int

@@ -6,7 +6,9 @@
   probabilities with the logits' rank; label smoothing towards the uniform
   distribution; class weights by label, ``sum(w l) / sum(w)`` (with
   probability targets the weight is 1 and the sum is not divided, as in the
-  JAX package).
+  JAX package).  Those sums are the global batch's in data-parallel
+  training (``group``): summed over the ranks with a differentiable
+  all-reduce; every other loss here is a mean of equal shares.
 * ``_bce``: optax's ``sigmoid_binary_cross_entropy``,
   ``-t log_sigmoid(p) - (1 - t) log_sigmoid(-p)``.
 * ``BCEWeightedClassLoss``: target channel 0 is a per-pixel weight map and
@@ -21,9 +23,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.distributed import all_sum
+
 
 def _ce(pred: torch.Tensor, t: torch.Tensor, label_smoothing: float = 0.0,
-        weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        weight: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     num_classes = pred.shape[-1]
     logits = pred.reshape(-1, num_classes)
     log_probs = F.log_softmax(logits, dim=-1)
@@ -46,8 +50,11 @@ def _ce(pred: torch.Tensor, t: torch.Tensor, label_smoothing: float = 0.0,
     if weight is not None:
         if t.dim() != pred.dim():
             w = weight.reshape(-1).to(losses.device)[labels]
-            return torch.sum(losses * w) / torch.sum(w)
-        return torch.sum(losses)
+            sums = all_sum(torch.stack([torch.sum(losses * w),
+                                        torch.sum(w).to(losses.dtype)]),
+                           group)
+            return sums[0] / sums[1]
+        return all_sum(torch.sum(losses), group)
     return torch.mean(losses)
 
 
@@ -69,8 +76,9 @@ class CEClassLoss:
         self._weight = None if weight is None else torch.as_tensor(weight)
         self._smooth = label_smoothing
 
-    def __call__(self, pred, t, **_):
-        return {"class_error": _ce(pred, t, self._smooth, self._weight),
+    def __call__(self, pred, t, group=None, **_):
+        return {"class_error": _ce(pred, t, self._smooth, self._weight,
+                                   group),
                 "aux_class_error": _zero(pred)}
 
 
@@ -103,10 +111,11 @@ class CEClassLossWithAux:
         self._weight = None if weight is None else torch.as_tensor(weight)
         self._smooth = label_smoothing
 
-    def __call__(self, pred, t, aux_pred=None, **_):
-        out = {"class_error": _ce(pred, t, self._smooth, self._weight)}
+    def __call__(self, pred, t, aux_pred=None, group=None, **_):
+        out = {"class_error": _ce(pred, t, self._smooth, self._weight,
+                                  group)}
         out["aux_class_error"] = (
-            _ce(aux_pred, t, self._smooth, self._weight)
+            _ce(aux_pred, t, self._smooth, self._weight, group)
             if aux_pred is not None else _zero(pred))
         return out
 

@@ -15,7 +15,10 @@ JAX package's ``criteria/loss.py:37-168``.  It sums, in this order:
   ``class_error_mu`` and ``class_error_aux_mu``.
 
 ``net`` carries what the losses need from the model: ``fact_ent_params``
-and ``num_filters`` (the auxiliary loss) and ``decoder_fn`` (PenaltyB).
+and ``num_filters`` (the auxiliary loss), ``decoder_fn`` (PenaltyB), and in
+data-parallel training ``group``, the process group over which the
+reductions that are not a mean of equal shards are taken: penalty A's
+medians and the class-weighted cross entropy's sums.
 """
 
 from typing import Dict, Optional
@@ -71,15 +74,18 @@ class GeneralLoss:
             self._class_error_mu = class_error_mu
             self._class_error_aux_mu = class_error_aux_mu
 
-    def _class_loss(self, outputs, targets) -> Dict[str, torch.Tensor]:
+    def _class_loss(self, outputs, targets, group
+                    ) -> Dict[str, torch.Tensor]:
         if outputs.get("t_pred") is not None:
             pred, aux_pred = outputs["t_pred"], outputs.get("t_aux_pred")
         else:
             pred, aux_pred = outputs["s_pred"], outputs.get("s_aux_pred")
-        return self.class_loss(pred=pred, aux_pred=aux_pred, t=targets)
+        return self.class_loss(pred=pred, aux_pred=aux_pred, t=targets,
+                               group=group)
 
     def __call__(self, inputs: torch.Tensor, outputs, targets=None,
                  net=None) -> Dict[str, torch.Tensor]:
+        group = (net or {}).get("group")
         loss = torch.zeros((), device=inputs.device)
         loss_dict = {"channel_e": torch.tensor(-1, device=inputs.device)}
         if self.dist_loss is not None:
@@ -98,7 +104,8 @@ class GeneralLoss:
                     net["fact_ent_params"], net["num_filters"])
             loss = loss + loss_dict["rate_loss"]
         if self._penalty_type == "PenaltyA":
-            loss_dict.update(penalty_a(x=inputs, y=outputs["y"]))
+            loss_dict.update(penalty_a(x=inputs, y=outputs["y"],
+                                       group=group))
         elif self._penalty_type == "PenaltyB":
             loss_dict.update(penalty_b(y=outputs["y"],
                                        decoder_fn=net["decoder_fn"],
@@ -106,7 +113,7 @@ class GeneralLoss:
         if self._penalty_type is not None:
             loss = loss + self._penalty_beta * loss_dict["weighted_penalty"]
         if self.class_loss is not None:
-            loss_dict.update(self._class_loss(outputs, targets))
+            loss_dict.update(self._class_loss(outputs, targets, group))
             loss = (loss + self._class_error_mu * loss_dict["class_error"]
                     + self._class_error_aux_mu
                     * loss_dict["aux_class_error"])

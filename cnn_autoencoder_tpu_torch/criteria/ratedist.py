@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.msssim import ms_ssim
+from ..parallel.distributed import all_gather_cat
 from ..utils.device import full_f32
 
 
@@ -114,11 +115,14 @@ def _median(v: torch.Tensor) -> torch.Tensor:
     return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
-def penalty_a(x: torch.Tensor, y: torch.Tensor) -> Dict[str, torch.Tensor]:
+def penalty_a(x: torch.Tensor, y: torch.Tensor, group=None
+              ) -> Dict[str, torch.Tensor]:
     """Energy-compaction penalty A: the entropy of the per-channel energy
     shares, with the batch median of the largest share and of its channel
     (a float, as ``jnp.median`` gives it) for the PA stopping criterion
-    and for PenaltyB."""
+    and for PenaltyB.  With a process group the medians are the global
+    batch's, over every rank's values (equal shares, as the entropy's
+    mean is)."""
     x_mean = torch.mean(x, dim=-1)                           # (B, H, W)
     x_var = (_var(x_mean, (1, 2))[:, None] + 1e-10).detach()  # (B, 1)
 
@@ -129,8 +133,9 @@ def penalty_a(x: torch.Tensor, y: torch.Tensor) -> Dict[str, torch.Tensor]:
     p_a = torch.mean(torch.sum(-a * torch.log2(a), dim=1))
 
     a_sg = a.detach()
-    max_energy = _median(torch.max(a_sg, dim=1).values)
-    channel_e = _median(torch.argmax(a_sg, dim=1))
+    max_energy = _median(all_gather_cat(torch.max(a_sg, dim=1).values,
+                                        group))
+    channel_e = _median(all_gather_cat(torch.argmax(a_sg, dim=1), group))
 
     return {"weighted_penalty": p_a, "penalty": p_a, "energy": max_energy,
             "channel_e": channel_e}

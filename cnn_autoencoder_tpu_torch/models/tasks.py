@@ -18,7 +18,7 @@ the decoder's bridges ``fx_brg`` too (JAX ``models/tasks.py:90-104``), in
 float32 in both compute modes (``models/classifiers.py``).
 """
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -69,7 +69,7 @@ def make_forward_fn(model, enabled_modules: Optional[Sequence[str]] = None,
                     trainable_modules: Optional[Sequence[str]] = None,
                     remat: bool = False) -> Callable:
     """Build ``forward(x, train=False, noise=None, generator=None,
-    masks=None, compute_dtype=None) -> (outputs, new_state)``.
+    masks=None, compute_dtype=None, rows=None) -> (outputs, new_state)``.
 
     ``train`` selects the bottleneck's noise quantization (``noise`` or
     draws from ``generator``) over round-to-median, and the batch norms'
@@ -77,7 +77,11 @@ def make_forward_fn(model, enabled_modules: Optional[Sequence[str]] = None,
     (``draw_masks``' layout), else draws them from ``generator`` before
     anything else runs.  ``compute_dtype`` is the network's compute type
     (None: x's), handed to every layer.  The decoder's input takes the
-    latent's dtype, as in the JAX package.  ``remat`` recomputes the
+    latent's dtype, as in the JAX package.  ``rows`` (start, stop, global
+    batch) says that ``x`` is those rows of a global batch (a data-parallel
+    rank's share): the masks and the noise are then drawn for the global
+    batch and sliced (``noise`` and ``masks``, when given, are the
+    share's).  ``remat`` recomputes the
     encoder's, the decoder's and the heads' forwards in the backward
     (``torch.utils.checkpoint``), the JAX package's ``jax.checkpoint``: the
     masks and the bottleneck's noise are drawn outside the recomputed
@@ -117,10 +121,17 @@ def make_forward_fn(model, enabled_modules: Optional[Sequence[str]] = None,
     def forward(x: torch.Tensor, train: bool = False,
                 noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                masks: Optional[Dict] = None, compute_dtype=None):
+                masks: Optional[Dict] = None, compute_dtype=None,
+                rows: Optional[Tuple[int, int, int]] = None):
+        # rows (start, stop, global batch): x is that slice of a global
+        # batch, and the masks and the noise drawn here are the global
+        # batch's, sliced, so every rank draws what one process would
+        start, stop, total = rows or (0, x.shape[0], x.shape[0])
         if train and masks is None:
-            masks = draw_masks(model, enabled, x.shape[0], generator,
-                               x.device)
+            masks = draw_masks(model, enabled, total, generator, x.device)
+            if rows:
+                masks = {m: {u: k[start:stop] for u, k in unit.items()}
+                         for m, unit in masks.items()}
         new_state: Dict[str, Dict[str, torch.Tensor]] = {}
         def run_cae(name, inp):
             return run_net(name, inp, train, new_state,
@@ -129,6 +140,10 @@ def make_forward_fn(model, enabled_modules: Optional[Sequence[str]] = None,
 
         y = run_cae("encoder", x) if "encoder" in enabled else x
         if "fact_ent" in enabled:
+            if train and noise is None and rows:
+                noise = (torch.rand((total,) + tuple(y.shape[1:]),
+                                    generator=generator, dtype=y.dtype,
+                                    device=y.device) - 0.5)[start:stop]
             y_q, p_y = run("fact_ent", y, training=train, noise=noise,
                            generator=generator)
         else:

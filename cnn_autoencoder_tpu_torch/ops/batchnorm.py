@@ -22,6 +22,13 @@ layer), and the train step folds them in once after the forward, as the
 JAX step folds the ``batch_stats`` collection that ``apply`` returns
 mutated.  A forward recomputed under ``torch.utils.checkpoint`` records
 them again into the same dict, which is read only once.
+
+Data-parallel training (``training/loop.py:make_train_step(group=)``) sets
+``group`` on every batch norm of the model: the train-mode statistics are
+then the global batch's, as under a JAX mesh, from sums and sums of squares
+all-reduced over the group's ranks with a differentiable all-reduce, so
+the backward sums across ranks too; every rank folds the same running
+statistics.
 """
 
 from typing import Dict, Optional
@@ -29,15 +36,25 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel.distributed import all_sum
+
 MOMENTUM, EPSILON = 0.9, 1e-5
 
 
-def batch_statistics(x: torch.Tensor):
-    """(mean, biased variance) over every axis but the last, in float32."""
+def batch_statistics(x: torch.Tensor, group=None):
+    """(mean, biased variance) over every axis but the last, in float32;
+    with a process group, over every rank's ``x`` (equal shares)."""
     x32 = x.float()
     dims = tuple(range(x.dim() - 1))
-    mean = x32.mean(dims)
-    mean2 = (x32 * x32).mean(dims)
+    if group is None:
+        mean = x32.mean(dims)
+        mean2 = (x32 * x32).mean(dims)
+    else:
+        sums = all_sum(torch.stack([x32.sum(dims), (x32 * x32).sum(dims)]),
+                       group)
+        count = x32.numel() // x32.shape[-1] * torch.distributed \
+            .get_world_size(group)
+        mean, mean2 = sums[0] / count, sums[1] / count
     return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
 
 
@@ -59,6 +76,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("mean", torch.empty(channels))
         self.register_buffer("var", torch.empty(channels))
+        self.group = None  # the data-parallel process group, if any
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
@@ -75,7 +93,7 @@ class BatchNorm(nn.Module):
         if not train:
             return normalize(x, self.mean, self.var, self.scale, self.bias,
                              self.epsilon)
-        mean, var = batch_statistics(x)
+        mean, var = batch_statistics(x, self.group)
         if batch_stats is not None:
             m = self.momentum
             batch_stats[self] = (

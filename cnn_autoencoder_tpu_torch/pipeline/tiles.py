@@ -33,8 +33,12 @@ stored byte and decoded pixel is the same as without the transport.
 thread from batch 0's frames while encode jobs hold theirs, so no decode
 job ever waits for it.
 
-Left out until ``ROADMAP.md`` §1's item 10: the mesh branch of
-``default_batch_tiles``.
+A core with a data mesh (``parallel/mesh.py``) shards every batch over
+its devices: ``default_batch_tiles`` rounds the batch up to a multiple of
+the ``data`` axis so tiles shard evenly, the bit-plane packer stays off
+(its buffer is compacted over the whole batch), and the coded fetch's
+gates weigh a shard's batch (``per_shard_batch``), the unit its heads
+frame.  The ``model`` axis waits for ``ROADMAP.md`` item 10b.
 
 ``decompress_latents_to_pixels`` takes ``rec_level`` other than full
 scale through a multiscale decoder's color layers, as the JAX package does.
@@ -71,14 +75,18 @@ def default_batch_tiles(patch_size: int, core=None,
                         n_tiles: Optional[int] = None) -> int:
     """Pick a batch so one device batch is ~32 MB of uint8 pixels, shrunk
     until the image splits into at least ~4 batches when ``n_tiles`` is
-    given.  ``CAE_TPU_BATCH_TILES`` overrides (0 = auto).  ``core`` is
-    accepted for the JAX signature; the mesh rounding waits for item 10."""
-    del core
+    given.  ``CAE_TPU_BATCH_TILES`` overrides (0 = auto).  When ``core``
+    serves over a mesh, the batch is rounded up to a multiple of the data
+    axis so tiles shard evenly."""
     forced = int(os.environ.get("CAE_TPU_BATCH_TILES", 0))
     b = forced if forced > 0 else max(
         1, min(64, (1 << 25) // max(1, patch_size * patch_size * 3)))
     if n_tiles and not forced:
         b = max(1, min(b, -(-n_tiles // 4)))
+    mesh = getattr(core, "mesh", None)
+    if mesh is not None:
+        nd = mesh.shape["data"]
+        b = -(-b // nd) * nd
     return b
 
 
@@ -188,18 +196,19 @@ def _gate_upload(tr, tiles_np: np.ndarray, n_values: int):
     return tr
 
 
-def _gate_fetch(tr, rec, batch: int, padded_hw):
+def _gate_fetch(tr, rec, core, batch: int):
     """``tr``, calibrated from the reconstructions ``rec`` (a stacked
-    array, or a list of tile arrays) if it is not, or None where coding a
-    batch of ``batch`` tiles, padded by ``padded_hw``, would expand on the
-    wire."""
+    array, or a list of tile arrays) if it is not, or None where coding
+    ``core``'s batches of ``batch`` tiles would expand on the wire.  The
+    gate weighs a shard's batch (``core.per_shard_batch``): the unit the
+    coded fetch frames under a mesh (JAX ``tiles.py:740-745``)."""
     if tr is None or tr.calibrated():
         return tr
     if not isinstance(rec, np.ndarray):
         rec = np.stack([r for r in rec if r.shape == rec[0].shape])
-    ph, pw = padded_hw(*rec.shape[1:3])
-    return tr if tr.calibrate_and_gate_fetch(rec, ph * pw * 3, batch) \
-        else None
+    ph, pw = getattr(core, "base", core).padded_hw(*rec.shape[1:3])
+    return tr if tr.calibrate_and_gate_fetch(
+        rec, ph * pw * 3, core.per_shard_batch(batch)) else None
 
 
 def compress_pixels_to_cae(core: CAECodecCore, src: np.ndarray,
@@ -484,11 +493,14 @@ def decompress_cae_array(src: zarrlib.Array,
     # raw fetch; its transport persists on the core
     ph, pw = core.padded_hw(p + 2 * offset, p + 2 * offset)
     n_values = ph * pw * 3
-    use_packed = (packed_fetch_enabled(core.device) and _fetch_codec() ==
-                  "pack" and n_values % 128 == 0)
+    # the packer compacts over the whole batch: single-device only (JAX
+    # tiles.py:447)
+    use_packed = (core.mesh is None and packed_fetch_enabled(core.device)
+                  and _fetch_codec() == "pack" and n_values % 128 == 0)
     transport = _fetch_transport(core)
     if (transport is not None and transport.calibrated()
-            and not transport.worthwhile_fetch(n_values, batch)):
+            and not transport.worthwhile_fetch(
+                n_values, core.per_shard_batch(batch))):
         transport = None  # this call's tiles are too small to code
 
     def fetch_and_stitch(idxs, rec_dev, tr):
@@ -503,7 +515,7 @@ def decompress_cae_array(src: zarrlib.Array,
         if tr is not None and not tr.calibrated():
             # a third overflow dropped the table in this fetch: refit from
             # these (raw) pixels so later batches go coded again
-            if _gate_fetch(tr, rec_np, batch, core.padded_hw) is None:
+            if _gate_fetch(tr, rec_np, core, batch) is None:
                 transport = None
         if offset:
             rec_np = rec_np[:, offset:-offset, offset:-offset]
@@ -536,8 +548,7 @@ def decompress_cae_array(src: zarrlib.Array,
             sym0, _ = rans_decode_group(i0)
             if sym0 is not None:
                 rec0 = core.fetch_pixels(core.decode_tiles_device(sym0))
-                transport = _gate_fetch(transport, rec0, batch,
-                                        core.padded_hw)
+                transport = _gate_fetch(transport, rec0, core, batch)
                 break
 
     rans_pool = ThreadPoolExecutor(max_workers=1)
@@ -694,7 +705,7 @@ def decompress_cae_turbo_array(src: zarrlib.Array,
             bufs0 = [b for b in raw[i0:i0 + batch] if b is not None]
             if bufs0:
                 transport = _gate_fetch(transport, core.decode_tiles(bufs0),
-                                        batch, core.base.padded_hw)
+                                        core, batch)
                 break
 
     def decode_and_stitch(ids, bufs):
@@ -705,7 +716,7 @@ def decompress_cae_turbo_array(src: zarrlib.Array,
             rec = core.decode_tiles(bufs, transport=tr)
         if tr is not None and not tr.calibrated():
             # a third overflow dropped the table: refit from these pixels
-            if _gate_fetch(tr, rec, batch, core.base.padded_hw) is None:
+            if _gate_fetch(tr, rec, core, batch) is None:
                 transport = None
         _stitch_turbo(src, out, ids, rec)
 
@@ -776,7 +787,7 @@ def roundtrip_cae_turbo(core: CAETurboCore, src: np.ndarray, out_path: str,
             rec = core.decode_tiles(bufs, transport=tr)
         if tr is not None and not tr.calibrated():
             # a third overflow dropped the table: refit from these pixels
-            if _gate_fetch(tr, rec, batch, core.base.padded_hw) is None:
+            if _gate_fetch(tr, rec, core, batch) is None:
                 fetch_tr = None
         _stitch_turbo(arr, out, [(i, j, 0) for i, j in ids], rec)
 
@@ -801,8 +812,8 @@ def roundtrip_cae_turbo(core: CAETurboCore, src: np.ndarray, out_path: str,
 
     def calibrate_fetch(bufs0):
         nonlocal fetch_tr, released
-        fetch_tr = _gate_fetch(fetch_tr, core.decode_tiles(bufs0), batch,
-                               core.base.padded_hw)
+        fetch_tr = _gate_fetch(fetch_tr, core.decode_tiles(bufs0), core,
+                               batch)
         with dec_lock:
             released = True
             dec_jobs.extend(dec_workers.submit(decode_and_stitch, *job)

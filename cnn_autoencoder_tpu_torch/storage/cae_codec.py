@@ -22,6 +22,16 @@ residuals on the device (K6), or packs their bit-planes, and
 Every form gives the same pixels; a batch past its coded budget falls back
 to the device's raw pixels.  ``GLOBAL_TIMER`` counts the bytes each way.
 
+With a ``mesh`` (``parallel/mesh.py``, the JAX core's ``mesh=``) a batch is
+padded to a multiple of the ``data`` axis by repeating its last tile and
+each contiguous shard runs on its mesh device, on a replica of the model
+there, every kernel launched per shard; every shard's device work is
+launched before any result is fetched, and the results are gathered on the
+mesh's first device.  The bit-plane packer stays single-device (its buffer
+is compacted over the whole batch), so a mesh core fetches raw or by rANS,
+whose head is one pooled head a shard, ``(n_shards, head_words)``.  Frames
+and pixels are those of one device.
+
 The model runs at a compute type fixed when the core is built: float32, or
 bf16 activations end to end (``ops.convops.set_default_precision("bf16")``
 or CAE_TPU_PRECISION=bf16), as the JAX codec casts them at the model's
@@ -30,6 +40,7 @@ either, in either package.
 """
 
 import base64
+import copy
 import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -48,6 +59,8 @@ from ..coding.pixel_rans import (_CAP_BUCKET, RansFetchResult,
 from ..models.entropy import medians_fn, update_cdf_tables
 from ..models.factory import autoencoder_from_state_dict
 from ..ops.convops import get_activations_dtype
+from ..parallel.mesh import (check_model_axis, gather_batch, replicate,
+                             split_batch)
 from ..training.checkpoint import msgpack_restore, msgpack_serialize
 from ..utils.device import resolve_device
 from ..utils.profiling import GLOBAL_TIMER
@@ -96,9 +109,14 @@ class CAECodecCore:
     bf16; ``None``: ``get_activations_dtype()`` now).  The encoder and the
     decoder run in eval mode (``train=False``: batch norms on their running
     statistics, no dropout) whatever the model's ``training`` flag, as the
-    JAX cores apply them."""
+    JAX cores apply them.  ``mesh``: a data mesh to shard batches over
+    (the model moves to its first device; ``device`` is then unused)."""
 
-    def __init__(self, model, device=None, compute_dtype=None):
+    def __init__(self, model, device=None, compute_dtype=None, mesh=None):
+        if mesh is not None:
+            check_model_axis(mesh.shape["model"])
+            device = mesh.devices[0]
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.compute_dtype = (get_activations_dtype() if compute_dtype is None
                               else compute_dtype)
@@ -116,6 +134,48 @@ class CAECodecCore:
         self.offset = tables["offset"]
         self.medians = np.asarray(medians_fn(fe), np.float32)
         self._med = torch.from_numpy(self.medians).to(self.device)
+        # one single-device core a mesh device, in mesh order (a repeated
+        # device repeats its core)
+        self.shards = None if mesh is None else self._shard_cores()
+
+    # -- mesh ---------------------------------------------------------------
+
+    def _on_device(self, device, model):
+        """A single-device copy of this core on ``device``, sharing its host
+        tables."""
+        core = copy.copy(self)
+        core.mesh = core.shards = None
+        core.device, core.model = device, model
+        core._med = self._med.to(device)
+        return core
+
+    def _shard_cores(self) -> List["CAECodecCore"]:
+        models = replicate(self.mesh, self.model)
+        by_model = {}
+        for d, m in zip(self.mesh.devices, models):
+            if id(m) not in by_model:
+                by_model[id(m)] = self._on_device(d, m)
+        return [by_model[id(m)] for m in models]
+
+    def per_shard_batch(self, batch: int) -> int:
+        """Tiles a shard after the mesh's padding: the framing unit of the
+        rANS fetch's pooled heads, at which the pipeline's gates weigh a
+        coded fetch (JAX ``turbo_codec.py:per_shard_batch``)."""
+        nd = 1 if self.mesh is None else self.mesh.shape["data"]
+        return max(1, -(-batch // nd))
+
+    def _split(self, x) -> List:
+        """``x``'s shards, tensors moved to their devices."""
+        return split_batch(x, len(self.shards),
+                           [c.device for c in self.shards])
+
+    def _sharded(self, method: str, x, *args) -> torch.Tensor:
+        """``method`` of each shard core on its shard of ``x`` (all launched
+        before any result is gathered), gathered and cut to ``x``'s
+        batch."""
+        parts = [getattr(core, method)(part, *args)
+                 for core, part in zip(self.shards, self._split(x))]
+        return gather_batch(parts, self.device)[:x.shape[0]]
 
     # -- geometry -----------------------------------------------------------
 
@@ -133,6 +193,8 @@ class CAECodecCore:
         quantized latent ``round(y - medians)``, channel-major, on the
         device; y in the compute type, the medians and the difference in
         float32."""
+        if self.shards:
+            return self._sharded("latent_symbols", tiles_u8)
         if not torch.is_tensor(tiles_u8):
             tiles_u8 = torch.from_numpy(np.ascontiguousarray(tiles_u8))
         x = tiles_u8.to(self.device)
@@ -154,6 +216,8 @@ class CAECodecCore:
         2**level -> (B, lh, lw, C) float32 latents y on the device, computed
         in the compute type: what a 'cae_bn' store holds (the JAX core's
         ``_latent``)."""
+        if self.shards:
+            return self._sharded("latents", tiles_u8)
         if not torch.is_tensor(tiles_u8):
             tiles_u8 = torch.from_numpy(np.ascontiguousarray(tiles_u8))
         x = tiles_u8.to(self.device).float() / 255.0
@@ -194,6 +258,15 @@ class CAECodecCore:
         with ``snap``'s tables, compacted to one flat buffer, which is all
         that crosses the link.  Returns what ``encode_tiles_device``
         does."""
+        if self.shards:
+            # each shard uploads its own tiles' words
+            parts = [core.encode_tiles_device_coded(
+                q, t, (len(q),) + tuple(shape[1:]), snap.to(core.device),
+                px_capacity)[2] for core, q, t in zip(
+                    self.shards, self._split(queues_u16),
+                    self._split(totals))]
+            return self.narrow_symbols(gather_batch(
+                parts, self.device)[:len(queues_u16)])
         flat, offs = compact_host(queues_u16, totals, px_capacity)
         GLOBAL_TIMER.add_link_bytes("h2d", flat.nbytes + offs.nbytes)
         return self.narrow_symbols(self.encode_from_rans(
@@ -225,8 +298,13 @@ class CAECodecCore:
         With a calibrated ``transport`` (``PixelRansTransport``) the
         result is ``decode_rans``'s coded form instead, with ``packed``
         the bit-plane packer's (head, words, widths, total); pass either to
-        ``fetch_pixels``."""
+        ``fetch_pixels``.  Under a mesh ``packed`` is ignored, and the coded
+        form keeps the padded batch (one pooled head a shard)."""
         snap = transport.snapshot() if transport is not None else None
+        if self.shards:
+            if snap is None:
+                return self._sharded("decode_tiles_device", sym)
+            return self._decode_rans_sharded(sym, snap, transport)
         if snap is not None:
             b, _, lh, lw = sym.shape
             n = (lh << self.level) * (lw << self.level) * 3
@@ -240,6 +318,24 @@ class CAECodecCore:
                                         * sym.element_size())
         y = sym.to(self.device).permute(0, 2, 3, 1).float() + self._med
         return self._synthesize(y)
+
+    def _decode_rans_sharded(self, sym, snap: TransportSnapshot,
+                             transport) -> RansFetchResult:
+        """``decode_rans`` on every shard, each compacting its own tiles
+        into a head of one shard's budget; the heads stack in mesh
+        order."""
+        b, _, lh, lw = sym.shape
+        n = (lh << self.level) * (lw << self.level) * 3
+        capacity = transport.capacity(n)
+        head_words = transport.pooled_head_words(n, self.per_shard_batch(b))
+        parts = [core.decode_rans(part, snap.to(core.device), capacity,
+                                  head_words)
+                 for core, part in zip(self.shards, self._split(sym))]
+        return RansFetchResult(
+            gather_batch([p.head for p in parts], self.device),
+            gather_batch([p.totals for p in parts], self.device),
+            gather_batch([p.rec for p in parts], self.device), capacity,
+            snap.freq, snap.start, snap.pred_mode)
 
     def decode_packed(self, sym):
         """Decode, then pack the residuals' bit-planes on the device:
@@ -356,6 +452,8 @@ class CAECodecCore:
         coarser level L takes the multiscale decoder's reconstruction at
         2**L times the latent's size, and raises for a decoder without
         color layers."""
+        if self.shards:
+            return self._sharded("decode_latents_device", y, rec_level)
         rec_idx = 0 if rec_level in (-1, self.level) \
             else self.level - rec_level
         if not torch.is_tensor(y):

@@ -23,8 +23,17 @@ uploads host tiles as the transport's host-coded words, and
 residuals coded on the device, or bit-plane packed when the coded fetch is
 on (``CAE_TPU_PACKED_FETCH``) but no transport is (``coding/pixel_rans.py``,
 ``coding/pixel_pack.py``).  Frames and pixels are the same either way.
+
+With a ``mesh`` (``parallel/mesh.py``) a batch is padded to a multiple of
+the ``data`` axis by repeating its last tile, and each contiguous shard
+runs the model, K6's state pass and compactions, and K5 on its own mesh
+device (the JAX core's ``shard_map``); every shard's device work is
+launched before any shard's result is fetched.  The frames are those of
+one device, and ``per_shard_batch`` is the framing unit of the rANS
+fetch's pooled heads.
 """
 
+import copy
 import struct
 from typing import List, Optional, Sequence, Tuple
 
@@ -38,6 +47,7 @@ from ..coding.device_rans import (bake_device_tables, decode_device,
 from ..coding.pixel_pack import packed_fetch_enabled
 from ..models.factory import autoencoder_from_state_dict
 from ..ops.kernels.rans_kernel import rans_compact
+from ..parallel.mesh import gather_batch, serving_mesh, split_batch
 from ..utils.profiling import GLOBAL_TIMER
 from .cae_codec import CAECodecCore, host_frame_hw
 from .codecs import (Codec, check_frame_hw, ndarray_copy,
@@ -59,16 +69,16 @@ def is_turbo_frame(raw: bytes) -> bool:
 class CAETurboCore:
     """Batched device encode/decode of tiles for one CAE model; ``base`` is
     the host-format core of the same model, which writes the batches the
-    device coder cannot take and reads host frames.  ``compute_dtype`` is
-    the model's activation type, as ``CAECodecCore`` takes it."""
+    device coder cannot take and reads host frames.  ``compute_dtype`` and
+    ``mesh`` are as ``CAECodecCore`` takes them."""
 
     def __init__(self, model, num_streams: int = DEFAULT_STREAMS,
-                 device=None, compute_dtype=None):
+                 device=None, compute_dtype=None, mesh=None):
         if not 1 <= num_streams <= 0xFFFF:
             raise ValueError(f"num_streams {num_streams} does not fit the "
                              "frame's u16 field")
         self.base = CAECodecCore(model, device=device,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype, mesh=mesh)
         self.num_streams = num_streams
         fe = {k: v.detach().cpu().numpy()
               for k, v in model.fact_ent.params().items()}
@@ -83,10 +93,26 @@ class CAETurboCore:
         self._ch_maps = {}
         self.capacity_retries = 0  # compactions re-run at a larger capacity
         self.host_fallbacks = 0    # batches written as host 'cae' frames
+        # one single-device core a mesh device, in mesh order (the base
+        # core's shards beneath them)
+        self.shards = None
+        if mesh is not None:
+            by_base = {}
+            for b in self.base.shards:
+                if id(b) not in by_base:
+                    core = copy.copy(self)
+                    core.base, core.tables = b, self.tables.to(b.device)
+                    core._ch_maps, core.shards = {}, None
+                    by_base[id(b)] = core
+            self.shards = [by_base[id(b)] for b in self.base.shards]
 
     @property
     def model(self):
         return self.base.model
+
+    @property
+    def mesh(self):
+        return self.base.mesh
 
     @property
     def device(self) -> torch.device:
@@ -111,6 +137,18 @@ class CAETurboCore:
     def _latent_hw(self, th: int, tw: int) -> Tuple[int, int]:
         return self.base.latent_hw(*self.base.padded_hw(th, tw))
 
+    def per_shard_batch(self, batch: int) -> int:
+        """Tiles a shard after the mesh's padding (``CAECodecCore``'s)."""
+        return self.base.per_shard_batch(batch)
+
+    def _shard_pairs(self, x) -> List[Tuple["CAETurboCore", object]]:
+        """(core, its shard of ``x``) for each shard: one pair, this core
+        and all of ``x``, without a mesh."""
+        if self.shards is None:
+            return [(self, x)]
+        return list(zip(self.shards, split_batch(
+            x, len(self.shards), [c.device for c in self.shards])))
+
     # -- encode -------------------------------------------------------------
 
     def latent_symbols(self, tiles_u8) -> torch.Tensor:
@@ -131,13 +169,16 @@ class CAETurboCore:
         pass, then one compaction and one device-to-host copy (escape count,
         totals and uint16 words together) per capacity tried.  Escapes, or
         six capacities that all overflow, send the batch to the host coder,
-        which codes the same symbols."""
+        which codes the same symbols.  Under a mesh each shard codes its
+        own tiles on its device."""
         bsz, _, lh, lw = sym_cm.shape
         s = self.num_streams
         t = self._steps(lh, lw, s)
-        esc = self.escapes(sym_cm).sum()
-        state = encode_states(pack_streams(sym_cm.reshape(bsz, -1), s),
-                              self._ch_map(lh, lw, s), self.tables)
+        shards = self._shard_pairs(sym_cm)
+        esc = [core.escapes(x).sum() for core, x in shards]
+        states = [encode_states(pack_streams(x.reshape(len(x), -1), s),
+                                core._ch_map(lh, lw, s), core.tables)
+                  for core, x in shards]
         # the first capacity from the tables' entropy (+12% headroom), then
         # doubling, as the JAX codec tries them; none needs to exceed one
         # word per symbol
@@ -148,20 +189,26 @@ class CAETurboCore:
                 self.capacity_retries += 1
                 capacity *= 2
             cap = min(capacity, worst)
-            n_esc, totals, words = self._compact_fetch(state, esc, cap)
-            if n_esc:
+            bufs = [core._compact(state, e, cap)
+                    for (core, _), state, e in zip(shards, states, esc)]
+            fetched = [self._fetch_compacted(buf, len(x), cap)
+                       for buf, (_, x) in zip(bufs, shards)]
+            if sum(f[0] for f in fetched):
                 break
+            totals = np.concatenate([f[1] for f in fetched])
             if int(totals.max()) <= cap:
-                return self._frame(words, totals, true_hw)
+                words = [f[2] for f in fetched]
+                return self._frame(words[0] if len(words) == 1
+                                   else np.concatenate(words), totals,
+                                   true_hw)
         self.host_fallbacks += 1
         sym = self.base.fetch_symbols(self.base.narrow_symbols(sym_cm))
         return self.base.entropy_encode(sym, true_hw)
 
-    def _compact_fetch(self, state, esc: torch.Tensor, cap: int):
+    def _compact(self, state, esc: torch.Tensor, cap: int) -> torch.Tensor:
         """Compact ``state`` at ``cap`` into one device buffer holding the
         escape count and the totals (int32) before the (B, cap) uint16
-        words, and copy it to the host at once.  Returns (escape count,
-        totals, words) as host arrays."""
+        words."""
         bsz = state.words.shape[0]
         head = 2 * (bsz + 1)  # uint16 slots of the int32 head
         buf = torch.empty(head + bsz * cap, dtype=torch.uint16,
@@ -169,6 +216,13 @@ class CAETurboCore:
         counts = buf[:head].view(torch.int32)
         rans_compact(state, cap, out=(buf[head:].view(bsz, cap), counts[1:]))
         counts[0] = esc
+        return buf
+
+    @staticmethod
+    def _fetch_compacted(buf: torch.Tensor, bsz: int, cap: int):
+        """``_compact``'s buffer copied to the host at once: (escape count,
+        totals, words) as host arrays."""
+        head = 2 * (bsz + 1)
         host = buf.cpu().numpy()
         GLOBAL_TIMER.add_link_bytes("d2h", host.nbytes)
         counts_h = host[:head].view(np.int32)
@@ -266,10 +320,20 @@ class CAETurboCore:
         for i, payload in enumerate(payloads):
             queues[i, :totals[i]] = np.frombuffer(payload, "<u2")
         GLOBAL_TIMER.add_link_bytes("h2d", queues.nbytes)
-        sym_ts = decode_interleaved(torch.from_numpy(queues).to(self.device),
-                                    self._ch_map(lh, lw, s), self.tables, t)
-        flat = unpack_streams(sym_ts, self.channels_bn * lh * lw)
-        return flat.reshape(batch, self.channels_bn, lh, lw)
+        return self._decode_shards(decode_interleaved, queues, lh, lw, s, t)
+
+    def _decode_shards(self, decode, bufs: np.ndarray, lh: int, lw: int,
+                       s: int, t: int) -> torch.Tensor:
+        """``decode`` (K5's v4 or the v3 decoder) of host word buffers on
+        each shard's device -> (B, C, lh, lw) int32 symbols on the
+        device."""
+        parts = []
+        for core, part in self._shard_pairs(bufs):
+            sym_ts = decode(torch.from_numpy(part).to(core.device),
+                            core._ch_map(lh, lw, s), core.tables, t)
+            flat = unpack_streams(sym_ts, self.channels_bn * lh * lw)
+            parts.append(flat.reshape(len(part), self.channels_bn, lh, lw))
+        return gather_batch(parts, self.device)[:len(bufs)]
 
     def symbols_from_frames_v3(self, raws: Sequence[bytes], s: int, th: int,
                                tw: int) -> torch.Tensor:
@@ -314,10 +378,7 @@ class CAETurboCore:
             flat = np.frombuffer(payloads[i], "<u2")
             mask = cols[None, :] < lengths[i][:, None]          # (S, cap)
             bufs[i][mask] = flat[:int(lengths[i].sum())]
-        sym_ts = decode_device(torch.from_numpy(bufs).to(self.device),
-                               self._ch_map(lh, lw, s), self.tables, t)
-        flat = unpack_streams(sym_ts, self.channels_bn * lh * lw)
-        return flat.reshape(batch, self.channels_bn, lh, lw)
+        return self._decode_shards(decode_device, bufs, lh, lw, s, t)
 
     def reconstruct(self, sym_cm: torch.Tensor, th: int, tw: int
                     ) -> np.ndarray:
@@ -330,19 +391,22 @@ class CAETurboCore:
         """``reconstruct`` with a coded fetch: by a calibrated
         ``transport`` whose coded batch beats raw on the wire, else by the
         bit-plane packer when the coded fetch is on
-        (``CAE_TPU_PACKED_FETCH``), else raw."""
+        (``CAE_TPU_PACKED_FETCH``) on one device, else raw.  The coded
+        fetch is weighed at a shard's batch, the unit it frames."""
         b = sym_cm.shape[0]
         ph, pw = self.base.padded_hw(th, tw)
         n_px = ph * pw * 3
         if (transport is not None and transport.calibrated()
-                and transport.worthwhile_fetch(n_px, b)):
+                and transport.worthwhile_fetch(n_px,
+                                               self.per_shard_batch(b))):
             rec = self.base.decode_tiles_device(sym_cm, transport=transport)
-        elif n_px % 128 == 0 and packed_fetch_enabled(self.device):
+        elif (self.mesh is None and n_px % 128 == 0
+              and packed_fetch_enabled(self.device)):
             rec = self.base.decode_packed(sym_cm)
         else:
             return self.reconstruct(sym_cm, th, tw)
         return CAECodecCore.fetch_pixels(rec, (b, ph, pw, 3),
-                                         transport)[:, :th, :tw, :]
+                                         transport)[:b, :th, :tw, :]
 
     def _decode_group(self, version: int, s: int, th: int, tw: int,
                       raws: List[bytes], transport=None) -> np.ndarray:
@@ -383,8 +447,9 @@ class CAETurboCore:
 
 class ConvolutionalAutoencoderTurbo(Codec):
     """zarr codec id 'cae_tpu' (device-coded bitstream), serving at the
-    precision set when it is built (``ops.convops.set_default_precision``).
-    """
+    precision set when it is built (``ops.convops.set_default_precision``),
+    over ``serving_mesh()`` when it serves on the card (``device=None``),
+    as the JAX codec does."""
 
     codec_id = "cae_tpu"
     takes_device = True
@@ -395,7 +460,8 @@ class ConvolutionalAutoencoderTurbo(Codec):
         self.num_streams = num_streams
         self.core = CAETurboCore(
             autoencoder_from_state_dict(checkpoint, device=device),
-            num_streams=num_streams, device=device)
+            num_streams=num_streams, device=device,
+            mesh=serving_mesh() if device is None else None)
 
     def encode(self, buf) -> bytes:
         buf = np.asarray(buf)

@@ -26,6 +26,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ..parallel.distributed import is_primary
 from ..utils.torch_import import load_torch_checkpoint
 from ..utils.weights import state_to_jax
 
@@ -309,7 +310,11 @@ def save_checkpoint(path, state) -> None:
     ``state`` is a flat dict of config values, module variable trees,
     optimizer and scheduler states and histories (JAX
     ``training/checkpoint.py:47``); a ``CAEModel`` stands for its
-    ``model_state``.  The file is replaced atomically."""
+    ``model_state``.  The file is replaced atomically.  In a multi-process
+    run only rank 0 writes (every rank holds the same state; two writers
+    of one path would race)."""
+    if not is_primary():
+        return
     if isinstance(state, torch.nn.Module):
         state = model_state(state)
     config, arrays = _split_state(state)

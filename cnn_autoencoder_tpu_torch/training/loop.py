@@ -24,14 +24,31 @@ the encoder's and decoder's forwards are recomputed in the backward.
 
 On the card every GDN and fused conv+GDN layer goes through its kernel;
 CPU tensors take the plain versions.
+
+Data parallelism (``group``, a ``torch.distributed`` process group of
+ranks with equal shares of a global batch, one process a card): the JAX
+step under a data mesh, by hand.  ``torch.autograd.grad`` runs no
+``AccumulateGrad``, so ``DistributedDataParallel``'s hooks would not fire;
+the gradient list is averaged by an explicit all-reduce instead, one flat
+bucket a dtype, before the update (the psum XLA inserts).  The batch norms'
+statistics and the criteria's reductions that are not a mean of equal
+shares are taken over the global batch; the dropout masks and the
+bottleneck's noise are drawn for the global batch from the same generator
+on every rank and sliced; the stats are reduced over the ranks (means,
+minima, maxima, standard deviations of the global batch).  So a step of R
+ranks is the one-process step of the global batch, and every rank holds
+the same parameters after it.
 """
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.tasks import fold_batch_stats, make_forward_fn, module_runner
+from ..ops.batchnorm import BatchNorm
+from ..parallel.distributed import world_size
 from ..utils.device import full_f32
 from .optim import apply_module_updates
 
@@ -44,12 +61,14 @@ def _check_dtype(compute_dtype):
                          f"got {compute_dtype}")
 
 
-def _net_aux(model, trainable_modules: Sequence[str] = ()) -> Dict:
+def _net_aux(model, trainable_modules: Sequence[str] = (),
+             group=None) -> Dict:
     """What the loss composer needs from the model (JAX
     ``training/loop.py:28-39``): the bottleneck's parameters, and
     ``decoder_fn``, the decoder's reconstructions of a latent (PenaltyB),
-    through the frozen path when the decoder is not trainable."""
-    net = {}
+    through the frozen path when the decoder is not trainable; the
+    process group of a data-parallel step."""
+    net = {"group": group}
     if hasattr(model, "fact_ent"):
         net["fact_ent_params"] = model.fact_ent.params()
         net["num_filters"] = model.fact_ent.num_filters
@@ -59,11 +78,74 @@ def _net_aux(model, trainable_modules: Sequence[str] = ()) -> Dict:
     return net
 
 
+def _set_batch_norm_group(model, group) -> None:
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+
+
+def _average_gradients(grads: List[torch.Tensor], group) -> None:
+    """Average ``grads`` over the group's ranks in place: one flat bucket a
+    dtype, one all-reduce each."""
+    n = world_size(group)
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for same in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in same])
+        dist.all_reduce(flat, group=group)
+        flat /= n
+        offset = 0
+        for g in same:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def _global_std(t: torch.Tensor, group) -> torch.Tensor:
+    """The population standard deviation of every rank's ``t`` (equal
+    shares), as ``jnp.std`` of the global batch."""
+    t = t.detach().double()
+    sums = torch.stack([t.sum(), (t * t).sum()])
+    dist.all_reduce(sums, group=group)
+    n = t.numel() * world_size(group)
+    mean = sums[0] / n
+    return torch.sqrt(torch.clamp_min(sums[1] / n - mean * mean, 0.0)) \
+        .float()
+
+
+def _reduce_stats(stats: Dict[str, torch.Tensor], group
+                  ) -> Dict[str, torch.Tensor]:
+    """A step's stats over the ranks: ``*_min`` the least, ``*_max`` the
+    largest, every other value the mean (equal shares; values every rank
+    already holds, such as penalty A's medians, stay as they are).  One
+    all-reduce a reduction."""
+    out = dict(stats)
+    for op, keys in (
+            (dist.ReduceOp.MIN, [k for k in stats if k.endswith("_min")]),
+            (dist.ReduceOp.MAX, [k for k in stats if k.endswith("_max")]),
+            (dist.ReduceOp.SUM, [k for k in stats
+                                 if not k.endswith(("_min", "_max"))])):
+        if not keys:
+            continue
+        flat = torch.cat([stats[k].float().reshape(-1) for k in keys])
+        dist.all_reduce(flat, op=op, group=group)
+        if op == dist.ReduceOp.SUM:
+            flat /= world_size(group)
+        offset = 0
+        for k in keys:
+            v = stats[k]
+            part = flat[offset:offset + v.numel()].view(v.shape)
+            out[k] = (torch.round(part) if not v.is_floating_point()
+                      else part).to(v.dtype)
+            offset += v.numel()
+    return out
+
+
 def make_train_step(model, criterion, optimizers,
                     enabled_modules: Optional[Sequence[str]] = None,
                     trainable_modules: Optional[Sequence[str]] = None,
                     compute_dtype: torch.dtype = torch.float32,
-                    remat: bool = False):
+                    remat: bool = False, group=None):
     """Build ``train_step(x, lrs, step, noise=None, generator=None,
     masks=None, t=None) -> (stats, grads)``.
 
@@ -79,8 +161,12 @@ def make_train_step(model, criterion, optimizers,
     this step, before accumulation and clipping.  The model's parameters,
     its batch norms' running statistics and the optimizers' state are
     updated in place.  ``remat`` recomputes the forward in the backward
-    (the JAX package's ``remat``): the same step in less memory."""
+    (the JAX package's ``remat``): the same step in less memory.
+    ``group``: a process group to train over, data-parallel (the module's
+    docstring; ``x``, ``t``, ``noise`` and ``masks`` are then this rank's
+    share of the global batch); it is set on the model's batch norms."""
     _check_dtype(compute_dtype)
+    _set_batch_norm_group(model, group)
     trainable = [m for m in (trainable_modules or []) if hasattr(model, m)]
     forward = make_forward_fn(model, enabled_modules, trainable, remat=remat)
     names = [(m, n) for m in trainable
@@ -92,37 +178,48 @@ def make_train_step(model, criterion, optimizers,
                    generator: Optional[torch.Generator] = None,
                    masks: Optional[Dict] = None,
                    t: Optional[torch.Tensor] = None):
+        rows = None
+        if group is not None:
+            b = x.shape[0]
+            rank = dist.get_rank(group)
+            rows = (rank * b, (rank + 1) * b, b * world_size(group))
         # TF32 off for the forward and for autograd's backward kernels
         with full_f32():
             outputs, new_state = forward(
                 x.to(compute_dtype), train=True, noise=noise,
                 generator=generator, masks=masks,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, rows=rows)
             fold_batch_stats(model, new_state)
             loss_dict = criterion(x, outputs, targets=t,
-                                  net=_net_aux(model, trainable))
+                                  net=_net_aux(model, trainable, group))
             total = torch.mean(loss_dict["loss"])
             if "entropy_loss" in loss_dict:
                 total = total + torch.mean(loss_dict["entropy_loss"])
             got = torch.autograd.grad(total, leaves, allow_unused=True)
+        got = [torch.zeros_like(p) if g is None else g
+               for g, p in zip(got, leaves)]
+        if group is not None:
+            _average_gradients(got, group)
         grads: Dict[str, Dict[str, torch.Tensor]] = {m: {} for m in trainable}
-        for (m, n), g, p in zip(names, got, leaves):
-            grads[m][n] = torch.zeros_like(p) if g is None else g
+        for (m, n), g in zip(names, got):
+            grads[m][n] = g
         loss_dict["x_min"] = x.min()
         loss_dict["x_max"] = x.max()
-        loss_dict["x_std"] = torch.std(x, correction=0)
+        loss_dict["x_std"] = (torch.std(x, correction=0) if group is None
+                              else _global_std(x, group))
         apply_module_updates(optimizers, grads, lrs, step)
-        return _summary_stats(outputs, loss_dict), grads
+        return _summary_stats(outputs, loss_dict, group), grads
 
     return train_step
 
 
 def make_eval_step(model, criterion,
                    enabled_modules: Optional[Sequence[str]] = None,
-                   compute_dtype: torch.dtype = torch.float32):
+                   compute_dtype: torch.dtype = torch.float32, group=None):
     """Build ``eval_step(x, t=None) -> stats``: round-to-median
     quantization, batch norms and dropout in eval mode, no gradient, in
-    ``compute_dtype``; ``t`` the batch's targets."""
+    ``compute_dtype``; ``t`` the batch's targets.  ``group``: as the train
+    step's, ``x`` this rank's share and the stats the global batch's."""
     _check_dtype(compute_dtype)
     forward = make_forward_fn(model, enabled_modules, trainable_modules=[])
 
@@ -131,15 +228,18 @@ def make_eval_step(model, criterion,
         with full_f32():
             outputs, _ = forward(x.to(compute_dtype), train=False,
                                  compute_dtype=compute_dtype)
-            loss_dict = criterion(x, outputs, targets=t, net=_net_aux(model))
-        return _summary_stats(outputs, loss_dict)
+            loss_dict = criterion(x, outputs, targets=t,
+                                  net=_net_aux(model, group=group))
+        return _summary_stats(outputs, loss_dict, group)
 
     return eval_step
 
 
-def _summary_stats(outputs, loss_dict) -> Dict[str, torch.Tensor]:
+def _summary_stats(outputs, loss_dict, group=None
+                   ) -> Dict[str, torch.Tensor]:
     """Detached scalar summary (``_summary_stats`` there; standard
-    deviations are the population's, as ``jnp.std``)."""
+    deviations are the population's, as ``jnp.std``), over the group's
+    ranks when there is one."""
     stats = {k: v.detach() for k, v in loss_dict.items()
              if not isinstance(v, (list, tuple))}
     if isinstance(loss_dict.get("dist"), (list, tuple)):
@@ -151,14 +251,15 @@ def _summary_stats(outputs, loss_dict) -> Dict[str, torch.Tensor]:
         x_r = x_r.detach()
         stats["x_r_min"] = x_r.min()
         stats["x_r_max"] = x_r.max()
-        stats["x_r_std"] = torch.std(x_r.float(), correction=0)
+        stats["x_r_std"] = (torch.std(x_r.float(), correction=0)
+                            if group is None else _global_std(x_r, group))
     if outputs.get("y") is not None:
         stats["y_min"] = outputs["y"].detach().min()
         stats["y_max"] = outputs["y"].detach().max()
     if outputs.get("p_y") is not None:
         stats["p_y_min"] = outputs["p_y"].detach().min()
         stats["p_y_max"] = outputs["p_y"].detach().max()
-    return stats
+    return stats if group is None else _reduce_stats(stats, group)
 
 
 def valid(eval_step, data):

@@ -7,8 +7,11 @@ with ``print_log``); ``log_info``'s one-line metric string; ``checkpoint``,
 which writes ``last_...msgpack`` at every validation and ``best_...msgpack``
 when the validation loss improves, each holding the args, the module
 variables, the optimizer and scheduler states and the loss histories.  File
-names, the state layout and the log string are the JAX package's.  The
-port's CLIs run one process, which owns the files.
+names, the state layout and the log string are the JAX package's.  In a
+multi-process run only the primary process (rank 0,
+``parallel/distributed.py:is_primary``) owns the files: the others keep a
+logger without a file (and the console with ``print_log``), and their
+checkpoint calls write nothing but return the same paths.
 """
 
 import logging
@@ -17,6 +20,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..parallel.distributed import is_primary
 from ..training.checkpoint import save_checkpoint
 
 
@@ -27,15 +31,18 @@ def setup_logger(args) -> logging.Logger:
     logger.setLevel(logging.DEBUG)
     logger.handlers = []
 
-    log_dir = args_dict.get("log_dir", ".")
-    log_fn = os.path.join(
-        log_dir, "%s_ver%s_%s%s.log" % (mode, args_dict.get("version", ""),
-                                        args_dict.get("seed", 0),
-                                        args_dict.get("log_identifier", "")))
-    os.makedirs(log_dir, exist_ok=True)
-    fh = logging.FileHandler(log_fn, mode="a")
-    fh.setLevel(logging.DEBUG)
-    logger.addHandler(fh)
+    if is_primary():
+        log_dir = args_dict.get("log_dir", ".")
+        log_fn = os.path.join(
+            log_dir, "%s_ver%s_%s%s.log" % (
+                mode, args_dict.get("version", ""), args_dict.get("seed", 0),
+                args_dict.get("log_identifier", "")))
+        os.makedirs(log_dir, exist_ok=True)
+        fh = logging.FileHandler(log_fn, mode="a")
+        fh.setLevel(logging.DEBUG)
+        logger.addHandler(fh)
+    else:
+        log_fn = "<secondary process: no log file>"
 
     if args_dict.get("print_log", False):
         ch = logging.StreamHandler()
@@ -53,8 +60,9 @@ def save_state(name: str, state: Dict[str, Any], args) -> str:
         "%s_ver%s_%s%s.msgpack" % (name, args_dict.get("version", ""),
                                    args_dict.get("seed", 0),
                                    args_dict.get("log_identifier", "")))
-    save_checkpoint(fn, state)
-    logging.getLogger("training_log").info("Saved model in %s" % fn)
+    if is_primary():
+        save_checkpoint(fn, state)
+        logging.getLogger("training_log").info("Saved model in %s" % fn)
     return fn
 
 
