@@ -250,9 +250,34 @@ Phases, in order; any failure exits non-zero:
    the gradient all-reduce's ms; (c) NCCL at world size 1 in a subprocess
    started from ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES=1`` /
    ``PROCESS_ID=0``: one all-reduce and one CLI step.
-14. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
-   runs of phases 3, 5, 8 (a), 9, 10, 11, 12 (b) and 13), then the last
-   line ``{"ok": true, "device": {...}}``.
+14. The offline tools (``cnn_autoencoder_tpu_torch/tools``,
+   ``utils/manifold.py``), which import no JAX: (a)
+   ``refit_quantiles`` as a subprocess on a copy of the flagship, its file
+   byte-equal to an in-process refit's, then served through
+   ``CAETurboCore`` on phase 3's 16 tiles with phase 3's checks (launches
+   exact, symbols lossless, the plain versions within its tolerances),
+   bpp before and after; (b) ``transfer_weights -m torch2jax`` on phase
+   9's reference ``.pth``, its file byte-equal to an in-process
+   conversion's and its model serving frames byte-equal to the msgpack
+   model's (launches counted), ``cae2cai`` then ``cai2cae`` on the
+   ``.pth`` giving back every encoder and decoder key and tensor; (c) the
+   flagship's latent of phase 7's 4096^2 slide (its encoder on 4 batches:
+   K4 and K1 4 each) as two zarr arrays, ``compute_embeddings`` (PCA,
+   t-SNE, Isomap) at 2000 points a store and 500 iterations on the card,
+   each timed, ``select_in_rect`` mapped back to the stores, and the same
+   functions on the CPU at 150 points a store (PCA and Isomap within 1e-5
+   up to sign, 30 t-SNE iterations from one start within 1e-6, a full
+   t-SNE's KL within 10 %); (d) ``compute_metrics``' array function on
+   phase 3's tiles and their round trip through the converted model, card
+   against CPU (1e-10, MS-SSIM 1e-5), its stats file dumped by
+   ``dump_metrics_jpeg`` and the CSV rows checked; (e) ``compute_mask``,
+   ``compute_labels``, ``zarr2dataset``, ``compare_compressors`` (on the
+   latent's first 64 rows) and ``dump_training_stats`` (on the log and
+   checkpoint of a one-step train CLI run, counted) as subprocesses, each
+   output equal to the same function's in-process.
+15. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3, 5, 8 (a), 9, 10, 11, 12 (b), 13 and 14), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
 non-zero and prints no result.
@@ -3466,10 +3491,11 @@ def write_reference_pth(torch, path):
     torch.save(chk, path)
 
 
-def pth_serving(torch, model, core, imgs, pth):
-    """(a) The ``.pth`` model through ``CAETurboCore`` on phase 3's tiles:
-    weights, frames and decodes equal to the msgpack model's, launches
-    counted over its round trip."""
+def pth_serving(torch, model, core, imgs, pth, label=".pth"):
+    """(a) The ``.pth`` model (or another checkpoint of the flagship's
+    weights, named ``label`` in the log) through ``CAETurboCore`` on phase
+    3's tiles: weights, frames and decodes equal to the msgpack model's,
+    launches counted over its round trip."""
     from cnn_autoencoder_tpu_torch.models.factory import \
         autoencoder_from_state_dict
     from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
@@ -3480,7 +3506,7 @@ def pth_serving(torch, model, core, imgs, pth):
     got = pmodel.state_dict()
     check(set(got) == set(ref) and all(torch.equal(v, ref[k])
                                        for k, v in got.items()),
-          ".pth model: weights differ from the msgpack model's")
+          f"{label} model: weights differ from the msgpack model's")
     pcore = CAETurboCore(pmodel, num_streams=1024, device="cuda")
     want = core.encode_tiles(imgs)
     rec_want = core.decode_tiles(want)
@@ -3495,14 +3521,14 @@ def pth_serving(torch, model, core, imgs, pth):
     retries = pcore.capacity_retries - retries
     expect = {"gdn_fwd": 3, "conv_gdn_fwd": 1, "rans_encode_states": 1,
               "rans_compact": 1 + retries, "rans_decode": 1}
-    log(f".pth serving launches: {launches}")
+    log(f"{label} serving launches: {launches}")
     check(launches == {k: expect.get(k, 0) for k in launches},
-          f".pth serving: launches {launches}, expected {expect}")
-    check(frames == want, ".pth model: frames differ from the msgpack "
+          f"{label} serving: launches {launches}, expected {expect}")
+    check(frames == want, f"{label} model: frames differ from the msgpack "
           "model's")
-    check(np.array_equal(rec, rec_want), ".pth model: decodes differ from "
-          "the msgpack model's")
-    log(f".pth import: {len(got)} weights equal to the msgpack model's; "
+    check(np.array_equal(rec, rec_want), f"{label} model: decodes differ "
+          "from the msgpack model's")
+    log(f"{label} import: {len(got)} weights equal to the msgpack model's; "
         f"{len(frames)} frames of 512^2 byte-equal and the decodes "
         "bit-equal")
     return launches
@@ -5526,6 +5552,517 @@ def phase_mesh(torch, model, core, core16):
     return totals
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+EMBED_POINTS = 2000     # points a latent store in (c), visualize_groups'
+EMBED_ITERS = 500       # and t-SNE iterations: its defaults
+EMBED_KINDS = ("pca", "tsne", "isomap")
+EMBED_CPU_POINTS = 150  # points a store in the comparison with the CPU
+TSNE_SHORT_ITERS = 30   # t-SNE iterations held elementwise to the CPU's
+# card against CPU, relative to the embedding's largest value: PCA and
+# Isomap up to each column's sign (float64 inside, float32 out), a short
+# t-SNE from one start; a full t-SNE only by its KL(P || Q), because the
+# gains' sign tests grow last-bit differences about a billionfold in 50
+# iterations (tests/test_torch_manifold.py)
+EMBED_TOL, TSNE_SHORT_TOL, TSNE_KL_RTOL = 1e-5, 1e-6, 0.1
+# the image metrics, card against CPU: float64 but MS-SSIM (float32), the
+# tolerances of tests/test_torch_metrics.py and tests/test_torch_msssim.py
+METRIC_RTOL = {"ms-ssim": 1e-5}
+METRIC_CODEC, METRIC_QUALITY = "CAETPU", 100
+LABEL = 2               # compute_labels' label in (e)
+COMPRESSOR_ROWS = 64    # rows of the first latent store compare_compressors
+                        # recompresses in (e): one row of tiles, 6 MB
+DATASET_TILES = 4       # tiles of the slide zarr2dataset splits in (e)
+
+
+def tool_argv(name, *args):
+    return [sys.executable, "-m", f"cnn_autoencoder_tpu_torch.tools.{name}",
+            *map(str, args)]
+
+
+def start_tools(cmds, env):
+    """Start every ``{label: argv}`` at once from the checkout's root."""
+    return {label: subprocess.Popen(argv, cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            for label, argv in cmds.items()}
+
+
+def finish_tools(procs, timeout=300):
+    """{label: stdout} of the started tools; fails if one exits non-zero.
+    Kills whatever is still running on the way out."""
+    out = {}
+    try:
+        for label, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=timeout)
+            check(proc.returncode == 0, f"(e) the {label} subprocess "
+                  f"exited {proc.returncode}: {stderr[-3000:]}")
+            out[label] = stdout
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    return out
+
+
+def tree_files(root):
+    """{relative path: bytes} of every file under ``root``."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                out[os.path.relpath(os.path.join(d, n), root)] = f.read()
+    return out
+
+
+def same_tree(torch, a, b):
+    """Two trees of dicts, tensors and scalars equal key for key."""
+    if isinstance(b, dict):
+        return (isinstance(a, dict) and list(a) == list(b)
+                and all(same_tree(torch, a[k], b[k]) for k in b))
+    if isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def up_to_sign(got, want):
+    s = np.sign(np.sum(got * want, axis=0))
+    s[s == 0] = 1
+    return got * s
+
+
+def tsne_kl(torch, x, y):
+    """KL(P || Q) of an embedding ``y`` of ``x`` at the perplexity t-SNE
+    uses (on the CPU)."""
+    from cnn_autoencoder_tpu_torch.utils.manifold import (
+        _pairwise_sq_dists, _perplexity_probabilities)
+    x = torch.as_tensor(np.asarray(x, np.float64))
+    n = x.shape[0]
+    p = _perplexity_probabilities(_pairwise_sq_dists(x),
+                                  min(30.0, max(2.0, (n - 1) / 3.0)))
+    p = ((p + p.T) / (2.0 * n)).clamp(min=1e-12)
+    num = 1.0 / (1.0 + _pairwise_sq_dists(torch.as_tensor(
+        np.asarray(y, np.float64))))
+    num.fill_diagonal_(0.0)
+    q = (num / num.sum()).clamp(min=1e-12)
+    return float((p * torch.log(p / q)).sum())
+
+
+def slide_latents(torch, core, img, work, totals):
+    """(c) The flagship's latent of the slide (the encoder on its 4 batches
+    of 16 tiles: K4 and K1 each once a batch), stored as raw zarr arrays:
+    the slide's top and bottom halves, and its first COMPRESSOR_ROWS rows
+    for (e).  Returns their paths."""
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    f = 2 ** core.base.level
+    lp = SLIDE_PATCH // f
+    batches = serial_batches(img, SLIDE_PATCH, TILES)
+    lats, launches = counted(torch, lambda: [
+        (ids, core.base.latents(tiles)) for ids, tiles in batches])
+    expect_launches("(c) the slide's latents", launches,
+                    {"gdn_fwd": len(batches), "conv_gdn_fwd": len(batches)})
+    plus_into(totals, launches)
+    latent = np.zeros((SLIDE // f, SLIDE // f, core.base.channels_bn),
+                      np.float32)
+    for ids, lat in lats:
+        for (i, j), t in zip(ids, lat.cpu().numpy()):
+            latent[i * lp:(i + 1) * lp, j * lp:(j + 1) * lp] = t
+    half = latent.shape[0] // 2
+    paths = []
+    for name, part in (("latent_0", latent[:half]),
+                       ("latent_1", latent[half:]),
+                       ("latent_rows", latent[:COMPRESSOR_ROWS])):
+        paths.append(os.path.join(work, f"{name}.zarr"))
+        zarrlib.Array.create(paths[-1], shape=part.shape, chunks=part.shape,
+                             dtype=np.float32, compressor=None)[...] = part
+    return paths
+
+
+def tool_embeddings(paths):
+    """(c) ``compute_embeddings`` on the card at EMBED_POINTS a store and
+    EMBED_ITERS t-SNE iterations, timed; ``select_in_rect`` mapped back to
+    the stores' vectors.  Returns the stores' latents."""
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    from cnn_autoencoder_tpu_torch.tools.visualize_groups import (
+        compute_embeddings, sample_vectors, select_in_rect)
+    lats = [zarrlib.open(p)[...] for p in paths]
+    samples = [sample_vectors(lat, EMBED_POINTS) for lat in lats]
+    vectors = np.concatenate([v for v, _ in samples])
+    positions = np.concatenate([np.stack([np.full(len(sel), k), sel], 1)
+                                for k, (_, sel) in enumerate(samples)])
+    times = {}
+    emb = compute_embeddings(vectors, EMBED_KINDS, EMBED_ITERS,
+                             device="cuda", times=times)
+    host = {k: v.cpu().numpy() for k, v in emb.items()}
+    for kind, e in host.items():
+        check(e.shape == (len(vectors), 2) and e.dtype == np.float32
+              and np.isfinite(e).all(), f"(c) {kind}: {e.shape} {e.dtype}, "
+              "finite: " + str(np.isfinite(e).all()))
+    t = host["tsne"]
+    rect = (float(t[:, 0].min()), float(t[:, 1].min()),
+            float(np.median(t[:, 0])), float(np.median(t[:, 1])))
+    idx = select_in_rect(emb["tsne"], rect).cpu().numpy()
+    inside = np.nonzero((t[:, 0] >= rect[0]) & (t[:, 0] <= rect[2])
+                        & (t[:, 1] >= rect[1]) & (t[:, 1] <= rect[3]))[0]
+    w = lats[0].shape[1]
+    back = np.stack([lats[f][s // w, s % w] for f, s in positions[idx]]) \
+        if len(idx) else np.zeros((0, vectors.shape[1]), np.float32)
+    check(len(idx) > 0 and np.array_equal(idx, inside)
+          and np.array_equal(back, vectors[idx]), f"(c) select_in_rect: "
+          f"{len(idx)} points, {len(inside)} inside the rectangle, vectors "
+          "at their positions equal: " + str(np.array_equal(
+              back, vectors[idx])))
+    log(f"(c) embeddings [{CARD}] of {len(vectors)} latent vectors "
+        f"({vectors.shape[1]} channels, {EMBED_POINTS} a store of "
+        f"{len(paths)}), t-SNE "
+        f"{EMBED_ITERS} iterations: seconds " + ", ".join(
+            f"{k} {times[k]:.3f}" for k in EMBED_KINDS)
+        + f"; select_in_rect took {len(idx)} points of the lower-left "
+        "quadrant, each mapped back to its store and position")
+    return lats
+
+
+def embeddings_vs_cpu(torch, lats):
+    """(c) The same functions on the card and on the CPU at
+    EMBED_CPU_POINTS a store."""
+    from cnn_autoencoder_tpu_torch.tools.visualize_groups import (
+        compute_embeddings, pca_2d, sample_vectors)
+    from cnn_autoencoder_tpu_torch.utils.manifold import isomap, tsne
+    x = np.concatenate([sample_vectors(lat, EMBED_CPU_POINTS)[0]
+                        for lat in lats])
+    pca = pca_2d(x, device="cpu").numpy()
+    init = pca * 1e-4 / max(float(pca.std()), 1e-12)
+    errs = {}
+    for kind, fn in (
+            ("pca", lambda d: pca_2d(x, device=d)),
+            ("isomap", lambda d: isomap(x, n_neighbors=5, device=d)),
+            ("tsne", lambda d: tsne(x, n_iter=TSNE_SHORT_ITERS, init=init,
+                                    device=d))):
+        card, cpu = fn("cuda").cpu().numpy(), fn("cpu").numpy()
+        if kind != "tsne":
+            card = up_to_sign(card, cpu)
+        errs[kind] = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+        lim = TSNE_SHORT_TOL if kind == "tsne" else EMBED_TOL
+        check(errs[kind] <= lim, f"(c) {kind} on the card against the CPU: "
+              f"{errs[kind]:.3e} of its scale > {lim}")
+    kl = [tsne_kl(torch, x, compute_embeddings(
+        x, ["tsne"], EMBED_ITERS, device=d)["tsne"].cpu().numpy())
+        for d in ("cuda", "cpu")]
+    rel = abs(kl[0] - kl[1]) / kl[1]
+    check(rel <= TSNE_KL_RTOL, f"(c) a full t-SNE's KL on the card {kl[0]:.4f}"
+          f" against the CPU's {kl[1]:.4f}")
+    log(f"(c) card against CPU, {len(x)} vectors: PCA {errs['pca']:.3e}, "
+        f"Isomap {errs['isomap']:.3e} of their scales up to sign (limit "
+        f"{EMBED_TOL}); t-SNE {TSNE_SHORT_ITERS} iterations from one start "
+        f"{errs['tsne']:.3e} (limit {TSNE_SHORT_TOL}); {EMBED_ITERS} "
+        f"iterations KL(P||Q) {kl[0]:.4f} / {kl[1]:.4f} (relative "
+        f"{rel:.3e}, limit {TSNE_KL_RTOL})")
+
+
+def tool_metrics(torch, core, imgs, work):
+    """(d) ``compute_metrics``' array function on phase 3's tiles and their
+    ``cae_tpu`` round trip, on the card and on the CPU; the stats file and
+    ``dump_metrics_jpeg``'s CSVs."""
+    from cnn_autoencoder_tpu_torch.tools.compute_metrics import (
+        metrics_arrays, save_metrics_stats)
+    from cnn_autoencoder_tpu_torch.tools.dump_metrics_jpeg import \
+        main as dump_metrics
+    core.decode_tiles(core.encode_tiles(imgs))      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = core.encode_tiles(imgs)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    rec = core.decode_tiles(frames)
+    all_metrics = {"time": []}
+    worst, secs = {}, {"cuda": 0.0, "cpu": 0.0}
+    for i in range(len(imgs)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            got[dev] = metrics_arrays(imgs[i], rec[i], len(frames[i]),
+                                      device=dev)
+            secs[dev] += time.perf_counter() - t0
+        for k, v in got["cpu"].items():
+            c = got["cuda"][k]
+            rel = abs(c - v) / abs(v) if v else abs(c - v)
+            check(np.isfinite(v) and rel <= METRIC_RTOL.get(k, 1e-10),
+                  f"(d) tile {i} {k}: card {c!r}, CPU {v!r}")
+            worst[k] = max(worst.get(k, 0.0), rel)
+            all_metrics.setdefault(k, []).append(c if c > 0.0 else np.nan)
+        all_metrics["time"].append(enc_s / len(imgs))
+    mdir = os.path.join(work, "metrics")
+    os.makedirs(mdir)
+    save_metrics_stats(all_metrics, mdir, METRIC_CODEC, METRIC_QUALITY)
+    csv = os.path.join(work, "metrics.csv")
+    dump_metrics(["-d", mdir, "-m", METRIC_CODEC, "-o", csv])
+    with open(csv) as f:
+        rows = f.read().splitlines()
+    with open(csv[:-4] + "_per_img.csv") as f:
+        per = f.read().splitlines()
+    keys = [k for k in all_metrics]
+    check(len(rows) == 2 and rows[1].startswith(
+        f"{METRIC_CODEC},{METRIC_QUALITY},") and per[0] == ",".join(
+        ["Method,quality,id"] + keys) and per[1:] == [
+        ",".join([METRIC_CODEC, str(METRIC_QUALITY), str(i)]
+                 + ["%f" % all_metrics[k][i] for k in keys])
+        for i in range(len(imgs))], f"(d) the dumped CSVs: {rows[:2]}, "
+        f"{per[:2]}")
+    log(f"(d) metrics [{CARD}] of {len(imgs)} tiles and their cae_tpu "
+        f"round trip: PSNR {np.mean(all_metrics['psnr']):.3f} dB, MS-SSIM "
+        f"{np.mean(all_metrics['ms-ssim']):.5f}, "
+        f"{np.mean(all_metrics['rate']):.4f} bpp; card against CPU within " + ", ".join(
+            f"{k} {v:.1e}" for k, v in worst.items())
+        + f"; seconds card {secs['cuda']:.2f}, CPU {secs['cpu']:.2f}; the "
+        f"stats file dumped to {len(rows)} + {len(per)} CSV rows, each "
+        "tile's equal to its metrics")
+
+
+def refit_serving(torch, core, imgs, refit_out, paths, totals):
+    """(a) The subprocess's refit file equal to an in-process refit, then
+    served through ``CAETurboCore`` (phase 3's checks and launches)."""
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
+    from cnn_autoencoder_tpu_torch.tools.refit_quantiles import refit
+    from cnn_autoencoder_tpu_torch.training.checkpoint import load_checkpoint
+    before, after = refit(paths["inproc"], device="cuda")
+    with open(paths["sub"], "rb") as f, open(paths["inproc"], "rb") as g:
+        same = f.read() == g.read()
+    check(same and refit_out.strip() == f"{paths['sub']}: aux {before:.2f} "
+          f"-> {after:.2f}", f"(a) refit_quantiles: {refit_out!r}, "
+          f"in-process {before:.2f} -> {after:.2f}, files equal: {same}")
+    q0, q1 = (np.asarray(load_checkpoint(p)["fact_ent"]["params"]
+                         ["quantiles"]) for p in (CHECKPOINT, paths["sub"]))
+    bpp0 = 8.0 * sum(map(len, core.encode_tiles(imgs))) / (
+        len(imgs) * 512 * 512)
+    model = autoencoder_from_state_dict(paths["sub"], device="cuda")
+    rcore = CAETurboCore(model, num_streams=1024, device="cuda")
+    log("(a) the refit checkpoint through CAETurboCore:")
+    launches, rec = serving_round_trip(torch, model, rcore, imgs, "float32")
+    plus_into(totals, launches)
+    log(f"(a) refit_quantiles as a subprocess: aux {before:.2f} -> "
+        f"{after:.2f}, the file byte-equal to an in-process refit's; "
+        f"quantiles moved by up to {np.abs(q1 - q0).max():.4g}, medians by "
+        f"{np.abs(q1 - q0)[:, 0, 1].max():.4g}; {len(imgs)} tiles of 512^2: "
+        f"{bpp0:.4f} bpp before the refit, {rec['bpp']:.4f} after, PSNR "
+        f"{rec['psnr']:.3f} dB")
+
+
+def transfer_serving(torch, model, core, imgs, work, pth, totals):
+    """(b) ``torch2jax``'s file equal to an in-process conversion, its model
+    serving the msgpack model's frames; ``cae2cai`` (this wave) equal to
+    in-process.  Returns the converted model's core."""
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
+    from cnn_autoencoder_tpu_torch.tools.transfer_weights import \
+        main as transfer
+    conv = os.path.join(work, "converted.msgpack")
+    transfer(["-m", "torch2jax", "-s", pth, "-o", conv + ".inproc"])
+    with open(conv, "rb") as f, open(conv + ".inproc", "rb") as g:
+        check(f.read() == g.read(), "(b) torch2jax: the subprocess's file "
+              "differs from the in-process conversion's")
+    transfer(["-m", "cae2cai", "-s", pth, "-o",
+              os.path.join(work, "cai.inproc.pth")])
+    cai, cai_in = (torch.load(os.path.join(work, n), weights_only=False)
+                   for n in ("cai.pth", "cai.inproc.pth"))
+    check(same_tree(torch, cai, cai_in), "(b) cae2cai: the subprocess's "
+          "tree differs from the in-process one")
+    plus_into(totals, pth_serving(torch, model, core, imgs, conv,
+                                  label="torch2jax"))
+    return CAETurboCore(autoencoder_from_state_dict(conv, device="cuda"),
+                        num_streams=1024, device="cuda")
+
+
+def train_log(torch, work, totals):
+    """(e) A float32 run of the train CLI (one step and one validation on
+    phase 8's slides): its log file and last checkpoint."""
+    write_cli_slides(work)
+    log_dir, losses, _, launches, wall = cli_run(torch, work, "float32",
+                                                 "cli", steps=0)
+    expect_launches("(e) the train CLI run", launches,
+                    cli_expected("float32", 1, 1))
+    plus_into(totals, launches)
+    logs = [f for f in os.listdir(log_dir) if f.endswith(".log")]
+    check(len(logs) == 1, f"(e) the train CLI's logs: {logs}")
+    return (os.path.join(log_dir, logs[0]), cli_checkpoints(log_dir)["last"],
+            wall)
+
+
+def host_tool_checks(torch, work, pth, outs, stack, slide, latents, tlog):
+    """(e) Each host tool's subprocess output equal to the same function
+    called in-process."""
+    import re
+
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    from cnn_autoencoder_tpu_torch.tools import (compare_compressors,
+                                                 compute_labels,
+                                                 compute_mask,
+                                                 dump_training_stats,
+                                                 transfer_weights,
+                                                 zarr2dataset)
+    name = os.path.basename(slide)
+    compute_mask.mask_zarr(slide, os.path.join(work, "masks_in", name),
+                           scaled_mag=1.25, default_mag=20,
+                           data_axes="XYZCT")
+    compute_labels.label_zarr(os.path.join(work, "masks", name), LABEL,
+                              os.path.join(work, "labels_in", name))
+    zarr2dataset.convert(*stack, os.path.join(work, "dataset_in"))
+    transfer_weights.main(["-m", "cai2cae", "-s", os.path.join(
+        work, "cai.pth"), "-d", pth, "-o", os.path.join(work,
+                                                        "back.inproc.pth")])
+    sizes = compare_compressors.main([latents, "512", "5"],
+                                     tmp_dir=os.path.join(work, "tmp_in"))
+    csv = os.path.join(work, "stats_in.csv")
+    dump_training_stats.main(["-l", tlog[0], "-k", tlog[1], "-o", csv])
+    got = {k: int(n) for n, k in re.findall(
+        r"compressed into (\d+) bytes using (\w+)", outs["compare"])}
+    check(got == sizes, f"(e) compare_compressors: {got} against {sizes}")
+    for a, b in (("masks", "masks_in"), ("labels", "labels_in"),
+                 ("dataset", "dataset_in")):
+        fa, fb = tree_files(os.path.join(work, a)), tree_files(
+            os.path.join(work, b))
+        check(fa == fb and len(fa) > 0, f"(e) {a}: the subprocess's files "
+              f"{sorted(fa)} differ from the in-process call's {sorted(fb)}")
+    mask = zarrlib.open(os.path.join(work, "masks", name))["masks/0/0"]
+    for a in ("stats", "stats_checkpoint"):
+        with open(os.path.join(work, a + ".csv")) as f, open(
+                os.path.join(work, a.replace("stats", "stats_in") + ".csv")
+        ) as g:
+            text = f.read()
+            check(text == g.read() and text.count("\n") >= 2,
+                  f"(e) dump_training_stats {a}: differs or is empty")
+    src = torch.load(pth, weights_only=False)
+    back = torch.load(os.path.join(work, "back.pth"), weights_only=False)
+    check(same_tree(torch, back, torch.load(os.path.join(
+        work, "back.inproc.pth"), weights_only=False)),
+        "(e) cai2cae: the subprocess's tree differs from the in-process one")
+    check(all(same_tree(torch, back[m], src[m])
+              for m in ("encoder", "decoder"))
+          and list(back["fact_ent"]) == [".quantiles"]
+          and torch.equal(back["fact_ent"][".quantiles"],
+                          src["fact_ent"]["quantiles"]),
+          f"(b) cae2cai then cai2cae: the encoder's and decoder's keys and "
+          f"tensors, and .quantiles alone of fact_ent's, should come back: "
+          f"{sorted(back['fact_ent'])}")
+    log(f"(b) cae2cai then cai2cae: {len(src['encoder'])} encoder and "
+        f"{len(src['decoder'])} decoder keys and tensors back; of "
+        f"{len(src['fact_ent'])} fact_ent keys only '.quantiles' (the JAX "
+        "script's 'fact_ent' tag, found in the reference)")
+    log(f"(e) host tools as subprocesses, outputs equal to the in-process "
+        f"calls': compute_mask ({mask.shape} mask, {int(mask[...].sum())} "
+        f"tissue pixels), compute_labels (label {LABEL}), zarr2dataset "
+        f"({DATASET_TILES} files), compare_compressors (stored bytes "
+        + ", ".join(f"{k} {v}" for k, v in sizes.items())
+        + "), dump_training_stats on the train CLI's log and last "
+        "checkpoint, transfer_weights torch2jax / cae2cai / cai2cae, "
+        "refit_quantiles")
+
+
+def phase_tools(torch, model, core):
+    """Phase 14: the offline tools, on the card and as subprocesses;
+    returns the launches of the counted runs."""
+    import shutil
+
+    from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase14")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "tmp"))
+    totals, procs, secs = {}, {}, {}
+    try:
+        imgs = np.stack([image(512, 512, seed) for seed in range(TILES)])
+        img = synth_histology(SLIDE, SLIDE, seed=0)
+        slide = os.path.join(work, "slide.zarr")
+        zarrlib.Group.create(slide).create_dataset(
+            "0/0", shape=img.shape, chunks=(SLIDE_PATCH, SLIDE_PATCH, 3),
+            dtype=np.uint8, compressor=None)[...] = img
+        tiles = serial_batches(img, SLIDE_PATCH, DATASET_TILES)[0][1]
+        stack = (os.path.join(work, "stack_in.zarr"),
+                 os.path.join(work, "stack_lbl.zarr"))
+        gray = tiles.mean(axis=-1, keepdims=True)
+        for path, data in ((stack[0], np.moveaxis(tiles, 0, -1)),
+                           (stack[1], np.moveaxis(
+                               (gray > gray.mean()).astype(np.uint8), 0,
+                               -1))):
+            zarrlib.Array.create(path, shape=data.shape, chunks=data.shape,
+                                 dtype=np.uint8, compressor=None)[...] = data
+        refit_paths = {k: os.path.join(work, f"refit_{k}.msgpack")
+                       for k in ("sub", "inproc")}
+        for p in refit_paths.values():
+            shutil.copy(CHECKPOINT, p)
+        pth = os.path.join(work, "flagship.pth")
+        write_reference_pth(torch, pth)
+        env = dict(os.environ, TMPDIR=os.path.join(work, "tmp"))
+
+        # (c) on the card before the host tools start beside it
+        latents = slide_latents(torch, core, img, work, totals)
+        t1 = time.perf_counter()
+        lats = tool_embeddings(latents[:2])
+        secs["embeddings"] = time.perf_counter() - t1
+        procs = start_tools({
+            "refit_quantiles": tool_argv("refit_quantiles",
+                                         refit_paths["sub"]),
+            "torch2jax": tool_argv("transfer_weights", "-m", "torch2jax",
+                                   "-s", pth, "-o", os.path.join(
+                                       work, "converted.msgpack")),
+            "cae2cai": tool_argv("transfer_weights", "-m", "cae2cai", "-s",
+                                 pth, "-o", os.path.join(work, "cai.pth")),
+            "compute_mask": tool_argv("compute_mask", "-i", slide, "-o",
+                                      os.path.join(work, "masks")),
+            "zarr2dataset": tool_argv("zarr2dataset", "-i", stack[0], "-l",
+                                      stack[1], "-o", os.path.join(
+                                          work, "dataset")),
+            "compare": tool_argv("compare_compressors", latents[2], 512, 5),
+        }, env)
+        t2 = time.perf_counter()
+        embeddings_vs_cpu(torch, lats)
+        t3 = time.perf_counter()
+        outs = finish_tools(procs)
+        t4 = time.perf_counter()
+        # (a) and (b) need the refit and converted files
+        refit_serving(torch, core, imgs, outs["refit_quantiles"],
+                      refit_paths, totals)
+        conv_core = transfer_serving(torch, model, core, imgs, work, pth,
+                                     totals)
+        t5 = time.perf_counter()
+        tool_metrics(torch, conv_core, imgs, work)
+        t6 = time.perf_counter()
+        tlog = train_log(torch, work, totals)
+        procs = start_tools({
+            "compute_labels": tool_argv("compute_labels", "-i", os.path.join(
+                work, "masks", "slide.zarr") + f"::{LABEL}", "-o",
+                os.path.join(work, "labels")),
+            "dump_training_stats": tool_argv(
+                "dump_training_stats", "-l", tlog[0], "-k", tlog[1], "-o",
+                os.path.join(work, "stats.csv")),
+            "cai2cae": tool_argv("transfer_weights", "-m", "cai2cae", "-s",
+                                 os.path.join(work, "cai.pth"), "-d", pth,
+                                 "-o", os.path.join(work, "back.pth")),
+        }, env)
+        outs.update(finish_tools(procs))
+        host_tool_checks(torch, work, pth, outs, stack, slide, latents[2],
+                         tlog)
+        t7 = time.perf_counter()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    log("(e) not driven here (they need PIL or matplotlib, which the "
+        "card's machine lacks): zarr2png, convert_dataset, compute_metrics' "
+        "image-file sweep and visualize_groups' plots; the CPU tests hold "
+        "them to the JAX scripts")
+    log(f"tools phase: {time.perf_counter() - t0:.1f} s (inputs and latents "
+        f"{t1 - t0:.1f}, (c) on the card {secs['embeddings']:.1f}, the tools' "
+        f"start {t2 - t1 - secs['embeddings']:.1f}, (c) against the CPU "
+        f"{t3 - t2:.1f}, waiting for the first tools {t4 - t3:.1f}, (a) and "
+        f"(b) {t5 - t4:.1f}, (d) {t6 - t5:.1f}, the train CLI run "
+        f"{tlog[2]:.1f} and (e) {t7 - t6:.1f})")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5565,6 +6102,8 @@ def main():
     for name, n in phase_pixel_transport(torch, core, core16).items():
         launches[name] += n
     for name, n in phase_mesh(torch, model, core, core16).items():
+        launches[name] += n
+    for name, n in phase_tools(torch, model, core).items():
         launches[name] += n
     check(all(launches[name] > 0 for name in records),
           f"a kernel was not launched on the main paths: {launches}")

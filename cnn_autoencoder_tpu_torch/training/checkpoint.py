@@ -293,11 +293,14 @@ def _split_state(state: Dict[str, Any]):
 def _state_tree(v):
     """Dicts stay dicts, lists and tuples become ``{"<i>": ...}``, None
     stays None, every other leaf becomes a numpy array: flax's
-    ``to_state_dict`` followed by ``np.asarray`` on the leaves."""
-    if isinstance(v, dict):
-        return {str(k): _state_tree(x) for k, x in v.items()}
+    ``to_state_dict`` followed by ``jax.tree_util.tree_map(np.asarray)``,
+    which also sorts every dict's keys, so a state writes the bytes the JAX
+    package writes for it."""
     if isinstance(v, (list, tuple)):
-        return {str(i): _state_tree(x) for i, x in enumerate(v)}
+        v = dict(enumerate(v))
+    if isinstance(v, dict):
+        return {k: _state_tree(x) for k, x in sorted(
+            (str(k), x) for k, x in v.items())}
     if v is None:
         return None
     if isinstance(v, torch.Tensor):
@@ -318,8 +321,7 @@ def save_checkpoint(path, state) -> None:
     if isinstance(state, torch.nn.Module):
         state = model_state(state)
     config, arrays = _split_state(state)
-    payload = {"config": json.dumps(config),
-               "state": {k: _state_tree(v) for k, v in arrays.items()}}
+    payload = {"config": json.dumps(config), "state": _state_tree(arrays)}
     data = msgpack_serialize(payload)
     path = os.fspath(path)
     tmp = path + ".tmp"
