@@ -29,7 +29,10 @@ Phases, in order; any failure exits non-zero:
    its layouts and a misaligned row pointer, timed beside cuBLAS's bf16
    product of its shape; K4 in both
    variants and both types at ragged Cin and Cout and at Cout 129 to
-   1024, its probes' times, its bf16 serving variant at the round trip's
+   1024 (in bf16 the default route's mode 3: its y held value by value to
+   one bf16 ulp of each rounded term it sums, r and out to one ulp of the
+   plain GDN of the kernel's y, ``rounded_check``), its probes' times, its
+   bf16 serving variant (``conv_gdn_fwd_bf16``) at the round trip's
    shape, and timed at (8, 128, 128, 192) -> 192; K6
    (state pass, compaction) and K5 bit-identical to their plain versions
    at S = 1024, 100, 2048, 3000 and 65535, a peaked table, a 60x60
@@ -60,7 +63,9 @@ Phases, in order; any failure exits non-zero:
    versions at the training path's shapes (batch 16 of 256^2 through the
    flagship: 262144 and 65536 rows of K2 and K3), float32 and bf16,
    forward and inverse GDN, K2 and K3 also at C = 3, 48, 128, 130, 256 and
-   512 with ragged and misaligned rows, K2 at norms below 2^-100; then
+   512 with ragged and misaligned rows (K3's dbeta, the float32 dnorm's
+   column sums from its partial sums, to 1e-4 of the column sums of
+   |dnorm|), K2 at norms below 2^-100; then
    timed by CUDA events (K2's device time beside it), K2 and K3 each beside
    its probes and beside cuBLAS's bf16 product of the same shape (a
    yardstick only).  K2 on float32 rows (``gdn_train_fwd_f32``, the bf16
@@ -275,9 +280,28 @@ Phases, in order; any failure exits non-zero:
    latent's first 64 rows) and ``dump_training_stats`` (on the log and
    checkpoint of a one-step train CLI run, counted) as subprocesses, each
    output equal to the same function's in-process.
-15. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
-   runs of phases 3, 5, 8 (a), 9, 10, 11, 12 (b), 13 and 14), then the
-   last line ``{"ok": true, "device": {...}}``.
+15. The JAX package's precisions and precision switches: (a) K4 in
+   modes 1 (the Pallas function in bf16), 4 (float32 rows, one bf16 pass)
+   and 5 (bf16_3x) at the flagship's (16, 256, 256, 128) -> 128 and at
+   (2, 18, 14, 72) -> 41, its bf16 default route (modes 3 and 2) re-timed
+   beside them (``rounded_check`` on the training variant, the serving
+   variant's out equal to its), K1 and K2 on bf16 rows with the float32
+   pool at (16 256^2,
+   128), (16 128^2, 128) and (77, 131), each against its plain version,
+   timed against its bound; (b) phase 3's 16 tiles through
+   ``CAETurboCore`` and ``CAECodecCore`` at "default", at "high", and in
+   bf16 with ``CAE_TPU_BF16_ACTIVATIONS=0``, ``CAE_TPU_GDN_FAST=0``,
+   ``CAE_TPU_NATIVE_CONV_OUT=0`` and ``CAE_TPU_PALLAS=1``: launches exact,
+   symbols lossless, phase 3's tolerances against the plain versions,
+   decodes bit-equal, bpp and |delta PSNR| against float32 (0.05 dB); (c)
+   phase 5's bf16 step under ``CAE_TPU_GDN_FAST=0`` (the down stage
+   unfused: K2 with the float32 pool 4, K3 4 a step), losses against the
+   plain versions within 2e-2, step-1 gradients finite and non-zero; (d)
+   one float32 flagship step under each ``CAE_TPU_ANALYTIC_ENT`` mode,
+   gradients against mode 0's within 3e-2 of each tensor's max, ms a step.
+16. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3, 5, 8 (a), 9, 10, 11, 12 (b), 13, 14 and 15 (b), (c)),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
 non-zero and prints no result.
@@ -364,6 +388,18 @@ REPLACES = {
     "rans_encode_states": "cnn_autoencoder_tpu/ops/pallas/rans_kernel.py:319",
     "rans_compact": "cnn_autoencoder_tpu/ops/pallas/rans_kernel.py:319",
     "rans_decode": "cnn_autoencoder_tpu/ops/pallas/rans_kernel.py:119",
+    "gdn_fwd_bf16_f32pool": "cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:71",
+    "gdn_train_fwd_bf16_f32pool":
+        "cnn_autoencoder_tpu/ops/pallas/gdn_kernel.py:230",
+    "conv_gdn_fwd_pallas_bf16":
+        "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
+    "conv_gdn_fwd_bf16x1":
+        "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
+    "conv_gdn_fwd_bf16x3":
+        "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
+    "conv_gdn_fwd_bf16": "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
+    "conv_gdn_train_fwd_bf16":
+        "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
 }
 SOURCES = {
     "gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn_tc.cu",
@@ -376,17 +412,27 @@ SOURCES = {
     "rans_encode_states": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
     "rans_compact": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
     "rans_decode": "cnn_autoencoder_tpu_torch/csrc/rans.cu",
+    "gdn_fwd_bf16_f32pool": "cnn_autoencoder_tpu_torch/csrc/gdn_tc.cu",
+    "gdn_train_fwd_bf16_f32pool": "cnn_autoencoder_tpu_torch/csrc/gdn_tc.cu",
+    "conv_gdn_fwd_pallas_bf16": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
+    "conv_gdn_fwd_bf16x1": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
+    "conv_gdn_fwd_bf16x3": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
+    "conv_gdn_fwd_bf16": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
+    "conv_gdn_train_fwd_bf16": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
 }
+# K4's serving variant by precision: float32 (mode 0) or the bf16 mode's
+# default route (modes 2 and 3)
+K4_SERVING = {"float32": "conv_gdn_fwd", "bf16": "conv_gdn_fwd_bf16"}
 # the 'cae' codec's round trip (CAECodecCore), by precision: the model's
 # GDN and fused conv + GDN layers, no device rANS
 CAE_KERNELS = {"float32": ("gdn_fwd", "conv_gdn_fwd"),
-               "bf16": ("gdn_fwd_bf16", "conv_gdn_fwd")}
+               "bf16": ("gdn_fwd_bf16", "conv_gdn_fwd_bf16")}
 CAE_ROUNDS = 5      # timed 'cae' round trips in phase 6
 # the 'cae_tpu' round trip's kernels by precision; the GDN layers (down_0,
 # up_0, up_1) take K1 three times, on float32 or on bf16 rows
 SERVING_KERNELS = {"float32": ("gdn_fwd", "conv_gdn_fwd", "rans_encode_states",
                                "rans_compact", "rans_decode"),
-                   "bf16": ("gdn_fwd_bf16", "conv_gdn_fwd",
+                   "bf16": ("gdn_fwd_bf16", "conv_gdn_fwd_bf16",
                             "rans_encode_states", "rans_compact",
                             "rans_decode")}
 # bf16 serving's PSNR against float32 serving's (tests/test_bf16_rd.py's
@@ -395,7 +441,10 @@ BF16_PSNR_DB = 0.05
 # launches per train step, by compute mode; every other kernel launches 0
 STEP_LAUNCHES = {
     "float32": {"gdn_fwd": 3, "conv_gdn_train_fwd": 1},
-    "bf16": {"gdn_train_fwd": 3, "gdn_train_bwd": 3, "conv_gdn_train_fwd": 1},
+    # the fused stage's GDN backward is K3 too (the JAX default route's
+    # gdn_mixed)
+    "bf16": {"gdn_train_fwd": 3, "gdn_train_bwd": 4,
+             "conv_gdn_train_fwd_bf16": 1},
 }
 
 
@@ -592,14 +641,17 @@ def check_tc_sass(build):
                 with_r += kind == "gdn_tc_kernel" and "ELb1EE" in name
     check(without_r == 4, f"gdn_fwd_tc: {without_r} instantiations without "
           "r (K1 on bf16 rows), expected 4")
-    check(with_r == 5, f"gdn_tc_kernel: {with_r} instantiations with r (K2 "
-          "on float32 rows), expected 5")
-    # K1 and K2 on float32 rows (gdn_tc_kernel without and with r): five
-    # layouts each; K2 and K1 on bf16 rows (gdn_fwd_tc with and without r):
-    # resident and streamed layouts, each for GDN and IGDN; K3: its resident
-    # and streamed layouts, each for bf16 and float32 g
-    for kind, want in (("gdn_tc_kernel", 10), ("gdn_fwd_tc", 8),
-                       ("gdn_bwd_tc", 4), ("conv_gdn_mma_kernel", 6)):
+    check(with_r == 10, f"gdn_tc_kernel: {with_r} instantiations with r (K2 "
+          "on float32 rows and on bf16 rows with the float32 pool), "
+          "expected 10")
+    # K1 and K2 on float32 rows and on bf16 rows with the float32 pool
+    # (gdn_tc_kernel without and with r): five layouts each; K2 and K1 on
+    # bf16 rows (gdn_fwd_tc with and without r): resident and streamed
+    # layouts, each for GDN and IGDN; K3: its resident and streamed
+    # layouts, each for bf16 and float32 g; K4: three layouts in modes 0,
+    # 1 and 3, two in modes 2, 4 and 5 (csrc/conv_gdn.cu:kernel_of)
+    for kind, want in (("gdn_tc_kernel", 20), ("gdn_fwd_tc", 8),
+                       ("gdn_bwd_tc", 4), ("conv_gdn_mma_kernel", 15)):
         found = counts[kind]
         log(f"{kind} SASS: {len(found)} instantiations, HMMA instructions "
             f"{sorted(found.values())}")
@@ -903,31 +955,35 @@ def k1_bf16_serving(torch, model, b, h, w):
     return rec
 
 
-def k4_bound(x, cout, want_y):
-    """K4's bound at x's shape: its bytes (x, out in x's type, y in float32
-    where wanted, the parameters) against its operations at the card's rate
-    for their type: three TF32 passes for each float32 product, the bf16
-    conv's products at the bf16 rate, the pool (float32 y^2) in three TF32
-    passes in both types, and five float32 operations an output in the
-    epilogue.  Returns (bound ms, what bounds it, design ms): the last is
-    the operations as the design issues them (the bf16 conv in one TF32
-    pass), its ceiling."""
-    import torch
+def k4_bound(x, cout, want_y, mode=None):
+    """K4's bound at x's shape in ``mode`` (None: the mode now): its bytes
+    (x, out in x's type, y where wanted: float32, or y and r in bf16 in
+    modes 2 and 3, the parameters) against its operations at the card's
+    rate for their type: three TF32 passes for each float32 product (mode
+    0), bf16 products at the bf16 rate (one a product in modes 1-4, three
+    in mode 5), the pool in three TF32 passes (one bf16 pass in modes 2 and
+    3), and five float32 operations an output in the epilogue.  Returns
+    (bound ms, what bounds it, design ms): the last is the operations as
+    the design issues them (every pass a TF32 one), its ceiling."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    mode = cg.conv_gdn_mode(x.dtype) if mode is None else mode
     b, h, w, cin = x.shape
     npix = b * (h // 2) * (w // 2)
     size = x.element_size()
     conv_ops = npix * 2 * 9 * cin * cout
     pool_ops = npix * 2 * cout * cout
     epilogue = (5 * npix * cout, PEAK_F32_S)
-    if x.dtype == torch.bfloat16:
-        conv, conv_tf32 = (conv_ops, PEAK_BF16_S), conv_ops
-    else:
-        conv, conv_tf32 = (3 * conv_ops, PEAK_TF32_S), 3 * conv_ops
+    conv_passes = {cg.F32: 3, cg.F32_BF16X3: 3}.get(mode, 1)
+    conv = (conv_passes * conv_ops,
+            PEAK_TF32_S if mode == cg.F32 else PEAK_BF16_S)
+    pool_passes = 1 if mode in cg.ROUNDED else 3
+    pool = (pool_passes * pool_ops,
+            PEAK_BF16_S if mode in cg.ROUNDED else PEAK_TF32_S)
     nbytes = (size * (x.numel() + npix * cout) + 4 * npix * cout * want_y
               + 4 * (9 * cin * cout + cout * (cout + 1)))
-    bms, by = bound_ms(nbytes, [conv, (3 * pool_ops, PEAK_TF32_S), epilogue])
-    design_ms = ((conv_tf32 + 3 * pool_ops) / PEAK_TF32_S
-                 + epilogue[0] / PEAK_F32_S) * 1e3
+    bms, by = bound_ms(nbytes, [conv, pool, epilogue])
+    design_ms = ((conv_passes * conv_ops + pool_passes * pool_ops)
+                 / PEAK_TF32_S + epilogue[0] / PEAK_F32_S) * 1e3
     return bms, by, design_ms
 
 
@@ -946,7 +1002,7 @@ def k4_probe_times(torch, x, kernel, gamma, beta, ms):
                            for t in (kernel, gamma, beta))
     npix = b * (h // 2) * (w // 2)
     work = torch.empty(build.load_library().cae_conv_gdn_workspace(
-        npix, cin, cout, 0, 1), dtype=torch.uint8, device="cuda")
+        b, h, w, cin, cout, cg.F32, 1), dtype=torch.uint8, device="cuda")
     out = torch.empty((b, h // 2, w // 2, cout), device="cuda")
     y = torch.empty_like(out)
     stream = torch.cuda.current_stream().cuda_stream
@@ -954,11 +1010,11 @@ def k4_probe_times(torch, x, kernel, gamma, beta, ms):
     def run(name, y_ptr=None):
         build.check_launch(PROBES[name].cae_conv_gdn_fwd(
             x.data_ptr(), kernel.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), out.data_ptr(), y_ptr, work.data_ptr(), b, h, w,
-            cin, cout, 0, stream), name)
+            beta.data_ptr(), out.data_ptr(), y_ptr, None, work.data_ptr(), b,
+            h, w, cin, cout, cg.F32, stream), name)
 
     run("k4_one_pass", y.data_ptr())
-    out_p, y_p = cg.conv_gdn_train_plain(x, kernel, gamma, beta)
+    out_p, y_p, _ = cg.conv_gdn_train_plain(x, kernel, gamma, beta)
     torch.cuda.synchronize()
     ok_o, o_err = close(out, out_p, 0.0, 1e-4)
     ok_y, y_err = close(y, y_p, 0.0, 1e-4)
@@ -1062,13 +1118,19 @@ def phase_kernels(torch, model, core, tiles):
         k4_probe_times(torch, x, kernel, gamma, beta, ms)
         # the bf16 serving variant, which the bf16 round trip launches
         xb = x.to(torch.bfloat16)
-        check_conv_case(torch, xb, kernel, gamma, beta,
-                        f"{tuple(x.shape)} -> {cout} bf16")
+        err_b = check_conv_case(torch, xb, kernel, gamma, beta,
+                                f"{tuple(x.shape)} -> {cout} bf16")
         ms_b = cuda_ms(torch, lambda: conv_gdn_kernel.conv_gdn_cuda(
             xb, kernel, gamma, beta), 10)
+        plain_b = cuda_ms(torch, lambda: conv_gdn_kernel.conv_gdn_plain(
+            xb, kernel, gamma, beta), 5)
         bms_b, by_b, design_b = k4_bound(xb, cout, want_y=False)
+        out["conv_gdn_fwd_bf16"] = dict(
+            max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bms_b,
+            bound_by=by_b, shape=list(xb.shape))
         log(f"conv_gdn_fwd {tuple(x.shape)} -> {cout} bf16: kernel "
-            f"{ms_b:.4f} ms, bound {bms_b:.4f} ms ({by_b}), "
+            f"{ms_b:.4f} ms, plain {plain_b:.4f} ms, bound {bms_b:.4f} ms "
+            f"({by_b}), "
             f"{100 * bms_b / ms_b:.1f}% of it; the design's one-pass TF32 "
             f"ceiling {design_b:.4f} ms")
         del x, xb, got, ref
@@ -1407,8 +1469,8 @@ def plain_reconstruct(torch, model, core, tiles_u8, symbols):
     latent, as tests/test_rd_parity.py compares them."""
     from cnn_autoencoder_tpu_torch.coding.device_rans import (
         pack_streams, unpack_streams)
-    from cnn_autoencoder_tpu_torch.ops.kernels.conv_gdn_kernel import \
-        conv_gdn_plain
+    from cnn_autoencoder_tpu_torch.ops.kernels.conv_gdn_kernel import (
+        conv_gdn_mode, conv_gdn_plain)
     from cnn_autoencoder_tpu_torch.ops.kernels.gdn_kernel import gdn_plain
     from cnn_autoencoder_tpu_torch.ops.kernels.rans_kernel import (
         pack_dec_lut, rans_decode_plain, rans_encode_plain)
@@ -1420,19 +1482,21 @@ def plain_reconstruct(torch, model, core, tiles_u8, symbols):
                          inverse).reshape(x.shape)
 
     dtype = core.base.compute_dtype
+    mode = core.base.precision  # the layers' compute_dtype, as the core's
     with torch.no_grad():
         x = (torch.from_numpy(tiles_u8).cuda().float() / 255.0).to(dtype)
         for name in model.encoder.names:
             unit = getattr(model.encoder, name)
-            if unit.fused:
+            fused = conv_gdn_mode(x.dtype, mode) if unit.fused else None
+            if fused is not None:
                 gamma, beta = unit.gdn_down.effective_params()
                 x = conv_gdn_plain(x, unit.conv_down.kernel_hwio(), gamma,
-                                   beta)
+                                   beta, fused)
             elif unit.act == "GDN":
-                x = gdn(unit.conv_down(x), unit.gdn_down, False)
+                x = gdn(unit.conv_down(x, mode), unit.gdn_down, False)
             else:
                 check(unit.act is None, f"{name}: activation {unit.act}")
-                x = unit.conv_down(x)
+                x = unit.conv_down(x, mode)
         sym = torch.round(x - core.base._med).to(torch.int32)
         sym = sym.permute(0, 3, 1, 2).contiguous()
         bsz, c, lh, lw = sym.shape
@@ -1451,7 +1515,7 @@ def plain_reconstruct(torch, model, core, tiles_u8, symbols):
         y = (symbols.permute(0, 2, 3, 1).float() + core.base._med).to(dtype)
         for name in model.decoder.names:
             unit = getattr(model.decoder, name)
-            y = unit.deconv_up(y)
+            y = unit.deconv_up(y, mode)
             if unit.act == "GDN":
                 y = gdn(y, unit.gdn_up, True)
             else:
@@ -1460,11 +1524,13 @@ def plain_reconstruct(torch, model, core, tiles_u8, symbols):
     return sym, rec.cpu().numpy()
 
 
-def serving_round_trip(torch, model, core, imgs, mode):
+def serving_round_trip(torch, model, core, imgs, mode, expect=None):
     """One counted, timed round trip of the tiles through ``core`` at its
     precision ``mode`` (launch counts reset just before and read just
     after), symbols lossless, then the same tiles through the plain
-    versions on the card.  Returns (launches, record of the round trip)."""
+    versions on the card.  ``expect``: the model's kernels and their
+    launches (None: K1 3 and K4 1 of ``mode``).  Returns (launches, record
+    of the round trip)."""
     from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
                                                        reset_launch_counts)
     from cnn_autoencoder_tpu_torch.storage.turbo_codec import is_turbo_frame
@@ -1488,14 +1554,15 @@ def serving_round_trip(torch, model, core, imgs, mode):
     log(f"serving path ({mode}) launches: {launches}; {retries} capacity "
         f"retries: {launches['rans_encode_states']} state pass and "
         f"{launches['rans_compact']} compactions in the round trip")
+    if expect is None:
+        expect = {SERVING_KERNELS[mode][0]: 3, SERVING_KERNELS[mode][1]: 1}
     for name, n in launches.items():
-        check((n > 0) == (name in SERVING_KERNELS[mode]),
+        check((n > 0) == (name in expect or name in RANS_KERNELS),
               f"kernel {name}: {n} launches on the {mode} serving path")
-    gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
-    check(launches[gdn] == 3 and launches["conv_gdn_fwd"] == 1
-          and launches["rans_decode"] == 1, f"{mode} serving path: "
-          f"{gdn} {launches[gdn]}, conv_gdn_fwd {launches['conv_gdn_fwd']}, "
-          f"rans_decode {launches['rans_decode']} launches; expected 3, 1, 1")
+    got = {name: launches[name] for name in expect}
+    check(got == expect and launches["rans_decode"] == 1,
+          f"{mode} serving path: launches {got}, rans_decode "
+          f"{launches['rans_decode']}; expected {expect} and 1")
     check(launches["rans_encode_states"] == 1
           and launches["rans_compact"] == 1 + retries,
           "the encode should run one state pass and one compaction per "
@@ -1760,6 +1827,87 @@ def close(got, ref, rel, slack):
     return ok, float(err.max())
 
 
+# K4's bf16 default route (modes 2 and 3) rounds y to bf16: mode 2 once,
+# mode 3 at the border form's five points (the interior sum; on output row
+# 0 and column 0 the corrections dr and dc and the adds after them).  Where
+# a sum lies on a rounding boundary the kernel's and the plain version's
+# orders of float32 sums round it one ulp apart.  Such values are few: at
+# most this share of y may differ
+ROUNDED_SHARE = 1e-3
+
+
+def border_terms(torch, x, kernel):
+    """The plain border form's rounded terms of K4 mode 3 at bf16 x (NHWC),
+    as float32 NCHW: the interior sum s1, row 0's correction dr (B, Cout,
+    1, W/2), s2 = bf16(s1 + dr) on row 0 (s1 elsewhere), and column 0's
+    correction dc (B, Cout, H/2, 1) (``convops.border_form``)."""
+    import torch.nn.functional as F
+    from cnn_autoencoder_tpu_torch.utils.device import full_f32
+    xn = x.permute(0, 3, 1, 2).float()
+    w = kernel.permute(3, 2, 0, 1).float().to(torch.bfloat16).float()
+
+    def conv(inp, wt, stride, padding):
+        with full_f32():
+            return F.conv2d(inp, wt, stride=stride, padding=padding).to(
+                torch.bfloat16).float()
+
+    s1 = conv(xn, w, 2, 1)
+    row = torch.cat([xn[:, :, 1:2, 1:2], xn[:, :, 1:2]], 3)
+    col = F.pad(xn[:, :, :, 1:2], (0, 0, 1, 0))
+    dr = conv(row, w[:, :, :1], (1, 2), 0)
+    dc = conv(col, w[:, :, :, :1], (2, 1), 0)
+    s2 = s1.clone()
+    s2[:, :, :1] = (s1[:, :, :1] + dr).to(torch.bfloat16).float()
+    return s1, dr, s2, dc
+
+
+def rounded_check(torch, x, kernel, gamma, beta, mode, out, y, r, label):
+    """K4's training variant in mode 2 or 3 (out, y, r) against its plain
+    version: each value of y within one bf16 ulp (at most 2^-7 of the
+    magnitude) of each rounded term it sums (mode 3's border terms on row
+    0 and column 0, so a one-ulp step of a large term that a later add
+    cancels passes, and nothing larger), plus 2^-16 of max |y| for sums
+    at zero, with at most ROUNDED_SHARE of y differing; then r and out
+    within one bf16 ulp of the plain GDN of the kernel's own y.  Logs the
+    share of y that differs on the border (row 0 or column 0) and inside.
+    Returns (max abs error of out against the plain run, of y, share of y
+    that differs)."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    out_p, y_p, _ = cg.conv_gdn_train_plain(x, kernel, gamma, beta, mode)
+    yk, yp = y.float(), y_p.float()
+    terms = yp.abs().permute(0, 3, 1, 2).clone()
+    if mode == cg.BORDER_BF16:
+        s1, dr, s2, dc = border_terms(torch, x, kernel)
+        terms[:, :, :1] += s1[:, :, :1].abs() + dr.abs()
+        terms[:, :, :, :1] += s2[:, :, :, :1].abs() + dc.abs()
+        del s1, dr, s2, dc
+    terms = terms.permute(0, 2, 3, 1)
+    limit = 2.0 ** -7 * terms + 2.0 ** -16 * float(yp.abs().max())
+    err_y = (yk - yp).abs()
+    differ = yk != yp
+    border = torch.zeros_like(differ)
+    border[:, :1] = True
+    border[:, :, :1] = True
+    share = float(differ.float().mean())
+    share_b = float(differ[border].float().mean())
+    share_i = float(differ[~border].float().mean())
+    ok_y = bool((err_y <= limit).all()) and share <= ROUNDED_SHARE
+    out_c, r_c = cg.rounded_gdn_plain(y, gamma, beta)
+    ok_r, r_err = close(r, r_c, 2.0 ** -7, 0.0)
+    ok_o, o_err = close(out, out_c, 2.0 ** -7, 0.0)
+    y_err = float(err_y.max())
+    worst = float((err_y / limit).max())
+    log(f"{label} mode {mode}: y max abs {y_err:.3e} ({worst:.3f} of its "
+        f"limit), {share:.3e} of y differs ({share_b:.3e} of row 0 and "
+        f"column 0, {share_i:.3e} inside); r {r_err:.3e} and out "
+        f"{o_err:.3e} from the plain GDN of the kernel's y")
+    check(ok_y and ok_r and ok_o,
+          f"{label} mode {mode}: y error {y_err:.3e} ({worst:.3f} of its "
+          f"limit, {share:.3e} of y differs), r error {r_err:.3e}, out "
+          f"error {o_err:.3e}")
+    return float((out.float() - out_p.float()).abs().max()), y_err, share
+
+
 def check_gdn_fwd_case(torch, x, gamma, beta, inverse, label):
     """K2 against its plain version: y to K1_REL_LIMIT relative and equal
     to K1's on the same rows (float32, K1's kernel with r) or to one bf16
@@ -1788,8 +1936,11 @@ def check_gdn_fwd_case(torch, x, gamma, beta, inverse, label):
 def check_gdn_train_case(torch, x, gamma, beta, inverse, label, rng):
     """K2 then K3 on the same rows, each against its plain version: K2 by
     check_gdn_fwd_case, dnb to one bf16 ulp, dx to one bf16 ulp (2^-7
-    relative) or 1e-5 relative, plus 1e-5 of max |dx| for the sums' order.
-    Returns the max abs errors of y and dx."""
+    relative) or 1e-5 relative, plus 1e-5 of max |dx| for the sums' order;
+    K3's dbeta (the float32 dnorm's column sums) to 1e-4 of the column
+    sums of |dnorm| (float32 sums in another order), with dx and dnb
+    bit-equal to the run without it.  Returns the max abs errors of y and
+    dx."""
     from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
     bf16 = x.dtype == torch.bfloat16
     y_err, rb = check_gdn_fwd_case(torch, x, gamma, beta, inverse, label)
@@ -1803,9 +1954,23 @@ def check_gdn_train_case(torch, x, gamma, beta, inverse, label, rng):
           "by more than one bf16 ulp")
     ok, dx_err = close(dx, dx_p, 2.0 ** -7 if bf16 else 1e-5, 1e-5)
     check(ok, f"gdn_train_bwd {label}: dx error {dx_err:.3e}")
+    dx_s, dnb_s, db = gk.gdn_train_bwd_cuda(g, xb, rb, gamma, inverse,
+                                            want_dbeta=True)
+    db_p = gk.gdn_train_bwd_plain(g, xb, rb, gamma, inverse, True)[2]
+    # |dnorm| = dnorm of |g| and |x| up to its sign (r > 0)
+    mag = gk.gdn_train_bwd_plain(g.abs(), xb.abs(), rb, gamma, inverse,
+                                 True)[2].abs()
+    torch.cuda.synchronize()
+    db_err = float((db - db_p).abs().max())
+    check(torch.equal(dx_s, dx) and torch.equal(dnb_s, dnb),
+          f"gdn_train_bwd {label}: dx or dnb changed with dbeta's sums")
+    check(bool(((db - db_p).abs() <= 1e-4 * mag).all()),
+          f"gdn_train_bwd {label}: dbeta error {db_err:.3e}")
     log(f"gdn_train_fwd/bwd {label}: y max abs {y_err:.3e}, dx max abs "
         f"{dx_err:.3e}, dnb identical on "
-        f"{float((dnb == dnb_p).float().mean()):.6f} of elements")
+        f"{float((dnb == dnb_p).float().mean()):.6f} of elements, dbeta "
+        f"max abs {db_err:.3e} (max column sum of |dnorm| "
+        f"{float(mag.max()):.3e})")
     return y_err, dx_err
 
 
@@ -1954,15 +2119,19 @@ def k3_yardsticks(torch, g, xb, rb, gamma, ms, bms, mm_ms):
     dx = torch.empty_like(g)
     dnb = torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
     g32 = gamma.detach().float().contiguous()
-    work = torch.empty(build.load_library().cae_gdn_train_bwd_workspace(c),
+    main = build.load_library()
+    work = torch.empty(main.cae_gdn_train_bwd_workspace(c),
                        dtype=torch.uint8, device=g.device)
+    is_bf16 = int(g.dtype == torch.bfloat16)
+    # dbeta's partial sums, as the training path asks for them
+    part = torch.empty(main.cae_gdn_train_bwd_partials(n, c, is_bf16), c,
+                       dtype=torch.float32, device=g.device)
 
     def call(lib, name):
         build.check_launch(lib.cae_gdn_train_bwd(
             g.data_ptr(), xb.data_ptr(), rb.data_ptr(), g32.data_ptr(),
-            dx.data_ptr(), dnb.data_ptr(), work.data_ptr(), n, c, 0,
-            int(g.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream), name)
+            dx.data_ptr(), dnb.data_ptr(), part.data_ptr(), work.data_ptr(),
+            n, c, 0, is_bf16, torch.cuda.current_stream().cuda_stream), name)
 
     # thread 0 is in the first of a block's two groups: half the 32-row tiles
     time_probes(torch, "gdn_train_bwd", K3_PROBES, call,
@@ -1974,43 +2143,51 @@ def k3_yardsticks(torch, g, xb, rb, gamma, ms, bms, mm_ms):
         f"bound {bms:.4f} ms")
 
 
-def check_conv_train_case(torch, x, kernel, gamma, beta, label):
-    """K4's training variant against its plain version: y to 1e-4 of
-    max |y|, out to 1e-4 of max |out| (float32) or one bf16 ulp plus
-    that.  Returns the max abs error of out."""
+def check_conv_train_case(torch, x, kernel, gamma, beta, label, mode=None):
+    """K4's training variant against its plain version in ``mode`` (None:
+    the mode now): y to 1e-4 of max |y| and out to 1e-4 of max |out|
+    (float32) or one bf16 ulp plus that; in modes 2 and 3 (y and r rounded
+    to bf16) by ``rounded_check``.  Returns the max abs error of out."""
     from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
-    out, y = cg.conv_gdn_train_cuda(x, kernel, gamma, beta)
-    out_p, y_p = cg.conv_gdn_train_plain(x, kernel, gamma, beta)
+    mode = cg.conv_gdn_mode(x.dtype) if mode is None else mode
+    out, y, r = cg.conv_gdn_train_cuda(x, kernel, gamma, beta, mode)
+    out_p, y_p, r_p = cg.conv_gdn_train_plain(x, kernel, gamma, beta, mode)
     torch.cuda.synchronize()
     check(out.shape == out_p.shape and out.dtype == x.dtype
-          and y.dtype == torch.float32, f"conv_gdn_train_fwd {label}: "
-          f"{tuple(out.shape)} {out.dtype} {y.dtype}")
+          and y.dtype == y_p.dtype and (r is None) == (r_p is None),
+          f"conv_gdn_train_fwd {label}: {tuple(out.shape)} {out.dtype} "
+          f"{y.dtype}")
     check(bool(torch.isfinite(out.float()).all()), f"{label}: not finite")
+    if mode in cg.ROUNDED:
+        return rounded_check(torch, x, kernel, gamma, beta, mode, out, y, r,
+                             f"conv_gdn_train_fwd {label}")[0]
     ok_y, y_err = close(y, y_p, 0.0, 1e-4)
-    bf16 = x.dtype == torch.bfloat16
-    ok_o, o_err = close(out, out_p, 2.0 ** -7 if bf16 else 0.0, 1e-4)
+    ok_o, o_err = close(out, out_p, 2.0 ** -7 if x.dtype == torch.bfloat16
+                        else 0.0, 1e-4)
     check(ok_y and ok_o, f"conv_gdn_train_fwd {label}: y error {y_err:.3e}, "
           f"out error {o_err:.3e}")
-    log(f"conv_gdn_train_fwd {label}: out max abs {o_err:.3e}, y max abs "
-        f"{y_err:.3e}")
+    log(f"conv_gdn_train_fwd {label} mode {mode}: out max abs {o_err:.3e}, "
+        f"y max abs {y_err:.3e}")
     return o_err
 
 
 def check_conv_case(torch, x, kernel, gamma, beta, label):
     """K4 in both variants at one geometry: the training variant by
-    check_conv_train_case, the serving variant against the plain version
-    to the same out tolerance and equal to the training variant's out."""
+    check_conv_train_case, the serving variant equal to the training
+    variant's out (and, in float32, within 1e-4 of max |out| of the plain
+    version).  Returns the training variant's max abs error of out."""
     from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
-    check_conv_train_case(torch, x, kernel, gamma, beta, label)
+    err = check_conv_train_case(torch, x, kernel, gamma, beta, label)
     got = cg.conv_gdn_cuda(x, kernel, gamma, beta)
     ref = cg.conv_gdn_plain(x, kernel, gamma, beta)
     torch.cuda.synchronize()
-    ok, err = close(got, ref, 2.0 ** -7 if x.dtype == torch.bfloat16
-                    else 0.0, 1e-4)
-    check(ok and got.shape == ref.shape, f"conv_gdn_fwd {label}: out error "
-          f"{err:.3e}")
+    ok = (got.shape == ref.shape
+          and (x.dtype == torch.bfloat16 or close(got, ref, 0.0, 1e-4)[0]))
+    check(ok, f"conv_gdn_fwd {label}: out error "
+          f"{float((got.float() - ref.float()).abs().max()):.3e}")
     check(torch.equal(got, cg.conv_gdn_train_cuda(x, kernel, gamma, beta)[0]),
           f"conv_gdn_fwd {label}: differs from the training variant's out")
+    return err
 
 
 def phase_train_kernels(torch, model):
@@ -2136,12 +2313,17 @@ def phase_train_kernels(torch, model):
         mm_ms = cuda_ms(torch, lambda: torch.matmul(a, b), 20)
         del a
         k2_yardsticks(torch, xb, gamma0, beta0, ms, dev_ms, bms, mm_ms)
-        ms = cuda_ms(torch, lambda: gk.gdn_train_bwd_cuda(gb, xb, rb, gamma0),
-                     20)
+        # as the training path calls it: with dbeta's partial sums
+        ms = cuda_ms(torch, lambda: gk.gdn_train_bwd_cuda(
+            gb, xb, rb, gamma0, want_dbeta=True), 20)
+        ms_no = cuda_ms(torch, lambda: gk.gdn_train_bwd_cuda(
+            gb, xb, rb, gamma0), 20)
         plain_ms = cuda_ms(torch, lambda: gk.gdn_train_bwd_plain(
-            gb, xb, rb, gamma0), 10)
-        bms, by = bound_ms(10 * nc + 4 * c * c,
-                           [(2 * nc * c, PEAK_BF16_S), (12 * nc, PEAK_F32_S)])
+            gb, xb, rb, gamma0, want_dbeta=True), 10)
+        log(f"gdn_train_bwd {[n, c]} bf16: {ms:.4f} ms with dbeta's partial "
+            f"sums, {ms_no:.4f} ms without")
+        bms, by = bound_ms(10 * nc + 4 * c * (c + 1),
+                           [(2 * nc * c, PEAK_BF16_S), (13 * nc, PEAK_F32_S)])
         out["gdn_train_bwd"] = dict(
             max_abs_err=errs[(n, False, torch.bfloat16)][1], ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[n, c])
@@ -2204,8 +2386,8 @@ def phase_train_kernels(torch, model):
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
                 f"({by}), {100 * bms / ms:.1f}% of it; design ceiling "
                 f"(its TF32 passes) {design_ms:.4f} ms")
-            # the line's entry is the float32 mode, the default
-            out["conv_gdn_train_fwd"] = dict(
+            out[{"bf16": "conv_gdn_train_fwd_bf16"}.get(
+                name, "conv_gdn_train_fwd")] = dict(
                 max_abs_err=conv_err[dt], ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, shape=list(xt.shape))
         del x32
@@ -2240,8 +2422,10 @@ def plain_versions():
     from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
     swaps = [(gk, "gdn_cuda", gk.gdn_plain),
              (gk, "gdn_bf16_cuda", gk.gdn_plain),
+             (gk, "gdn_bf16_f32pool_cuda", gk.gdn_plain),
              (gk, "gdn_train_fwd_cuda", gk.gdn_train_fwd_plain),
              (gk, "gdn_train_fwd_f32_cuda", gk.gdn_train_fwd_plain),
+             (gk, "gdn_train_fwd_bf16_f32pool_cuda", gk.gdn_train_fwd_plain),
              (gk, "gdn_train_bwd_cuda", gk.gdn_train_bwd_plain),
              (cg, "conv_gdn_cuda", cg.conv_gdn_plain),
              (cg, "conv_gdn_train_cuda", cg.conv_gdn_train_plain)]
@@ -2805,7 +2989,7 @@ def slide_turbo(torch, core, img, work, mode):
           "fell back to host frames")
     n = SLIDE_BATCHES
     slide_launches(torch, f"cae_tpu ({mode}) compress + decompress", {
-        gdn: 3 * n, "conv_gdn_fwd": n, "rans_encode_states": n,
+        gdn: 3 * n, K4_SERVING[mode]: n, "rans_encode_states": n,
         "rans_compact": n, "rans_decode": n}, retries)
     report = stage_report(GLOBAL_TIMER, t0, t1, t2)
     chunks = slide_chunks(arr)
@@ -2869,7 +3053,7 @@ def slide_cae(torch, core, img, work, mode, hal):
     n = SLIDE_BATCHES
     gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
     slide_launches(torch, f"cae ({mode}, offset {hal}) compress + "
-                   "decompress", {gdn: 3 * n, "conv_gdn_fwd": n}, 0)
+                   "decompress", {gdn: 3 * n, K4_SERVING[mode]: n}, 0)
     report = stage_report(GLOBAL_TIMER, t0, t1, t2)
     chunks = slide_chunks(arr)
     check(chunks == frames, f"cae ({mode}, offset {hal}): pipeline chunks "
@@ -3027,7 +3211,7 @@ def slide_fused(torch, core, img, work, mode, ref_path, ref_rec):
     report = stage_report(GLOBAL_TIMER, t3, t4, t5)
     gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
     slide_launches(torch, f"fused ({mode}) compress + decompress",
-                   {gdn: 3 * n, "conv_gdn_fwd": n}, 0)
+                   {gdn: 3 * n, K4_SERVING[mode]: n}, 0)
     check(slide_chunks(arr) == slide_chunks(zarrlib.open(ref_path)),
           f"fused ({mode}): chunks differ from compress_pixels_to_cae's")
     check(np.array_equal(rec, ref_rec), f"fused ({mode}): image differs "
@@ -3161,7 +3345,7 @@ RESUME_STEPS, RESUME_VALIDATIONS = 3, 2
 VAL_BATCHES = 1     # the 1024^2 slide's 16 patches of 256^2
 # launches per validation batch (the eval step: serving variants), by mode
 VAL_LAUNCHES = {"float32": {"gdn_fwd": 3, "conv_gdn_fwd": 1},
-                "bf16": {"gdn_fwd_bf16": 3, "conv_gdn_fwd": 1}}
+                "bf16": {"gdn_fwd_bf16": 3, "conv_gdn_fwd_bf16": 1}}
 
 
 def cli_argv(work, log_dir, steps, extra=()):
@@ -4305,7 +4489,7 @@ def phase_arch_options(torch, cli_ms):
 # batches of 16 tiles, each K4 and K1 (down_0) in the encode and K1 twice
 # (up_0, up_1) in the decode; the metrics launch no kernel
 RD_LAUNCHES = {"float32": {"gdn_fwd": 12, "conv_gdn_fwd": 4},
-               "bf16": {"gdn_fwd_bf16": 12, "conv_gdn_fwd": 4}}
+               "bf16": {"gdn_fwd_bf16": 12, "conv_gdn_fwd_bf16": 4}}
 RD_METRICS = ("dist", "rate", "ms-ssim", "ssim", "psnr", "delta_cielab")
 # the JAX harness's stats file, key for key (tests/test_harnesses.py:68-85)
 RD_KEYS = (set(RD_METRICS) | {"execution_time", "evaluation_time"}
@@ -4963,7 +5147,7 @@ def slide_transport(torch, kind, core, img, work, mode):
             delattr(c, attr)
     n = SLIDE_BATCHES
     gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
-    enc, dec = {gdn: n, "conv_gdn_fwd": n}, {gdn: 2 * n}
+    enc, dec = {gdn: n, K4_SERVING[mode]: n}, {gdn: 2 * n}
     if kind == "cae_tpu":
         enc.update(rans_encode_states=n, rans_compact=n)
         dec["rans_decode"] = n
@@ -5160,7 +5344,7 @@ def mesh_turbo(torch, one, mesh_core, imgs, mode, totals):
             mesh_core.encode_tiles(imgs)))
     retries = mesh_core.capacity_retries - retries
     expect_launches(label, launches, {
-        gdn: 3 * n, "conv_gdn_fwd": n, "rans_encode_states": n,
+        gdn: 3 * n, K4_SERVING[mode]: n, "rans_encode_states": n,
         "rans_compact": n * (1 + retries), "rans_decode": n})
     plus_into(totals, launches)
     check(frames == one.encode_tiles(imgs), f"{label}: frames differ from "
@@ -5187,7 +5371,7 @@ def mesh_cae(torch, one, mesh_core, imgs, mode, totals):
     (frames, rec), launches = counted(torch, lambda: (
         lambda f: (f, mesh_core.decode_tiles(f)))(
             mesh_core.encode_tiles(imgs)))
-    expect_launches(label, launches, {gdn: 3 * n, "conv_gdn_fwd": n})
+    expect_launches(label, launches, {gdn: 3 * n, K4_SERVING[mode]: n})
     plus_into(totals, launches)
     check(frames == one.encode_tiles(imgs) and np.array_equal(
         rec, one.decode_tiles(frames)), f"{label}: frames or decode differ "
@@ -6063,6 +6247,293 @@ def phase_tools(torch, model, core):
     return totals
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+# (label, precision, switches, the model's kernels and launches a round
+# trip): the JAX package's precisions and bf16 switches that change the
+# function, each on phase 3's tiles
+PRECISION_RUNS = (
+    ("default", "default", {}, {"gdn_fwd": 3, "conv_gdn_fwd_bf16x1": 1}),
+    ("high", "high", {}, {"gdn_fwd": 3, "conv_gdn_fwd_bf16x3": 1}),
+    ("bf16 BF16_ACTIVATIONS=0", "bf16", {"CAE_TPU_BF16_ACTIVATIONS": "0"},
+     {"gdn_fwd": 3, "conv_gdn_fwd_bf16x1": 1}),
+    ("bf16 GDN_FAST=0", "bf16", {"CAE_TPU_GDN_FAST": "0"},
+     {"gdn_fwd_bf16_f32pool": 4}),
+    ("bf16 NATIVE_CONV_OUT=0", "bf16", {"CAE_TPU_NATIVE_CONV_OUT": "0"},
+     {"gdn_fwd_bf16": 3, "conv_gdn_fwd_bf16": 1}),
+    ("bf16 PALLAS=1", "bf16", {"CAE_TPU_PALLAS": "1"},
+     {"gdn_fwd_bf16": 3, "conv_gdn_fwd_pallas_bf16": 1}),
+)
+# launches a bf16 train step under CAE_TPU_GDN_FAST=0: the down stage runs
+# unfused, its GDN on K2 with the float32 pool
+GDN_FAST_OFF_STEP = {"gdn_train_fwd_bf16_f32pool": 4, "gdn_train_bwd": 4}
+ANALYTIC_MODES = ("0", "1", "2", "bf16")
+ANALYTIC_TIMED = 3  # steps timed after the compared one, each mode
+
+
+@contextlib.contextmanager
+def switched(precision, env):
+    """The serving precision and the CAE_TPU_* switches set for the block,
+    restored after it."""
+    from cnn_autoencoder_tpu_torch.ops import convops
+    old = {k: os.environ.get(k) for k in env}
+    prev = convops.get_default_precision()
+    os.environ.update(env)
+    convops.set_default_precision(precision)
+    try:
+        yield
+    finally:
+        convops.set_default_precision(prev)
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def variant_case(torch, name, wrapper, plain, args, tol, bms, by,
+                 rounded=None):
+    """One kernel variant against its plain version on the same inputs:
+    ``tol`` = (rel, slack) for ``close``, or, for K4's serving variant in
+    mode ``rounded`` (2 or 3), None: its training variant by
+    ``rounded_check`` and its out equal to that; timed by CUDA events.
+    Returns its record."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    got = wrapper(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    got, ref = (got[0], ref[0]) if isinstance(got, tuple) else (got, ref)
+    if tol is not None:
+        ok, err = close(got, ref, *tol)
+    else:
+        out_t, y_t, r_t = cg.conv_gdn_train_cuda(*args, rounded)
+        err = rounded_check(torch, *args, rounded, out_t, y_t, r_t, name)[0]
+        ok = torch.equal(got, out_t)
+        del out_t, y_t, r_t
+    check(ok and got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{name} {tuple(args[0].shape)}: error {err:.3e}")
+    ms = cuda_ms(torch, lambda: wrapper(*args), 10)
+    plain_ms = cuda_ms(torch, lambda: plain(*args), 3)
+    log(f"{name} {tuple(args[0].shape)}: max abs {err:.3e} (max |ref| "
+        f"{float(ref.float().abs().max()):.3e}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{100 * bms / ms:.1f}% of it")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, shape=list(args[0].shape))
+
+
+def precision_kernels(torch, model, rng):
+    """(a) K4 in modes 1, 4 and 5 at the flagship's (16, 256, 256, 128) ->
+    128 and at an odd Cout, its bf16 default route (modes 3 and 2) re-timed
+    beside them, and K1 and K2 on bf16 rows with the float32 pool at the
+    serving and training shapes and at an odd C, each against its plain
+    version; returns {name: record}."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    from cnn_autoencoder_tpu_torch.ops.kernels import gdn_kernel as gk
+    out = {}
+    unit = model.encoder.down_1
+    with torch.no_grad():
+        kernel = unit.conv_down.kernel_hwio()
+        gamma, beta = unit.gdn_down.effective_params()
+        x32 = torch.from_numpy(rng.rand(TILES, 256, 256, 128)
+                               .astype(np.float32)).cuda()
+        odd = (torch.from_numpy(rng.rand(2, 18, 14, 72).astype(np.float32))
+               .cuda(), torch.from_numpy((rng.randn(3, 3, 72, 41) * 0.05)
+                                         .astype(np.float32)).cuda(),
+               torch.from_numpy((0.1 * rng.rand(41, 41)).astype(np.float32))
+               .cuda(), torch.from_numpy((1 + rng.rand(41))
+                                         .astype(np.float32)).cuda())
+        for mode in (cg.PALLAS_BF16, cg.F32_BF16X1, cg.F32_BF16X3,
+                     cg.BORDER_BF16, cg.ROUND_BF16):
+            name = cg.SERVING_NAMES[mode]
+            bf = mode in cg.BF16_X
+            # bf16 out: one ulp, or rounded_check where y is rounded
+            # first; float32: 1e-4 of max |out| (phase 2's limit)
+            tol = (None if mode in cg.ROUNDED else
+                   (2.0 ** -7, 1e-4) if bf else (0.0, 1e-4))
+            for x, kern, g, b in ((x32, kernel, gamma, beta), odd):
+                x = x.to(torch.bfloat16) if bf else x
+                bms, by, _ = k4_bound(x, kern.shape[3], False, mode)
+                rec = variant_case(
+                    torch, f"{name} mode {mode}",
+                    lambda *a, m=mode: cg.conv_gdn_cuda(*a, m),
+                    lambda *a, m=mode: cg.conv_gdn_plain(*a, m),
+                    (x, kern, g, b), tol, bms, by, rounded=mode)
+                if x.shape[0] == TILES and mode in (
+                        cg.PALLAS_BF16, cg.F32_BF16X1, cg.F32_BF16X3):
+                    out[name] = rec
+        del x32
+        n = TILES * 256 * 256
+        with switched("highest", {"CAE_TPU_GDN_FAST": "0"}):
+            for rows, c in ((n, 128), (n // 4, 128), (77, 131)):
+                xb = torch.from_numpy(rng.randn(rows, c).astype(np.float32)
+                                      ).cuda().to(torch.bfloat16)
+                gc = torch.from_numpy((0.1 * rng.rand(c, c))
+                                      .astype(np.float32)).cuda()
+                bc = torch.from_numpy((1 + rng.rand(c)).astype(np.float32)
+                                      ).cuda()
+                ops = [(3 * 2 * rows * c * c, PEAK_TF32_S),
+                       (5 * rows * c, PEAK_F32_S)]
+                # one bf16 ulp of y (and of r): the kernel's pool is
+                # float32-accurate in three TF32 passes
+                if rows != n // 4:
+                    bms, by = bound_ms(4 * rows * c + 4 * c * (c + 1), ops)
+                    rec = variant_case(torch, "gdn_fwd_bf16_f32pool",
+                                       gk.gdn_bf16_f32pool_cuda, gk.gdn_plain,
+                                       (xb, gc, bc), (2.0 ** -7, 0.0), bms,
+                                       by)
+                    if rows == n:
+                        out["gdn_fwd_bf16_f32pool"] = rec
+                if rows != n:
+                    bms, by = bound_ms(6 * rows * c + 4 * c * (c + 1), ops)
+                    rec = variant_case(
+                        torch, "gdn_train_fwd_bf16_f32pool",
+                        gk.gdn_train_fwd_bf16_f32pool_cuda,
+                        gk.gdn_train_fwd_plain, (xb, gc, bc),
+                        (2.0 ** -7, 0.0), bms, by)
+                    _, rb = gk.gdn_train_fwd_bf16_f32pool_cuda(xb, gc, bc)
+                    _, rb_p = gk.gdn_train_fwd_plain(xb, gc, bc)
+                    check(close(rb, rb_p, 2.0 ** -7, 0.0)[0],
+                          f"gdn_train_fwd_bf16_f32pool ({rows}, {c}): r")
+                    if rows == n // 4:
+                        out["gdn_train_fwd_bf16_f32pool"] = rec
+                del xb
+    torch.cuda.empty_cache()
+    return out
+
+
+def precision_round_trips(torch, model, core, imgs):
+    """(b) Phase 3's tiles through CAETurboCore and CAECodecCore under each
+    of PRECISION_RUNS: exact launches, lossless symbols, the plain versions
+    within phase 3's tolerances, decodes bit-equal, bpp and |delta PSNR|
+    against float32; returns the launches summed over the runs."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
+    totals = {}
+    rec32 = core.decode_tiles(core.encode_tiles(imgs))
+    mse = np.mean((rec32.astype(np.float64) - imgs) ** 2)
+    psnr32 = 10 * np.log10(255.0 ** 2 / mse)
+    for label, precision, env, expect in PRECISION_RUNS:
+        with switched(precision, env):
+            turbo = CAETurboCore(model, num_streams=1024, device="cuda")
+            launches, res = serving_round_trip(torch, model, turbo, imgs,
+                                               label, expect)
+            plus_into(totals, launches)
+            decodes_bit_equal(torch, turbo, res["frames"], label)
+            base = turbo.base
+            base.decode_tiles(base.encode_tiles(imgs))  # warm-up
+            reset_launch_counts()
+            frames = base.encode_tiles(imgs)
+            rec = base.decode_tiles(frames)
+            launches = {fn.kernel_name: fn.launches
+                        for fn in kernel_wrappers()}
+            check({k: n for k, n in launches.items() if n} == expect,
+                  f"cae ({label}): launches {launches}, expected {expect}")
+            plus_into(totals, launches)
+            sym = base.entropy_decode(frames)[0]
+            check(np.array_equal(sym, turbo.latent_symbols(imgs).cpu()
+                                 .numpy()), f"cae ({label}): symbols")
+            check(np.array_equal(base.decode_tiles(frames), rec),
+                  f"cae ({label}): two decodes differ")
+        d_psnr = res["psnr"] - psnr32
+        log(f"phase 15 ({label}): precision {turbo.base.precision}, "
+            f"activations {turbo.base.compute_dtype}; cae_tpu and cae "
+            f"launches {expect} each, symbols lossless; PSNR "
+            f"{res['psnr']:.3f} dB against float32's {psnr32:.3f} (delta "
+            f"{d_psnr:+.4f}, limit {BF16_PSNR_DB}); {res['bpp']:.4f} bpp; "
+            f"encode {res['encode_ms']:.1f} ms, decode "
+            f"{res['decode_ms']:.1f} ms")
+        check(abs(d_psnr) <= BF16_PSNR_DB, f"{label}: PSNR differs from "
+              f"float32's by {d_psnr:+.4f} dB")
+        del turbo, base
+    return totals
+
+
+def precision_training(torch):
+    """(c) Phase 5's bf16 step under CAE_TPU_GDN_FAST=0: exact launches,
+    step-1 gradients finite and non-zero, losses against the plain
+    versions'; (d) one float32 step under each CAE_TPU_ANALYTIC_ENT mode,
+    its gradients against mode 0's, and ms a step.  Returns the launches
+    of (c)."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    x = synthetic_batch(torch)
+    with switched("highest", {"CAE_TPU_GDN_FAST": "0"}):
+        _, _, step = train_setup(torch, torch.bfloat16, x)
+        reset_launch_counts()
+        losses = []
+        for i in range(1, TRAIN_STEPS + 1):
+            stats, grads = step(i)
+            losses.append(float(stats["loss"]))
+            if i == 1:
+                for module, gs in grads.items():
+                    for name, g in gs.items():
+                        check(bool(torch.isfinite(g).all())
+                              and float(g.abs().max()) > 0,
+                              f"GDN_FAST=0 step 1: {module}.{name}")
+        torch.cuda.synchronize()
+        launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+        want = {k: n * TRAIN_STEPS for k, n in GDN_FAST_OFF_STEP.items()}
+        check({k: n for k, n in launches.items() if n} == want,
+              f"bf16 GDN_FAST=0 steps: launches {launches}, expected {want}")
+        del step
+        with plain_versions():
+            _, _, plain_step = train_setup(torch, torch.bfloat16, x)
+            plain = [float(plain_step(i)[0]["loss"])
+                     for i in range(1, TRAIN_STEPS + 1)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+        log(f"phase 15 (c) bf16 GDN_FAST=0: launches over {TRAIN_STEPS} "
+            f"steps {want}; losses {losses} against the plain versions' "
+            f"{plain}, max relative difference {rel:.3e} (limit 2e-2); "
+            "step-1 gradients finite and non-zero")
+        check(rel <= 2e-2, f"bf16 GDN_FAST=0 losses differ by {rel:.3e}")
+        del plain_step
+    grads0 = None
+    for mode in ANALYTIC_MODES:
+        with switched("highest", {"CAE_TPU_ANALYTIC_ENT": mode}):
+            _, _, step = train_setup(torch, torch.float32, x)
+            stats, grads = step(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(2, ANALYTIC_TIMED + 2):
+                step(i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / ANALYTIC_TIMED * 1e3
+        flat = {f"{m}.{n}": g for m, gs in grads.items()
+                for n, g in gs.items()}
+        if grads0 is None:
+            grads0, worst = flat, (0.0, "")
+        else:
+            worst = max((float((g - grads0[k]).abs().max())
+                         / max(float(grads0[k].abs().max()), 1e-30), k)
+                        for k, g in flat.items())
+            check(worst[0] <= 3e-2, f"ANALYTIC_ENT={mode}: {worst[1]} "
+                  f"differs from autodiff's by {worst[0]:.3e} of its max")
+        log(f"phase 15 (d) ANALYTIC_ENT={mode}: loss "
+            f"{float(stats['loss']):.6f}, {ms:.3f} ms a float32 step (mean "
+            f"of {ANALYTIC_TIMED}); step-1 gradients against mode 0's: "
+            f"largest {worst[0]:.3e} of a tensor's max ({worst[1] or '-'})")
+        del step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_precisions(torch, model, core):
+    """Phase 15: the JAX package's precisions and precision switches on the
+    card; returns (records of the new kernel variants, the launches of
+    the main-path runs)."""
+    rng = np.random.RandomState(15)
+    t0 = time.perf_counter()
+    records = precision_kernels(torch, model, rng)
+    imgs = np.stack([image(512, 512, seed) for seed in range(TILES)])
+    totals = precision_round_trips(torch, model, core, imgs)
+    plus_into(totals, precision_training(torch))
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s; launches of its "
+        f"round trips and steps {totals}")
+    return records, totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6104,6 +6575,11 @@ def main():
     for name, n in phase_mesh(torch, model, core, core16).items():
         launches[name] += n
     for name, n in phase_tools(torch, model, core).items():
+        launches[name] += n
+    precision_records, precision_launches = phase_precisions(torch, model,
+                                                             core)
+    records.update(precision_records)
+    for name, n in precision_launches.items():
         launches[name] += n
     check(all(launches[name] > 0 for name in records),
           f"a kernel was not launched on the main paths: {launches}")

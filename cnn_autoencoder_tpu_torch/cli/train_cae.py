@@ -80,8 +80,10 @@ from ..utils.args import get_args, parse_typed_arguments
 from ..utils.device import resolve_device
 from ..utils.weights import state_to_jax
 
-# the compute type of each default precision the port runs
-COMPUTE_DTYPES = {"highest": torch.float32, "bf16": torch.bfloat16}
+# the compute type of each default precision (training runs "highest" and
+# "bf16"; the step raises at "default" and "high", ROADMAP.md item 14b)
+COMPUTE_DTYPES = {"highest": torch.float32, "default": torch.float32,
+                  "high": torch.float32, "bf16": torch.bfloat16}
 
 
 def setup_network(args, device=None) -> CAEModel:

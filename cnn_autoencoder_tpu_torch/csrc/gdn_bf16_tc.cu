@@ -8,8 +8,13 @@
 //   dnorm = (-0.5 g x) (r r r)   (IGDN: (0.5 g x) / r),  dnb = bf16(dnorm)
 //   back[n, i] = sum_o dnb[n, o] * bf16(gamma[o, i])   (float32 sums)
 //   dx = g r + 2 x back
-// writing dx in g's type (bf16 or float32) and dnb as bf16; dgamma and dbeta
-// are contractions over dnb outside the kernel (ops/gdn.py).
+// writing dx in g's type (bf16 or float32) and dnb as bf16; dgamma is a
+// contraction over dnb outside the kernel (ops/gdn.py).  Where the caller
+// asks for them, the kernel also writes the column sums of the float32
+// dnorm, one row of partial sums for each group of warps: their sum over
+// the rows is dbeta as the JAX package's default route takes it
+// (ops/gdn.py:_gdn_mixed_bwd, the sum before the bf16 rounding), without
+// another pass over the rows.
 //
 // What bounds it: at C = 128 the pool is 2 C = 256 operations per element
 // against 10 bytes (bf16 g) or 14 bytes (float32 g) read and written once.
@@ -42,6 +47,19 @@
 // to 8 elements past the tile keep ldmatrix and the float2 stores free of
 // bank conflicts; A's and gamma's channels past C are zero, so no product
 // is guarded.
+//
+// dbeta's partial sums.  Where C divides a group's stride of 8 x 256
+// elements (C = 8, 16, 32, 64, 128: the flagship's layers), each thread's
+// groups of 8 lie on the same 8 channels in every tile, so the dnb loop
+// adds its float32 dnorm into 8 registers; at the end the group's threads
+// put them in shared memory and the thread of each channel adds the
+// threads of its channel in a fixed order.  Any other C: the dnb loop
+// leaves the tile's dnorm in the sums' buffer too, and after a group
+// barrier the thread of each channel adds its column into a register (the
+// rows of a tile, the group's tiles in turn); a second barrier frees the
+// buffer for the product.  At the end each group stores its row of
+// partial sums.  (On an H100 at (262144, 128) summing every tile's column
+// behind a barrier cost K3 29 %; the registers' sums cost it 9 %.)
 //
 // C > 128 (gdn_bwd_tc_streamed, one group a block): a tile of 32 rows
 // writes its dnb to device memory, then for each chunk of 128 output
@@ -108,21 +126,21 @@ __device__ __forceinline__ float dnorm_of(float g, float x, float r,
   return inverse ? (0.5f * g * x) / r : (-0.5f * g * x) * (r * r * r);
 }
 
-// bf16(dnorm) of 8 elements, as floats; the branch outside the loop
+// dnorm (f) and bf16(dnorm) (d) of 8 elements, as floats; the branch
+// outside the loop
 __device__ __forceinline__ void dnb8(const float (&g)[8], const float (&x)[8],
                                     const float (&r)[8], bool inverse,
-                                    float (&d)[8]) {
+                                    float (&f)[8], float (&d)[8]) {
   if (inverse) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      d[i] = __bfloat162float(__float2bfloat16(dnorm_of(g[i], x[i], r[i],
-                                                        true)));
+    for (int i = 0; i < 8; ++i) f[i] = dnorm_of(g[i], x[i], r[i], true);
   } else {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      d[i] = __bfloat162float(__float2bfloat16(dnorm_of(g[i], x[i], r[i],
-                                                        false)));
+    for (int i = 0; i < 8; ++i) f[i] = dnorm_of(g[i], x[i], r[i], false);
   }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    d[i] = __bfloat162float(__float2bfloat16(f[i]));
 }
 
 __device__ __forceinline__ float dx_of(float g, float x, float r,
@@ -248,6 +266,27 @@ __device__ __forceinline__ void put_dnb(const float (&d)[8], int e, int elems,
   }
 }
 
+// the float32 dnorm of the group of 8 at element e of a tile into its rows
+// of s_back (where the sums go later)
+__device__ __forceinline__ void put_dnorm(const float (&f)[8], int e,
+                                          int elems, int c, bool vec_rows,
+                                          float* s_back) {
+  if (vec_rows) {
+    const int r = e / c;
+    float4* p = reinterpret_cast<float4*>(s_back + r * kBackPitch + e - r * c);
+    p[0] = make_float4(f[0], f[1], f[2], f[3]);
+    p[1] = make_float4(f[4], f[5], f[6], f[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (e + i < elems) {
+        const int r = (e + i) / c;
+        s_back[r * kBackPitch + e + i - r * c] = f[i];
+      }
+    }
+  }
+}
+
 // the sums of the group of 8 at element e of a tile, from its rows of s_back
 __device__ __forceinline__ void get_back(const float* s_back, int e,
                                          int elems, int c, bool vec_rows,
@@ -272,8 +311,9 @@ template <typename G>
 __global__ void __launch_bounds__(kResidentThreads, 1)
 gdn_bwd_tc_resident(const G* __restrict__ g, const bf16* __restrict__ xb,
                     const bf16* __restrict__ rb, const bf16* __restrict__ gt,
-                    G* __restrict__ dx, bf16* __restrict__ dnb, int64_t n,
-                    int c, int inverse, int aligned) {
+                    G* __restrict__ dx, bf16* __restrict__ dnb,
+                    float* __restrict__ dbeta_part, int64_t n, int c,
+                    int inverse, int aligned) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kp = kChunk, ld = kp + 8;
   const int tile_elems = kRows * c;
@@ -323,6 +363,11 @@ gdn_bwd_tc_resident(const G* __restrict__ g, const bf16* __restrict__ xb,
   issue(first + stride, 1);
 
   const bool vec_rows = c % 8 == 0;  // a group of 8 lies in one row
+  const bool sums = dbeta_part != nullptr;
+  // each thread's 8 channels are the same in every tile
+  const bool fixed = vec_rows && (8 * kGroupThreads) % c == 0;
+  float colsum = 0.f;  // dbeta's partial sum of channel gtid (gtid < c)
+  float acc8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   int buf = 0;
   long long last = GDN_BWD_LAPS ? clock64() : 0;
   for (int64_t t = first; t < ntiles; t += stride, buf ^= 1) {
@@ -339,14 +384,26 @@ gdn_bwd_tc_resident(const G* __restrict__ g, const bf16* __restrict__ xb,
 
     // dnb, once to device memory and once into A
     for (int e = 8 * gtid; e < elems; e += 8 * kGroupThreads) {
-      float gv[8], xv[8], rv[8], d[8];
+      float gv[8], xv[8], rv[8], f[8], d[8];
       load8(sg + e, gv);
       load8(sx + e, xv);
       load8(sr + e, rv);
-      dnb8(gv, xv, rv, inverse, d);
+      dnb8(gv, xv, rv, inverse, f, d);
       put_dnb(d, e, elems, dnb + base, s_a, ld, c, vec_rows);
+      if (sums && fixed) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc8[i] += f[i];
+      } else if (sums) {
+        put_dnorm(f, e, elems, c, vec_rows, s_back);
+      }
     }
     group_sync(group);
+    if (sums && !fixed) {
+      if (gtid < c)
+        for (int r = 0; r < elems / c; ++r)
+          colsum += s_back[r * kBackPitch + gtid];
+      group_sync(group);  // the product may overwrite s_back
+    }
     lap(last, 1);
 
     product_to_sums<kp / 16>(s_a, ld, s_gamma, ld, s_back, false);
@@ -375,6 +432,20 @@ gdn_bwd_tc_resident(const G* __restrict__ g, const bf16* __restrict__ xb,
     lap(last, 3);
   }
   cp_async_wait<0>();
+  if (sums && fixed) {
+    // the threads of channel ch: gtid = ch / 8 + j c / 8, register ch % 8
+    float* s_red = s_back;  // kGroupThreads x 8 floats
+    group_sync(group);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s_red[8 * gtid + i] = acc8[i];
+    group_sync(group);
+    if (gtid < c)
+      for (int j = 0; j < 8 * kGroupThreads / c; ++j)
+        colsum += s_red[8 * (gtid / 8 + j * (c / 8)) + gtid % 8];
+  }
+  if (sums && gtid < c)
+    dbeta_part[(2 * static_cast<int64_t>(blockIdx.x) + group) * c + gtid] =
+        colsum;
 }
 
 // C > 128, one group a block.  Shared memory: A [kRows][kSliceK + 8] bf16,
@@ -383,8 +454,8 @@ template <typename G>
 __global__ void __launch_bounds__(kGroupThreads)
 gdn_bwd_tc_streamed(const G* __restrict__ g, const bf16* __restrict__ xb,
                     const bf16* __restrict__ rb, const bf16* __restrict__ gt,
-                    G* __restrict__ dx, bf16* dnb, int64_t n, int c, int kp,
-                    int inverse) {
+                    G* __restrict__ dx, bf16* dnb, float* dbeta_part,
+                    int64_t n, int c, int kp, int inverse) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int ld = kSliceK + 8;
   bf16* s_a = reinterpret_cast<bf16*>(smem);
@@ -392,6 +463,13 @@ gdn_bwd_tc_streamed(const G* __restrict__ g, const bf16* __restrict__ xb,
   float* s_back = reinterpret_cast<float*>(s_gamma + kChunk * ld);
   const int64_t ntiles = (n + kRows - 1) / kRows;
   const int tid = threadIdx.x;
+  // dbeta's partial sums: this block's row, each channel's only by its
+  // thread, the tiles in turn
+  float* part = dbeta_part == nullptr
+                    ? nullptr
+                    : dbeta_part + static_cast<int64_t>(blockIdx.x) * c;
+  if (part != nullptr)
+    for (int ch = tid; ch < c; ch += kGroupThreads) part[ch] = 0.f;
 
   for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int rows = tile_rows(n, t);
@@ -400,6 +478,17 @@ gdn_bwd_tc_streamed(const G* __restrict__ g, const bf16* __restrict__ xb,
       const int64_t i = base + e;
       store1(dnb + i, dnorm_of(to_float(g[i]), __bfloat162float(xb[i]),
                                __bfloat162float(rb[i]), inverse));
+    }
+    if (part != nullptr) {
+      for (int ch = tid; ch < c; ch += kGroupThreads) {
+        float sum = 0.f;
+        for (int r = 0; r < rows; ++r) {
+          const int64_t i = base + static_cast<int64_t>(r) * c + ch;
+          sum += dnorm_of(to_float(g[i]), __bfloat162float(xb[i]),
+                          __bfloat162float(rb[i]), inverse);
+        }
+        part[ch] += sum;
+      }
     }
     __syncthreads();  // this block's dnb is visible to the block
     for (int n0 = 0; n0 < c; n0 += kChunk) {
@@ -444,36 +533,55 @@ int resident_smem(int c, int g_size) {
 constexpr int kStreamedSmem =
     2 * (kRows + kChunk) * (kSliceK + 8) + 4 * kRows * kBackPitch;
 
+// The grid of the kernel for (n, c) rows with g of type G, its shared
+// memory opted in.
 template <typename G>
-cudaError_t launch(const G* g, const bf16* xb, const bf16* rb,
-                   const float* gamma, G* dx, bf16* dnb, bf16* gt, int64_t n,
-                   int c, int inverse, cudaStream_t stream) {
+cudaError_t plan(int64_t n, int c, unsigned* grid) {
   const bool resident = c <= kChunk;
-  const int kp = gamma_bf16_kp(c);
-  cudaError_t err = launch_gamma_bf16_prep(gamma, gt, c, 1, stream);
-  if (err != cudaSuccess) return err;
-  const int64_t ntiles = (n + kRows - 1) / kRows;
   const void* kernel =
       resident ? reinterpret_cast<const void*>(gdn_bwd_tc_resident<G>)
                : reinterpret_cast<const void*>(gdn_bwd_tc_streamed<G>);
   const int threads = resident ? kResidentThreads : kGroupThreads;
   const int smem = resident ? resident_smem(c, sizeof(G)) : kStreamedSmem;
   int blocks = 0;
-  err = opt_in_smem(kernel, smem);
+  cudaError_t err = opt_in_smem(kernel, smem);
   if (err == cudaSuccess) err = resident_blocks(kernel, threads, smem, &blocks);
   if (err != cudaSuccess) return err;
   // a resident block's two groups take two tiles at a time
-  const unsigned grid = static_cast<unsigned>(
+  const int64_t ntiles = (n + kRows - 1) / kRows;
+  *grid = static_cast<unsigned>(
       std::min<int64_t>(resident ? (ntiles + 1) / 2 : ntiles, blocks));
+  return cudaSuccess;
+}
+
+// rows of dbeta's partial sums for a grid: one a group of warps
+int64_t partial_rows(int c, unsigned grid) {
+  return (c <= kChunk ? 2 : 1) * static_cast<int64_t>(grid);
+}
+
+template <typename G>
+cudaError_t launch(const G* g, const bf16* xb, const bf16* rb,
+                   const float* gamma, G* dx, bf16* dnb, float* dbeta_part,
+                   bf16* gt, int64_t n, int c, int inverse,
+                   cudaStream_t stream) {
+  const bool resident = c <= kChunk;
+  const int kp = gamma_bf16_kp(c);
+  cudaError_t err = launch_gamma_bf16_prep(gamma, gt, c, 1, stream);
+  if (err != cudaSuccess) return err;
+  unsigned grid = 0;
+  err = plan<G>(n, c, &grid);
+  if (err != cudaSuccess) return err;
+  const int threads = resident ? kResidentThreads : kGroupThreads;
+  const int smem = resident ? resident_smem(c, sizeof(G)) : kStreamedSmem;
   if (resident) {
     const int aligned = (reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(xb) |
                          reinterpret_cast<uintptr_t>(rb)) % 16 == 0;
     gdn_bwd_tc_resident<G><<<grid, threads, smem, stream>>>(
-        g, xb, rb, gt, dx, dnb, n, c, inverse, aligned);
+        g, xb, rb, gt, dx, dnb, dbeta_part, n, c, inverse, aligned);
   } else {
     gdn_bwd_tc_streamed<G><<<grid, threads, smem, stream>>>(
-        g, xb, rb, gt, dx, dnb, n, c, kp, inverse);
+        g, xb, rb, gt, dx, dnb, dbeta_part, n, c, kp, inverse);
   }
   return cudaGetLastError();
 }
@@ -486,13 +594,26 @@ extern "C" int64_t cae_gdn_train_bwd_workspace(int c) {
   return gamma_bf16_bytes(c);
 }
 
+// Rows of dbeta's partial sums that cae_gdn_train_bwd writes for (n, c)
+// rows (float32 g: is_bf16 = 0), each of c floats; -1 on a CUDA error.
+extern "C" int64_t cae_gdn_train_bwd_partials(int64_t n, int c,
+                                              int is_bf16) {
+  if (n == 0 || c == 0) return 0;
+  unsigned grid = 0;
+  const cudaError_t err =
+      is_bf16 ? plan<bf16>(n, c, &grid) : plan<float>(n, c, &grid);
+  return err == cudaSuccess ? partial_rows(c, grid) : -1;
+}
+
 // g and dx are float32 (is_bf16 = 0) or bf16 (is_bf16 = 1); xb, rb and dnb
 // are bf16; gamma is float32 (C, C); work holds
-// cae_gdn_train_bwd_workspace(c) bytes, 16-byte aligned.
+// cae_gdn_train_bwd_workspace(c) bytes, 16-byte aligned.  dbeta_part is
+// null, or float32 (cae_gdn_train_bwd_partials(n, c, is_bf16), c): the
+// column sums of the float32 dnorm, whose sum over the rows is dbeta.
 extern "C" int cae_gdn_train_bwd(const void* g, const void* xb,
                                  const void* rb, const float* gamma, void* dx,
-                                 void* dnb, void* work, int64_t n, int c,
-                                 int inverse, int is_bf16,
+                                 void* dnb, float* dbeta_part, void* work,
+                                 int64_t n, int c, int inverse, int is_bf16,
                                  cudaStream_t stream) {
   if (n == 0 || c == 0) return 0;
   const bf16* x = static_cast<const bf16*>(xb);
@@ -501,8 +622,10 @@ extern "C" int cae_gdn_train_bwd(const void* g, const void* xb,
   bf16* gt = static_cast<bf16*>(work);
   const cudaError_t err =
       is_bf16 ? launch(static_cast<const bf16*>(g), x, r, gamma,
-                       static_cast<bf16*>(dx), d, gt, n, c, inverse, stream)
+                       static_cast<bf16*>(dx), d, dbeta_part, gt, n, c,
+                       inverse, stream)
               : launch(static_cast<const float*>(g), x, r, gamma,
-                       static_cast<float*>(dx), d, gt, n, c, inverse, stream);
+                       static_cast<float*>(dx), d, dbeta_part, gt, n, c,
+                       inverse, stream);
   return static_cast<int>(err);
 }

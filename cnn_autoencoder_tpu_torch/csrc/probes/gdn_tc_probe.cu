@@ -42,8 +42,8 @@ extern "C" int cae_gdn_mma_probe(float* out, int blocks, int iters,
 // ring, dynamic shared memory bytes, most blocks in the grid, r tiles
 // (1/0)}.
 extern "C" int cae_gdn_fwd_layout(int c, int want_r, int* out) {
-  Launch l;
-  const cudaError_t err = launch_for(c, want_r != 0, &l);
+  Launch<float> l;
+  const cudaError_t err = launch_for<float>(c, want_r != 0, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int v[] = {l.plan.groups, 32 * l.plan.row_warps, l.plan.resident,
                    l.plan.xslice, l.plan.nbuf, l.plan.smem, l.cap,

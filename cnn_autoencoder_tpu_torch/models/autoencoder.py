@@ -18,10 +18,13 @@ the unit has input channels); and the Synthesizer's multiscale color layers
 
 A plain downsampling unit with GDN, no bias, no batch norm, no groups, k=3
 and at least 64 input channels runs the fused conv+GDN kernel when H and W
-are even (the JAX package's gate at ``models/autoencoder.py:73-77``); the
-other GDN stages, and every residual unit (the JAX package has no fused
-branch there), run the convolution and the GDN kernel.  The fused kernel
-takes any number of channels.
+are even (the JAX package's gate at ``models/autoencoder.py:73-77``), in
+the mode that computes the JAX package's function now
+(``conv_gdn_kernel.conv_gdn_mode``: its default route, which is unfused
+there, or under ``CAE_TPU_PALLAS=1`` its Pallas kernel's); the other GDN
+stages, every residual unit (the JAX package has no fused branch there),
+and the bf16 mode under ``CAE_TPU_GDN_FAST=0``, run the convolution and
+the GDN kernel.  The fused kernel takes any number of channels.
 
 Training and serving run the same modules.  Each ``forward`` takes, as the
 JAX package's ``__call__`` does, an explicit ``train`` (default False) that
@@ -46,7 +49,7 @@ from ..ops.batchnorm import BatchNorm
 from ..ops.convops import Conv2dReflect, ConvTranspose2dTorch
 from ..ops.dropout import Dropout
 from ..ops.gdn import GDN
-from ..ops.kernels.conv_gdn_kernel import fused_conv_gdn
+from ..ops.kernels.conv_gdn_kernel import conv_gdn_mode, fused_conv_gdn
 
 ACT_TYPES = (None, "Identity", "LeakyReLU", "ReLU", "GDN")
 
@@ -131,10 +134,12 @@ class DownsamplingUnit(_Unit):
             x = self._norm("norm_pre", self.conv_pre(x, compute_dtype),
                            train, batch_stats)
             x = _act_fn(self.act, x)
-        if self.fused and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
+        mode = (conv_gdn_mode(x.dtype, compute_dtype) if self.fused
+                and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0 else None)
+        if mode is not None:
             gamma, beta = self.gdn_down.effective_params()
             x = fused_conv_gdn(x.contiguous(), self.conv_down.kernel_hwio(),
-                               gamma, beta)
+                               gamma, beta, mode)
         else:
             x = self._norm("norm_down", self.conv_down(x, compute_dtype),
                            train, batch_stats)

@@ -9,6 +9,17 @@ filter axis; CDF baking, the auxiliary loss and the quantile fit) and
 ``logits_cumulative_unrolled`` (per-(out, in) multiply-adds; the
 likelihood), which round differently at about 1e-7.
 
+The likelihood's backward follows ``CAE_TPU_ANALYTIC_ENT`` (read at call
+time, as the JAX package reads it): "0" autodiff of the unrolled chain,
+any other value the JAX package's analytic backward
+(``_chain_analytic_bwd``, ``models/entropy.py:170-247`` there), which
+recomputes the chain and forms each parameter's gradient as one
+contraction over the stacked layer inputs and cotangents: "2" as a
+broadcast product summed over the rows in float32, "bf16" the same over
+stacks rounded to bf16, and "1" (any other value) as the einsum at the
+TPU's DEFAULT precision, bf16 multiplicands with float32 sums.  It is
+plain PyTorch, as there (the JAX package has no kernel for it).
+
 Training quantizes with additive uniform noise.  The JAX package draws it
 from ``jax.random``; the port draws it from an explicit ``torch.Generator``
 or takes it from the caller, so a test can give both packages the same
@@ -27,7 +38,9 @@ from torch import nn
 
 from ..coding import xla_f32
 from ..coding.cdf import pmf_to_quantized_cdf
+from ..ops import switches
 from ..ops.bounds import lower_bound
+from ..utils.device import full_f32
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -51,6 +64,41 @@ def logits_cumulative(params: Dict[str, torch.Tensor], v: torch.Tensor,
     return x[..., 0]
 
 
+def _chain_eval(num_filters, mats, biases, factors, v, keep=False):
+    """The unrolled chain on the raw parameters (JAX ``_chain_eval``):
+    ``(out, inputs, tanhs)``, each layer's input list and its tanh list
+    kept where ``keep``."""
+    xs, xs_list, th_list = [v], [], []
+    for i in range(num_filters + 1):
+        m = _softplus(mats[i])                  # (C, O, F)
+        b = biases[i][:, :, 0]                  # (C, O)
+        if keep:
+            xs_list.append(xs)
+        pres = []
+        for o in range(m.shape[1]):
+            acc = b[:, o]
+            for f, xf in enumerate(xs):
+                acc = acc + m[:, o, f] * xf
+            pres.append(acc)
+        if i < num_filters:
+            fac = torch.tanh(factors[i][:, :, 0])
+            th = [torch.tanh(p) for p in pres]
+            if keep:
+                th_list.append(th)
+            xs = [p + fac[:, o] * th[o] for o, p in enumerate(pres)]
+        else:
+            xs = pres
+    return xs[0], xs_list, th_list
+
+
+def _chain_params(params: Dict[str, torch.Tensor], num_filters: int):
+    """(matrices, biases, factors), each a list in layer order."""
+    k = num_filters + 1
+    return ([params[f"matrix_{i}"] for i in range(k)],
+            [params[f"bias_{i}"] for i in range(k)],
+            [params[f"factor_{i}"] for i in range(num_filters)])
+
+
 def logits_cumulative_unrolled(params: Dict[str, torch.Tensor],
                                v: torch.Tensor,
                                num_filters: int) -> torch.Tensor:
@@ -58,21 +106,74 @@ def logits_cumulative_unrolled(params: Dict[str, torch.Tensor],
     multiply-adds on (..., C) tensors (``_logits_cumulative_unrolled``
     there).  A bf16 ``v`` is promoted to float32 by the float32
     parameters."""
-    xs = [v]
-    for i in range(num_filters + 1):
-        m = _softplus(params[f"matrix_{i}"])   # (C, f_out, f_in)
-        b = params[f"bias_{i}"][:, :, 0]       # (C, f_out)
-        outs = []
-        for o in range(m.shape[1]):
-            acc = b[:, o]
-            for f, xf in enumerate(xs):
-                acc = acc + m[:, o, f] * xf
-            outs.append(acc)
-        if i < num_filters:
-            fac = torch.tanh(params[f"factor_{i}"][:, :, 0])
-            outs = [y + fac[:, o] * torch.tanh(y) for o, y in enumerate(outs)]
-        xs = outs
-    return xs[0]
+    return _chain_eval(num_filters, *_chain_params(params, num_filters),
+                       v)[0]
+
+
+class _ChainAnalytic(torch.autograd.Function):
+    """The chain with the JAX package's analytic backward in ``mode``
+    (module docstring); the forward saves its inputs alone and the
+    backward recomputes the chain, as there."""
+
+    @staticmethod
+    def forward(ctx, num_filters, mode, v, *params):
+        k = num_filters + 1
+        ctx.num_filters, ctx.mode = num_filters, mode
+        ctx.save_for_backward(v, *params)
+        with torch.no_grad():
+            return _chain_eval(num_filters, params[:k], params[k:2 * k],
+                               params[2 * k:], v)[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        nf, mode = ctx.num_filters, ctx.mode
+        v, *params = ctx.saved_tensors
+        k = nf + 1
+        mats, biases, factors = params[:k], params[k:2 * k], params[2 * k:]
+        _, xs_list, th_list = _chain_eval(nf, mats, biases, factors, v,
+                                          keep=True)
+        lowp = mode == "bf16"
+        bcast = mode in ("2", "bf16")
+
+        def mat(stack):  # the stacks crossing memory in bf16 in "bf16"
+            return stack.to(torch.bfloat16) if lowp else stack
+
+        def contract(a, b, spec):
+            a, b = a.float(), b.float()
+            if not bcast:  # DEFAULT: bf16 multiplicands, float32 sums
+                a = a.to(torch.bfloat16).float()
+                b = b.to(torch.bfloat16).float()
+                with full_f32():
+                    return torch.einsum(spec, a, b)
+            if spec == "nco,ncf->cof":
+                return (a[:, :, :, None] * b[:, :, None, :]).sum(0)
+            return (a * b).sum(0)
+
+        dmats, dbiases, dfacs = [None] * k, [None] * k, [None] * nf
+        dpres = [dy]
+        for i in range(nf, -1, -1):
+            m = _softplus(mats[i])
+            xs = xs_list[i]
+            c = m.shape[0]
+            dp2 = torch.stack(dpres, -1).reshape(-1, c, len(dpres)).float()
+            x2 = mat(torch.stack(xs, -1).reshape(-1, c, len(xs)))
+            dmats[i] = (contract(mat(dp2), x2, "nco,ncf->cof")
+                        * torch.sigmoid(mats[i].float()))
+            dbiases[i] = dp2.sum(0)[:, :, None]
+            dxs = [sum(m[:, o, f] * dpres[o] for o in range(m.shape[1]))
+                   for f in range(m.shape[2])]
+            if i > 0:
+                th = th_list[i - 1]
+                fac = torch.tanh(factors[i - 1][:, :, 0])
+                dx = mat(torch.stack(dxs, -1).reshape(-1, c, len(dxs)))
+                tt = mat(torch.stack(th, -1).reshape(-1, c, len(th)))
+                dfacs[i - 1] = (contract(dx, tt, "nco,nco->co")
+                                * (1.0 - fac.float() ** 2))[:, :, None]
+                dpres = [dxs[o] * (1.0 + fac[:, o] * (1.0 - th[o] * th[o]))
+                         for o in range(len(dxs))]
+            else:
+                dv = dxs[0].to(v.dtype)
+        return (None, None, dv) + tuple(dmats) + tuple(dbiases) + tuple(dfacs)
 
 
 def likelihood_fn(params: Dict[str, torch.Tensor], v: torch.Tensor,
@@ -80,10 +181,17 @@ def likelihood_fn(params: Dict[str, torch.Tensor], v: torch.Tensor,
                   likelihood_bound: float = 1e-9) -> torch.Tensor:
     """P(round(v)) under the factorized density; ``v`` channel-last.  The
     interval's sign is a constant of the gradient, and the likelihood is
-    held above ``likelihood_bound`` with the straight-through bound."""
+    held above ``likelihood_bound`` with the straight-through bound.  The
+    chain's backward follows ``CAE_TPU_ANALYTIC_ENT``."""
     # both interval edges in one chain evaluation, in v's dtype as there
-    both = logits_cumulative_unrolled(
-        params, torch.stack([v - 0.5, v + 0.5]), num_filters)
+    stack = torch.stack([v - 0.5, v + 0.5])
+    mode = switches.analytic_ent()
+    if mode != "0" and torch.is_grad_enabled():
+        mats, biases, factors = _chain_params(params, num_filters)
+        both = _ChainAnalytic.apply(num_filters, mode, stack, *mats,
+                                    *biases, *factors)
+    else:
+        both = logits_cumulative_unrolled(params, stack, num_filters)
     lower, upper = both[0], both[1]
     sign = -torch.sign(lower + upper).detach()
     likelihood = torch.abs(torch.sigmoid(sign * upper)

@@ -8,18 +8,31 @@ follows.  Weights use PyTorch's layouts: OIHW for ``Conv2dReflect`` and
 the JAX package's HWIO kernels once at load time.
 
 The compute type follows the input, which is how the port states the JAX
-package's compute mode: float32 inputs convolve in full float32 (TF32 off,
-the JAX package's HIGHEST); bf16 inputs convolve bf16 operands (the
-float32 weights rounded to bf16) with float32 accumulation and store the
-output as bf16, and autograd then carries bf16 cotangents and float32
-weight gradients, the rule of ``conv_mixed`` (``ops/convops.py:105-164``
-there).  Serving picks the activations' type with ``set_default_precision``
-(below); training passes its ``compute_dtype`` and ignores it.  A layer's
-``compute_dtype`` argument names the mode where it can differ from the
-input's type: float32 rows in the bf16 mode (after a batch norm, whose
-output is float32 as flax's) take ``conv_mixed``'s rule for float32 inputs
-(``_ConvMixed``): bf16-rounded operands, float32 sums and output, and a
-backward that rounds the cotangent to bf16 first.
+package's compute mode.  Float32 inputs convolve in full float32 (TF32
+off, the JAX package's HIGHEST), or, at the serving precisions "default"
+and "high" (``layer_precision``), on bf16-rounded operands in one pass or
+on their bf16 hi/lo parts in three (hi hi + hi lo + lo hi, the TPU's
+bf16_3x), with float32 sums and outputs.  bf16 inputs take the JAX
+package's default route in the bf16 mode: bf16 operands (the float32
+weights rounded to bf16) with float32 sums, the sums stored as bf16, then
+the bias added in bf16 with a second rounding (``_native_conv_out``,
+``ops/convops.py:175-186`` there); the 3x3 stride-2 convs take its border
+form's roundings (``conv_s2_reflect_border``, ``:302-342``).
+``CAE_TPU_NATIVE_CONV_OUT=0`` (and ``CAE_TPU_POLYPHASE_DECONV=1`` for the
+3x3 stride-2 deconvs) keeps the sums and the bias in float32 and rounds
+once; ``CAE_TPU_BORDER_CONV=0`` takes reflect + VALID; the switches are
+read at call time (``ops/switches.py``).  Autograd carries bf16 cotangents
+and float32 weight gradients, the rule of ``conv_mixed``
+(``ops/convops.py:105-164`` there).  Serving picks the activations' type
+with ``set_default_precision`` (below); training passes its
+``compute_dtype`` and ignores it.  A layer's ``compute_dtype`` argument
+names the mode where it can differ from the input's type
+(``layer_precision``): a dtype (training), or a precision's name (a codec
+core passes the one it was built at).  Float32 rows in the bf16 mode
+(after a batch norm, whose output is float32 as flax's, or serving with
+``CAE_TPU_BF16_ACTIVATIONS=0``) take ``conv_mixed``'s rule for float32
+inputs (``_ConvMixed``): bf16-rounded operands, float32 sums and output,
+and a backward that rounds the cotangent to bf16 first.
 
 Both layers take ``groups`` (the JAX package's ``feature_group_count``):
 ``Conv2dReflect`` as a grouped cuDNN forward convolution, and
@@ -38,10 +51,13 @@ record some twenty operations a layer, which the host-bound train step
 pays for).  Any other geometry takes the JAX package's own dilated form:
 zero-dilate, pad, and a forward convolution with the flipped weight (the
 ``lhs_dilation`` lowering, ``ops/convops.py:405-460`` there).  The JAX
-package's border-corrected strided convs (``ops/convops.py:262-342``
-there) are TPU lowering choices and are not ported.
+package's polyphase strided conv (``CAE_TPU_POLYPHASE_CONV=1``,
+``:262-299`` there) adds three bf16 roundings in the bf16 mode and raises
+there (ROADMAP.md item 14b); on float32 rows it changes only the order of
+float32 sums and is not read.
 """
 
+import functools
 import math
 import os
 
@@ -50,26 +66,25 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import full_f32
+from . import switches
 
 DEFAULT_GAIN = math.sqrt(2.0 / 1.01)
+BF16 = torch.bfloat16
 
 # The serving precision, by name, as the JAX package's
-# ``set_default_precision`` takes it; its start value comes from
-# CAE_TPU_PRECISION.  "highest" serves float32 activations, "bf16" bf16
-# activations end to end (bf16 operands, float32 sums).  The JAX package's
-# "default" and "high" (bf16 multiplies on float32 activations) and its
-# switches CAE_TPU_BF16_ACTIVATIONS and CAE_TPU_GDN_FAST are not ported
-# (ROADMAP.md §1 item 14): the precisions raise, and so does each switch
-# set to "0" where it would change the function (the bf16 mode).
-PRECISIONS = {"highest": torch.float32, "bf16": torch.bfloat16}
-_NOT_PORTED = ("default", "high")
+# ``set_default_precision`` takes it, with its activations' type; its start
+# value comes from CAE_TPU_PRECISION.  "highest" serves float32 activations
+# and convolutions; "default" and "high" float32 activations whose
+# convolutions multiply in one bf16 pass or in bf16_3x (the TPU's DEFAULT
+# and HIGH), the GDN pool staying float32; "bf16" bf16 activations end to
+# end (bf16 operands, float32 sums).  Training at "default" or "high"
+# raises (ROADMAP.md §1 item 14b).
+PRECISIONS = {"highest": torch.float32, "high": torch.float32,
+              "default": torch.float32, "bf16": BF16}
 
 
 def _precision_name(name: str) -> str:
     key = name.lower()
-    if key in _NOT_PORTED:
-        raise ValueError(f"precision {name!r} is not ported; the port serves "
-                         f"{sorted(PRECISIONS)}")
     if key not in PRECISIONS:
         raise ValueError(f"unknown precision {name!r}; the port serves "
                          f"{sorted(PRECISIONS)}")
@@ -95,15 +110,67 @@ def get_activations_dtype() -> torch.dtype:
     """The type serving casts normalized pixels and latents to at the
     model's boundary: bf16 in the bf16 mode, else float32.  In the bf16
     mode ``CAE_TPU_BF16_ACTIVATIONS=0`` (read now, as the JAX package reads
-    it) asks for float32 activations between bf16 layers, which the port
-    does not serve: it raises."""
-    if _DEFAULT_PRECISION == "bf16" and os.environ.get(
-            "CAE_TPU_BF16_ACTIVATIONS", "1") == "0":
-        raise ValueError(
-            "CAE_TPU_BF16_ACTIVATIONS=0 (float32 activations between the "
-            "bf16 mode's layers) is not ported (ROADMAP.md §1 item 14); "
-            "unset it or set it to 1")
+    it) asks for float32 activations between the bf16 layers: the layers
+    then take float32 rows in the bf16 mode (``_ConvMixed``)."""
+    if _DEFAULT_PRECISION == "bf16" and not switches.bf16_activations():
+        return torch.float32
     return PRECISIONS[_DEFAULT_PRECISION]
+
+
+def core_precision(compute_dtype=None) -> str:
+    """The precision a codec core built now serves at: the serving
+    precision, or, where the core is given its activations' type, "bf16"
+    for bf16 and the serving precision's float32 form for float32
+    ("highest" in the bf16 mode)."""
+    if compute_dtype is None:
+        return _DEFAULT_PRECISION
+    return layer_precision(compute_dtype)
+
+
+def layer_precision(compute_dtype=None) -> str:
+    """The precision a layer computes at, from its ``compute_dtype``
+    argument: a precision's name as it is; bf16 the bf16 mode; float32 or
+    None the serving precision's float32 form ("highest" in the bf16
+    mode, where float32 rows come from a layer that asked for them)."""
+    if isinstance(compute_dtype, str):
+        return _precision_name(compute_dtype)
+    if compute_dtype == BF16:
+        return "bf16"
+    return "highest" if _DEFAULT_PRECISION == "bf16" else _DEFAULT_PRECISION
+
+
+def _float32_product(precision: str) -> str:
+    """How float32 rows' convolutions multiply at ``precision``: "bf16x1"
+    in the bf16 mode (``conv_mixed``'s rule) and at "default", "bf16x3" at
+    "high", else "float32"."""
+    return {"bf16": "bf16x1", "default": "bf16x1",
+            "high": "bf16x3"}.get(precision, "float32")
+
+
+def _bf16_parts(t: torch.Tensor):
+    """t as hi + lo, both bf16 values held in float32."""
+    hi = t.to(BF16).float()
+    return hi, (t - hi).to(BF16).float()
+
+
+def _low_precision(conv, x: torch.Tensor, weight: torch.Tensor,
+                   precision: str) -> torch.Tensor:
+    """A float32 convolution ``conv(x, w)`` (float32 sums) at the default
+    or high precision: bf16-rounded operands, or the bf16_3x products
+    lo hi + hi lo + hi hi, small terms first (the caller adds the bias in
+    float32).  bf16 values are exact in TF32, so cuDNN and cuBLAS may take their
+    tensor cores.  Serving only: the backward of these precisions is not
+    ported."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        raise switches.not_ported(f"training at the {precision!r} "
+                                  "precision")
+    weight = weight.float()
+    if _float32_product(precision) == "bf16x1":
+        y = conv(x.to(BF16).float(), weight.to(BF16).float())
+    else:
+        (xh, xl), (wh, wl) = _bf16_parts(x), _bf16_parts(weight)
+        y = conv(xl, wh) + conv(xh, wl) + conv(xh, wh)
+    return y
 
 
 def xavier_uniform_torchlike_(weight: torch.Tensor, fan_in: int,
@@ -144,9 +211,10 @@ def _conv_operands(x: torch.Tensor, weight: torch.Tensor, bias):
             None if bias is None else bias.to(x.dtype))
 
 
-def _mixed(x: torch.Tensor, compute_dtype) -> bool:
-    """Float32 rows in the bf16 mode (a batch norm's output)."""
-    return compute_dtype is not None and compute_dtype != x.dtype
+def _mixed(x: torch.Tensor, precision: str) -> bool:
+    """Float32 rows in the bf16 mode (a batch norm's output, or float32
+    activations in serving)."""
+    return precision == "bf16" and x.dtype == torch.float32
 
 
 class _ConvMixed(torch.autograd.Function):
@@ -248,19 +316,70 @@ class Conv2dReflect(nn.Module):
         """The weight in the JAX package's HWIO layout (contiguous)."""
         return self.weight.permute(2, 3, 1, 0).contiguous()
 
+    def _padded(self, x: torch.Tensor) -> torch.Tensor:
+        return reflect_pad(x, self.pad) if self.pad else x
+
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
-        if self.pad:
-            x = reflect_pad(x, self.pad)
-        if _mixed(x, compute_dtype):
-            y = _ConvMixed.apply(x, self.weight, self.bias, self.stride,
-                                 self.groups, False)
-            return y.permute(0, 2, 3, 1)
-        weight, bias = _conv_operands(x, self.weight, self.bias)
-        with full_f32():
-            y = F.conv2d(x, weight, bias, stride=self.stride,
-                         groups=self.groups)
+        if x.dtype == BF16:
+            return self._bf16(x).permute(0, 2, 3, 1)
+        precision = layer_precision(compute_dtype)
+        if _mixed(x, precision):
+            y = _ConvMixed.apply(self._padded(x), self.weight, self.bias,
+                                 self.stride, self.groups, False)
+        elif _float32_product(precision) != "float32":
+            y = _low_precision(
+                lambda a, w: F.conv2d(self._padded(a), w, stride=self.stride,
+                                      groups=self.groups),
+                x, self.weight, precision)
+            if self.bias is not None:
+                y = y + self.bias.float()[:, None, None]
+        else:
+            weight, bias = _conv_operands(x, self.weight, self.bias)
+            with full_f32():
+                y = F.conv2d(self._padded(x), weight, bias,
+                             stride=self.stride, groups=self.groups)
         return y.permute(0, 2, 3, 1)
+
+    def _bf16(self, x: torch.Tensor) -> torch.Tensor:
+        """bf16 NCHW rows, the JAX default route (module docstring)."""
+        k, (h, w) = self.weight.shape[-1], x.shape[2:]
+        s2 = (k == 3 and self.stride == 2 and h % 2 == 0 and w % 2 == 0
+              and min(h, w) >= 2)
+        if s2:
+            switches.check_polyphase_conv()
+        if not switches.native_conv_out():
+            # float32 sums with the bias, one rounding
+            return _ConvMixed.apply(self._padded(x).float(), self.weight,
+                                    self.bias, self.stride, self.groups,
+                                    False).to(BF16)
+        weight = self.weight.to(BF16)
+        with full_f32():
+            if s2 and switches.border_conv():
+                y = border_form(x, weight, functools.partial(
+                    F.conv2d, groups=self.groups))
+            else:
+                y = F.conv2d(self._padded(x), weight, stride=self.stride,
+                             groups=self.groups)
+        return y if self.bias is None else y + self.bias.to(BF16)[:, None,
+                                                                   None]
+
+
+def border_form(x: torch.Tensor, weight: torch.Tensor, conv) -> torch.Tensor:
+    """The JAX package's ``conv_s2_reflect_border`` on NCHW x (even H and
+    W): a 3x3 stride-2 reflect conv as the zero-padded conv, then output
+    row 0's correction (the taps of kernel row 0 over input row 1, its
+    column -1 reflected) added, then output column 0's (the taps of kernel
+    column 0 over input column 1, row -1 zero).  ``conv(inp, w, stride=,
+    padding=)`` returns a conv's output as it is stored (bf16: its float32
+    sums rounded once); each add rounds in that type too."""
+    y = conv(x, weight, stride=2, padding=1)
+    row = torch.cat([x[:, :, 1:2, 1:2], x[:, :, 1:2]], 3)
+    col = F.pad(x[:, :, :, 1:2], (0, 0, 1, 0))
+    y[:, :, :1] += conv(row, weight[:, :, :1], stride=(1, 2), padding=0)
+    y[:, :, :, :1] += conv(col, weight[:, :, :, :1], stride=(2, 1),
+                           padding=0)
+    return y
 
 
 def _deconv2x_polyphase(x: torch.Tensor, weight: torch.Tensor,
@@ -430,10 +549,32 @@ class ConvTranspose2dTorch(nn.Module):
                    cout_g * self.groups, generator)
 
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-        mixed = _mixed(x, compute_dtype)
+        polyphase = (self.weight.shape[-1], self.stride, self.padding,
+                     self.output_padding, self.groups) == (3, 2, 1, 1, 1)
+        if x.dtype == BF16:
+            if switches.native_conv_out() and not (
+                    polyphase and switches.polyphase_deconv()):
+                # the sums stored as bf16, then the bias added in bf16
+                y = self._transposed(x, self.weight.to(BF16), None,
+                                     polyphase, False)
+                return y if self.bias is None else y + self.bias.to(BF16)
+            # float32 sums with the float32 bias, one rounding
+            return self._transposed(x.float(), self.weight, self.bias,
+                                    polyphase, True).to(BF16)
+        precision = layer_precision(compute_dtype)
+        mixed = _mixed(x, precision)
+        if not mixed and _float32_product(precision) != "float32":
+            y = _low_precision(
+                lambda a, w: self._transposed(a, w, None, polyphase, False),
+                x, self.weight, precision)
+            return y if self.bias is None else y + self.bias.float()
         weight, bias = _conv_operands(x, self.weight, self.bias)
-        if (weight.shape[-1], self.stride, self.padding, self.output_padding,
-                self.groups) == (3, 2, 1, 1, 1):
+        return self._transposed(x, weight, bias, polyphase, mixed)
+
+    def _transposed(self, x, weight, bias, polyphase, mixed):
+        """NHWC in and out; the polyphase form or the dilated one, through
+        ``_ConvMixed`` where ``mixed``."""
+        if polyphase:
             if mixed:
                 return _ConvMixed.apply(x.permute(0, 3, 1, 2), weight, bias,
                                         2, 1, True).permute(0, 2, 3, 1)

@@ -16,7 +16,10 @@ whether a gradient is wanted:
 * bf16 with a gradient (bf16 training): ``gdn_mixed`` (K2 forward, K3
   backward), the JAX package's ``ops/gdn.py:gdn_mixed`` with the training
   kernels on: bf16 residuals, the pool at ``norm_pool_precision``,
-  ``dgamma`` and ``dbeta`` as contractions over the kernel's bf16 ``dnb``.
+  ``dgamma`` as a contraction over the kernel's bf16 ``dnb`` and ``dbeta``
+  over the float32 ``dnorm`` (the default route's; ``gdn_mixed_bwd``);
+  under ``CAE_TPU_PALLAS=1`` ``fused_gdn``, as the JAX layer takes its
+  Pallas entry before its compute mode (``ops/gdn.py:171-187`` there).
 
 The JAX package chooses ``gdn_mixed`` by its compute mode, not by the rows'
 type, so in the bf16 mode a GDN after a batch norm (float32 rows) takes it
@@ -28,9 +31,10 @@ float32 rows with its full-float32 pool, K3 with a float32 cotangent).
 import torch
 from torch import nn
 
-from ..utils.device import full_f32
+from . import switches
+from .convops import layer_precision
 from .bounds import nonneg_init, nonneg_param
-from .kernels.gdn_kernel import (fused_gdn, gdn_train_bwd, gdn_train_fwd,
+from .kernels.gdn_kernel import (fused_gdn, gdn_mixed_bwd, gdn_train_fwd,
                                  norm_pool_precision)
 
 __all__ = ["GDN", "gdn_mixed", "norm_pool_precision"]
@@ -49,13 +53,9 @@ class _GDNMixed(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xb, gamma, rb = ctx.saved_tensors
-        dx, dnb = gdn_train_bwd(g.contiguous(), xb, rb, gamma, ctx.inverse)
-        dnb32 = dnb.float()
-        # dbeta from the kernel's dnb (the JAX kernel path, ops/gdn.py:103
-        # there); dgamma over dnb and bf16(xb * xb), float32 sums
-        dbeta = dnb32.sum(0)
-        with full_f32():
-            dgamma = torch.matmul(dnb32.t(), (xb * xb).float())
+        dx, dgamma, dbeta = gdn_mixed_bwd(
+            g.contiguous(), xb, rb, gamma, ctx.inverse,
+            ctx.needs_input_grad[1], ctx.needs_input_grad[2])
         return dx, dgamma, dbeta, None
 
 
@@ -89,7 +89,9 @@ class GDN(nn.Module):
         rows = x.reshape(-1, c).contiguous()
         wants_grad = torch.is_grad_enabled() and (
             rows.requires_grad or gamma.requires_grad or beta.requires_grad)
-        if torch.bfloat16 in (x.dtype, compute_dtype) and wants_grad:
+        if ((x.dtype == torch.bfloat16
+             or layer_precision(compute_dtype) == "bf16")
+                and wants_grad and not switches.pallas()):
             out = gdn_mixed(rows, gamma, beta, self.inverse)
         else:
             out = fused_gdn(rows, gamma, beta, self.inverse)

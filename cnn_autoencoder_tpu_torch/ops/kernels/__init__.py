@@ -10,16 +10,18 @@ does not take raises.
 
 def kernel_wrappers():
     """The CUDA wrappers of every kernel, each with ``launches`` and
-    ``kernel_name``."""
-    from .conv_gdn_kernel import conv_gdn_cuda, conv_gdn_train_cuda
-    from .gdn_kernel import (gdn_bf16_cuda, gdn_cuda, gdn_train_bwd_cuda,
+    ``kernel_name`` (K4's variants: one counter a kernel name)."""
+    from .conv_gdn_kernel import SERVING, TRAIN
+    from .gdn_kernel import (gdn_bf16_cuda, gdn_bf16_f32pool_cuda, gdn_cuda,
+                             gdn_train_bwd_cuda, gdn_train_fwd_bf16_f32pool_cuda,
                              gdn_train_fwd_cuda, gdn_train_fwd_f32_cuda)
     from .rans_kernel import (compact_cuda, decode_interleaved_cuda,
                               encode_states_cuda)
-    return (gdn_cuda, gdn_bf16_cuda, gdn_train_fwd_cuda,
-            gdn_train_fwd_f32_cuda, gdn_train_bwd_cuda, conv_gdn_cuda,
-            conv_gdn_train_cuda, encode_states_cuda, compact_cuda,
-            decode_interleaved_cuda)
+    return (gdn_cuda, gdn_bf16_cuda, gdn_bf16_f32pool_cuda,
+            gdn_train_fwd_cuda, gdn_train_fwd_f32_cuda,
+            gdn_train_fwd_bf16_f32pool_cuda, gdn_train_bwd_cuda,
+            *SERVING.values(), *TRAIN.values(), encode_states_cuda,
+            compact_cuda, decode_interleaved_cuda)
 
 
 def reset_launch_counts() -> None:

@@ -37,11 +37,15 @@ SIGNATURES = {
     "cae_gdn_train_fwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     "cae_gdn_train_fwd_workspace": [_I],
     "cae_gdn_train_fwd_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
-    "cae_gdn_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "cae_gdn_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                          _P],
     "cae_gdn_train_bwd_workspace": [_I],
-    "cae_conv_gdn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _P],
-    "cae_conv_gdn_workspace": [_L, _I, _I, _I, _I],
+    "cae_gdn_train_bwd_partials": [_L, _I, _I],
+    "cae_gdn_fwd_bf16_f32pool": [_P, _P, _P, _P, _L, _I, _I, _P],
+    "cae_gdn_train_fwd_bf16_f32pool": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "cae_conv_gdn_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _P],
+    "cae_conv_gdn_workspace": [_I, _I, _I, _I, _I, _I, _I],
     "cae_rans_encode_chunks": [_I, _I],
     "cae_rans_encode_states": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                _P, _P, _P, _P],
@@ -53,6 +57,7 @@ RESTYPES = {"cae_conv_gdn_workspace": ctypes.c_int64,
             "cae_gdn_fwd_bf16_workspace": ctypes.c_int64,
             "cae_gdn_train_fwd_workspace": ctypes.c_int64,
             "cae_gdn_train_bwd_workspace": ctypes.c_int64,
+            "cae_gdn_train_bwd_partials": ctypes.c_int64,
             "cae_rans_encode_chunks": ctypes.c_int64}
 
 _lib = None

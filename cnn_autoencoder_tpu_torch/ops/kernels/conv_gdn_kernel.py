@@ -2,73 +2,177 @@
 ``csrc/conv_gdn.cu`` (K4) and its plain PyTorch versions.
 
 Replaces ``cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:_kernel`` in
-both variants: serving (``conv_gdn_cuda``, the output only) and training
-(``conv_gdn_train_cuda``, the TPU kernel's ``want_y``: the output and the
-float32 pre-GDN conv output ``y``, the backward's residual).  Layouts are
-the JAX package's: NHWC input, HWIO kernel (3, 3, Cin, Cout),
-``gamma``/``beta`` already reparameterized.  The compute type follows x:
-float32 x multiplies in float32, bf16 x multiplies bf16 values (the
-kernel's weights rounded to bf16); the sums, ``y`` and the GDN epilogue are
-float32 either way, and the output is stored in x's type.  The kernel
-computes on the tensor cores (three TF32 passes for a float32 product, one
-for a bf16 one) and takes any Cin and Cout; it takes even H and W and
-raises otherwise.  Each launch gets a scratch buffer of the size the
-kernel asks for (the weights split in TF32 parts, and where Cout > 128
-and ``y`` is not wanted, a row store for ``y`` between the conv and the
-pool).
+both variants: serving (the output only) and training (the TPU kernel's
+``want_y``: the output and the pre-GDN conv output ``y``, the backward's
+residual).  Layouts are the JAX package's: NHWC input, HWIO kernel (3, 3,
+Cin, Cout), ``gamma``/``beta`` already reparameterized.  The kernel takes
+any Cin and Cout and even H and W (it raises otherwise), and computes on
+the tensor cores in one of six modes, each a function of the JAX package
+(``csrc/conv_gdn.cu`` sets out their arithmetic):
+
+* 0 (``F32``): float32 x, float32-accurate conv and pool: the highest
+  precision on either JAX route;
+* 1 (``PALLAS_BF16``): bf16 x, bf16 multiplicands with float32 sums, the
+  float32 y and pool: the JAX Pallas kernel in the bf16 mode
+  (``CAE_TPU_PALLAS=1``);
+* 2 and 3 (``ROUND_BF16``, ``BORDER_BF16``): bf16 x, the JAX default
+  route in the bf16 mode (``Conv2dReflect`` then ``GDN``, its Pallas
+  kernels being opt-in): the conv's sums stored as bf16 (3: with the border
+  form's roundings, ``ops/convops.py:border_form``), the pool over
+  bf16(y^2) and bf16(gamma) with float32 sums, out = bf16(y r); training
+  saves y and r as bf16, as K2 does;
+* 4 (``F32_BF16X1``): float32 x and w rounded to bf16, float32 sums, the
+  float32 y and pool: the default precision, and the bf16 mode's float32
+  rows (``CAE_TPU_BF16_ACTIVATIONS=0``); the JAX XLA route
+  ``_conv_gdn_xla``;
+* 5 (``F32_BF16X3``): the high precision's bf16_3x conv, the float32 y and
+  pool.
+
+``conv_gdn_mode`` picks the mode from the rows' type, the compute mode and
+the switches, read at call time as the JAX package reads them.  Under
+``CAE_TPU_GDN_FAST=0`` the bf16 mode's default route has a float32 pool on
+bf16 y, which no mode computes: ``conv_gdn_mode`` returns None and the
+stage runs unfused (``Conv2dReflect``, then K1 or K2 on bf16 rows with the
+float32 pool).  ``conv_gdn_cuda`` serves in every mode and counts its
+launches under the mode's kernel name (``SERVING_NAMES``: modes 2 and 3
+share ``conv_gdn_fwd_bf16``); ``conv_gdn_train_cuda``, the training
+variant, takes modes 0, 2 and 3 and counts them likewise
+(``TRAIN_NAMES``).
 
 ``fused_conv_gdn`` is the differentiable entry (the JAX ``fused_conv_gdn``
-custom VJP): when a gradient is wanted it runs the training variant and
-its backward is ``_fused_bwd`` there: the norm recomputed from ``y`` in
-full float32, ``dnorm``, ``dy``, ``dgamma`` and ``dbeta`` as torch ops, and
-``dx``/``dkernel`` from the reflect-pad conv's own gradients (outside any
-kernel in the JAX package too).
+custom VJP).  In mode 0 its backward is JAX's ``_fused_bwd``: the norm
+recomputed from y in full float32, ``dnorm``, ``dy``, ``dgamma`` and
+``dbeta`` as torch ops, then the reflect-pad conv's own gradients.  In
+modes 2 and 3 it is the default route's: ``gdn_mixed``'s
+(``gdn_mixed_bwd``: K3, ``dgamma`` over its bf16 ``dnb`` and ``dbeta``
+over the float32 ``dnorm``), then ``conv_mixed``'s.
+bf16 training under ``CAE_TPU_PALLAS=1`` raises, as the JAX package's
+``jax.grad`` of its Pallas stage does (ROADMAP.md §3).
 """
 
-from typing import Tuple
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ...utils.device import full_f32
-from ..convops import reflect_pad
+from .. import switches
+from ..convops import border_form, layer_precision, reflect_pad
 from .build import check_launch, load_library, stream_handle
-from .gdn_kernel import gdn_plain
+from .gdn_kernel import _norm, gdn_mixed_bwd, gdn_plain
+
+F32, PALLAS_BF16, ROUND_BF16, BORDER_BF16, F32_BF16X1, F32_BF16X3 = range(6)
+BF16_X = (PALLAS_BF16, ROUND_BF16, BORDER_BF16)
+ROUNDED = (ROUND_BF16, BORDER_BF16)
+BF16 = torch.bfloat16
 
 
-def _reflect_conv_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Reflect pad 1, 3x3/s2 VALID conv in x's compute type with float32
-    sums; returns float32 NHWC.  bf16 operands are widened exactly, so the
-    float32 conv with TF32 off multiplies the bf16 values."""
-    xp = F.pad(x.permute(0, 3, 1, 2).float(), (1, 1, 1, 1), mode="reflect")
-    w = kernel.permute(3, 2, 0, 1).float().to(x.dtype).float()
-    with full_f32():
-        y = F.conv2d(xp, w, stride=2)
-    return y.permute(0, 2, 3, 1)
+def conv_gdn_mode(dtype: torch.dtype, compute_dtype=None) -> Optional[int]:
+    """The mode the down stage takes now for rows of ``dtype`` in the
+    compute mode ``compute_dtype`` (``convops.layer_precision``), or None
+    where it runs unfused (the bf16 mode's default route under
+    ``CAE_TPU_GDN_FAST=0``)."""
+    pallas = switches.pallas_fused_conv()
+    precision = layer_precision(compute_dtype)
+    if dtype == BF16:
+        if pallas:
+            return PALLAS_BF16
+        switches.check_polyphase_conv()
+        if not switches.gdn_fast():
+            return None
+        if switches.border_conv() and switches.native_conv_out():
+            return BORDER_BF16
+        return ROUND_BF16
+    if precision == "bf16":
+        return F32_BF16X1
+    if pallas:
+        return F32
+    return {"default": F32_BF16X1, "high": F32_BF16X3}.get(precision, F32)
+
+
+def _conv_sums(x: torch.Tensor, kernel: torch.Tensor, mode: int
+               ) -> torch.Tensor:
+    """The conv at the mode's arithmetic with float32 sums, NCHW float32
+    (bf16 values are exact in float32, so float32 convs with TF32 off
+    multiply them exactly)."""
+    w = kernel.permute(3, 2, 0, 1).float()
+    xp = reflect_pad(x.permute(0, 3, 1, 2).float(), 1)
+
+    def conv(a, b):
+        with full_f32():
+            return F.conv2d(a, b, stride=2)
+
+    if mode == F32:
+        return conv(xp, w)
+    if mode == F32_BF16X3:
+        parts = []
+        for t in (xp, w):
+            hi = t.to(BF16).float()
+            parts.append((hi, (t - hi).to(BF16).float()))
+        (xh, xl), (wh, wl) = parts
+        return conv(xl, wh) + conv(xh, wl) + conv(xh, wh)
+    return conv(xp.to(BF16).float(), w.to(BF16).float())
+
+
+def _rounded_y(x: torch.Tensor, kernel: torch.Tensor, mode: int
+               ) -> torch.Tensor:
+    """Modes 2 and 3's y, NHWC bf16: the conv's float32 sums rounded once,
+    or the border form's roundings."""
+    if mode == ROUND_BF16:
+        return _conv_sums(x, kernel, mode).to(BF16).permute(0, 2, 3, 1)
+
+    def conv(inp, w, stride, padding):
+        with full_f32():
+            return F.conv2d(inp.float(), w.float(), stride=stride,
+                            padding=padding).to(BF16)
+
+    w = kernel.permute(3, 2, 0, 1).float().to(BF16)
+    return border_form(x.permute(0, 3, 1, 2), w, conv).permute(0, 2, 3, 1)
+
+
+def rounded_gdn_plain(yb: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor):
+    """Modes 2 and 3's GDN of their bf16 y (..., C): (out, r), both bf16,
+    the pool over bf16(y^2) and bf16(gamma) with float32 sums, out =
+    bf16(y r) from the float32 r."""
+    y32 = yb.float().reshape(-1, yb.shape[-1])
+    r = torch.rsqrt(_norm(y32, gamma, beta, BF16))
+    return ((y32 * r).to(BF16).reshape(yb.shape),
+            r.to(BF16).reshape(yb.shape))
 
 
 def conv_gdn_train_plain(x: torch.Tensor, kernel: torch.Tensor,
-                         gamma: torch.Tensor, beta: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out in x's dtype, float32 pre-GDN y): the training variant's
-    function."""
-    y = _reflect_conv_plain(x, kernel)
-    cout = y.shape[-1]
+                         gamma: torch.Tensor, beta: torch.Tensor,
+                         mode: Optional[int] = None):
+    """The training variant's function: (out in x's dtype, y, r).  y is
+    the float32 pre-GDN conv output and r None, but in modes 2 and 3 y and
+    r = norm^(-1/2) are bf16.  ``mode`` None: ``conv_gdn_mode(x.dtype)``."""
+    mode = conv_gdn_mode(x.dtype) if mode is None else mode
+    cout = kernel.shape[3]
+    if mode in ROUNDED:
+        yb = _rounded_y(x, kernel, mode).contiguous()
+        out, r = rounded_gdn_plain(yb, gamma, beta)
+        return out, yb, r
+    y = _conv_sums(x, kernel, mode).permute(0, 2, 3, 1).contiguous()
     out = gdn_plain(y.reshape(-1, cout), gamma, beta).reshape(y.shape)
-    return out.to(x.dtype), y
+    return out.to(x.dtype), y, None
 
 
 def conv_gdn_plain(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
-                   beta: torch.Tensor) -> torch.Tensor:
+                   beta: torch.Tensor, mode: Optional[int] = None
+                   ) -> torch.Tensor:
     """The serving variant's function: the output alone."""
-    return conv_gdn_train_plain(x, kernel, gamma, beta)[0]
+    return conv_gdn_train_plain(x, kernel, gamma, beta, mode)[0]
 
 
-def _launch(x, kernel, gamma, beta, want_y):
-    if (x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4
+def _launch(x, kernel, gamma, beta, mode, want_y):
+    if (x.dtype not in (torch.float32, BF16) or x.dim() != 4
             or not x.is_contiguous()):
         raise ValueError("conv_gdn kernel takes a contiguous float32 or bf16 "
                          f"NHWC tensor, got {tuple(x.shape)} {x.dtype}")
+    if (x.dtype == BF16) != (mode in BF16_X):
+        raise ValueError(f"conv_gdn kernel: mode {mode} does not take "
+                         f"{x.dtype} x")
     b, h, w, cin = x.shape
     if h % 2 or w % 2 or h < 2 or w < 2:
         raise ValueError(f"conv_gdn kernel takes even H, W >= 2, got {h}x{w}")
@@ -88,67 +192,111 @@ def _launch(x, kernel, gamma, beta, want_y):
     kernel = kernel.detach().float().contiguous()
     gamma = gamma.detach().float().contiguous()
     beta = beta.detach().float().contiguous()
-    bf16 = int(x.dtype == torch.bfloat16)
     shape = (b, h // 2, w // 2, cout)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    y = (torch.empty(shape, dtype=torch.float32, device=x.device) if want_y
-         else None)
+    y = r = None
+    if want_y:
+        rounded = mode in ROUNDED
+        y = torch.empty(shape, dtype=BF16 if rounded else torch.float32,
+                        device=x.device)
+        r = torch.empty(shape, dtype=BF16, device=x.device) if rounded \
+            else None
     lib = load_library()
-    npix = b * (h // 2) * (w // 2)
     work = torch.empty(
-        lib.cae_conv_gdn_workspace(npix, cin, cout, bf16, int(want_y)),
+        lib.cae_conv_gdn_workspace(b, h, w, cin, cout, mode, int(want_y)),
         dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.cae_conv_gdn_fwd(
             x.data_ptr(), kernel.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), out.data_ptr(),
-            None if y is None else y.data_ptr(), work.data_ptr(), b, h, w,
-            cin, cout, bf16, stream_handle(x))
-    return err, out, y
+            None if y is None else y.data_ptr(),
+            None if r is None else r.data_ptr(), work.data_ptr(), b, h, w,
+            cin, cout, mode, stream_handle(x))
+    return err, out, y, r
+
+
+# the serving variant's kernel name in each mode, under which its launches
+# count
+SERVING_NAMES = {F32: "conv_gdn_fwd", PALLAS_BF16: "conv_gdn_fwd_pallas_bf16",
+                 ROUND_BF16: "conv_gdn_fwd_bf16",
+                 BORDER_BF16: "conv_gdn_fwd_bf16",
+                 F32_BF16X1: "conv_gdn_fwd_bf16x1",
+                 F32_BF16X3: "conv_gdn_fwd_bf16x3"}
+
+
+class _Launches:
+    """The launches of one of the serving variant's kernel names."""
+
+    def __init__(self, kernel_name: str):
+        self.kernel_name = kernel_name
+        self.launches = 0
+
+
+SERVING = {name: _Launches(name) for name in SERVING_NAMES.values()}
+# the training variant's, in the modes that train
+TRAIN_NAMES = {F32: "conv_gdn_train_fwd", ROUND_BF16: "conv_gdn_train_fwd_bf16",
+               BORDER_BF16: "conv_gdn_train_fwd_bf16"}
+TRAIN = {name: _Launches(name) for name in TRAIN_NAMES.values()}
 
 
 def conv_gdn_cuda(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
-                  beta: torch.Tensor) -> torch.Tensor:
-    """K4, serving variant; raises on what it does not take."""
-    err, out, _ = _launch(x, kernel, gamma, beta, want_y=False)
-    check_launch(err, "conv_gdn_fwd")
-    conv_gdn_cuda.launches += 1
+                  beta: torch.Tensor, mode: Optional[int] = None
+                  ) -> torch.Tensor:
+    """K4, serving variant, in ``mode`` (None: the mode now for x's type),
+    counted under ``SERVING_NAMES[mode]``; raises on what it does not
+    take."""
+    mode = conv_gdn_mode(x.dtype) if mode is None else mode
+    if mode not in SERVING_NAMES:
+        raise ValueError(f"conv_gdn_cuda takes modes {sorted(SERVING_NAMES)},"
+                         f" got {mode}")
+    err, out, _, _ = _launch(x, kernel, gamma, beta, mode, want_y=False)
+    counter = SERVING[SERVING_NAMES[mode]]
+    check_launch(err, counter.kernel_name)
+    counter.launches += 1
     return out
 
 
-conv_gdn_cuda.launches = 0
-conv_gdn_cuda.kernel_name = "conv_gdn_fwd"
-
-
 def conv_gdn_train_cuda(x: torch.Tensor, kernel: torch.Tensor,
-                        gamma: torch.Tensor, beta: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4, training (want_y) variant: (out, float32 y); raises on what it
-    does not take."""
-    err, out, y = _launch(x, kernel, gamma, beta, want_y=True)
-    check_launch(err, "conv_gdn_train_fwd")
-    conv_gdn_train_cuda.launches += 1
-    return out, y
+                        gamma: torch.Tensor, beta: torch.Tensor,
+                        mode: Optional[int] = None):
+    """K4, training (want_y) variant in modes 0, 2 and 3 (None: the mode
+    now), counted under ``TRAIN_NAMES[mode]``: (out, y, r) as
+    ``conv_gdn_train_plain`` returns them; raises on what it does not
+    take."""
+    mode = conv_gdn_mode(x.dtype) if mode is None else mode
+    if mode not in TRAIN_NAMES:
+        raise ValueError(f"conv_gdn_train_cuda: mode {mode} has no training "
+                         "variant")
+    err, out, y, r = _launch(x, kernel, gamma, beta, mode, want_y=True)
+    counter = TRAIN[TRAIN_NAMES[mode]]
+    check_launch(err, counter.kernel_name)
+    counter.launches += 1
+    return out, y, r
 
 
-conv_gdn_train_cuda.launches = 0
-conv_gdn_train_cuda.kernel_name = "conv_gdn_train_fwd"
+def conv_gdn(x, kernel, gamma, beta, mode: Optional[int] = None):
+    """The serving variant: the plain version for CPU tensors, the mode's
+    kernel for CUDA tensors."""
+    mode = conv_gdn_mode(x.dtype) if mode is None else mode
+    if x.device.type == "cpu":
+        return conv_gdn_plain(x, kernel, gamma, beta, mode)
+    return conv_gdn_cuda(x, kernel, gamma, beta, mode)
 
 
-def conv_gdn_train(x, kernel, gamma, beta):
+def conv_gdn_train(x, kernel, gamma, beta, mode: Optional[int] = None):
     """The training variant: the plain version for CPU tensors, the kernel
     for CUDA tensors."""
     if x.device.type == "cpu":
-        return conv_gdn_train_plain(x, kernel, gamma, beta)
-    return conv_gdn_train_cuda(x, kernel, gamma, beta)
+        return conv_gdn_train_plain(x, kernel, gamma, beta, mode)
+    return conv_gdn_train_cuda(x, kernel, gamma, beta, mode)
 
 
 def _reflect_conv_grads(x, kernel, dy, need_x, need_kernel):
     """(dx, dkernel) of the reflect-pad 3x3/s2 conv at the cotangent dy
-    (float32 NHWC), in x's compute type: for bf16 x the cotangent is
-    rounded to bf16 and the kernel's gradient widened to float32 (the
-    mixed-precision rule of the JAX package's ``conv_mixed``).  The pad's
-    own backward folds the reflected border into dx, in a fixed order
+    (NHWC), in x's compute type: for bf16 x the cotangent is rounded to
+    bf16 and the kernel's gradient widened to float32 (the mixed-precision
+    rule of the JAX package's ``conv_mixed``).  The pad's own backward
+    folds the reflected border into dx, in a fixed order
     (``convops.reflect_pad``)."""
     cd = x.dtype
     w = kernel.detach().permute(3, 2, 0, 1).to(cd)
@@ -169,16 +317,24 @@ def _reflect_conv_grads(x, kernel, dy, need_x, need_kernel):
 class _FusedConvGDN(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, kernel, gamma, beta):
-        out, y = conv_gdn_train(x, kernel, gamma, beta)
-        ctx.save_for_backward(x, kernel, gamma, beta, y)
+    def forward(ctx, x, kernel, gamma, beta, mode):
+        out, y, r = conv_gdn_train(x, kernel, gamma, beta, mode)
+        ctx.save_for_backward(x, kernel, gamma, beta, y, r)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, kernel, gamma, beta, y = ctx.saved_tensors
-        need_x, need_k, need_g, need_b = ctx.needs_input_grad
+        x, kernel, gamma, beta, y, r = ctx.saved_tensors
+        need_x, need_k, need_g, need_b = ctx.needs_input_grad[:4]
         c = y.shape[-1]
+        if r is not None:  # the default route: gdn_mixed's, conv_mixed's
+            dy, dgamma, dbeta = gdn_mixed_bwd(
+                g.contiguous().view(-1, c), y.view(-1, c), r.view(-1, c),
+                gamma, False, need_g, need_b)
+            with full_f32():
+                dx, dkernel = _reflect_conv_grads(x, kernel, dy.view(y.shape),
+                                                  need_x, need_k)
+            return dx, dkernel, dgamma, dbeta, None
         with full_f32():
             y2 = y * y
             norm = torch.matmul(y2, gamma.t()) + beta
@@ -190,18 +346,26 @@ class _FusedConvGDN(torch.autograd.Function):
                       if need_g else None)
             dbeta = dnorm.sum((0, 1, 2)) if need_b else None
             dx, dkernel = _reflect_conv_grads(x, kernel, dy, need_x, need_k)
-        return dx, dkernel, dgamma, dbeta
+        return dx, dkernel, dgamma, dbeta, None
 
 
 def fused_conv_gdn(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
-                   beta: torch.Tensor) -> torch.Tensor:
-    """reflect-pad -> 3x3/s2 conv -> GDN.  When a gradient is wanted, the
-    training variant with its analytic backward; otherwise the serving
-    variant.  CPU tensors take the plain versions, CUDA tensors the
-    kernel."""
+                   beta: torch.Tensor, mode: Optional[int] = None
+                   ) -> torch.Tensor:
+    """reflect-pad -> 3x3/s2 conv -> GDN in ``mode`` (None: the mode now
+    for x's type).  When a gradient is wanted, the training variant with
+    its backward (modes 0, 2, 3); otherwise the serving variant.  CPU
+    tensors take the plain versions, CUDA tensors the kernel."""
+    mode = conv_gdn_mode(x.dtype) if mode is None else mode
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, kernel, gamma, beta)):
-        return _FusedConvGDN.apply(x, kernel, gamma, beta)
-    if x.device.type == "cpu":
-        return conv_gdn_plain(x, kernel, gamma, beta)
-    return conv_gdn_cuda(x, kernel, gamma, beta)
+        if mode == PALLAS_BF16:
+            raise ValueError(
+                "bf16 training under CAE_TPU_PALLAS=1: the JAX package's "
+                "jax.grad of its fused conv + GDN stage raises a TypeError "
+                "there (ROADMAP.md §3, found in the reference)")
+        if mode not in (F32,) + ROUNDED:
+            raise switches.not_ported(f"the fused stage's backward in "
+                                      f"mode {mode}")
+        return _FusedConvGDN.apply(x, kernel, gamma, beta, mode)
+    return conv_gdn(x, kernel, gamma, beta, mode)

@@ -58,7 +58,7 @@ from ..coding.pixel_rans import (_CAP_BUCKET, RansFetchResult,
                                  expand_queues_device)
 from ..models.entropy import medians_fn, update_cdf_tables
 from ..models.factory import autoencoder_from_state_dict
-from ..ops.convops import get_activations_dtype
+from ..ops.convops import core_precision, get_activations_dtype
 from ..parallel.mesh import (check_model_axis, gather_batch, replicate,
                              split_batch)
 from ..training.checkpoint import msgpack_restore, msgpack_serialize
@@ -106,7 +106,9 @@ def _channel_indexes(c: int, h: int, w: int) -> np.ndarray:
 class CAECodecCore:
     """Batched encode/decode of tiles for one CAE model on ``device``
     (``None``: the card), with activations in ``compute_dtype`` (float32 or
-    bf16; ``None``: ``get_activations_dtype()`` now).  The encoder and the
+    bf16; ``None``: ``get_activations_dtype()`` now) at the precision
+    ``convops.core_precision(compute_dtype)`` gives now, which the core
+    keeps (``precision``) and hands its model's layers.  The encoder and the
     decoder run in eval mode (``train=False``: batch norms on their running
     statistics, no dropout) whatever the model's ``training`` flag, as the
     JAX cores apply them.  ``mesh``: a data mesh to shard batches over
@@ -123,6 +125,7 @@ class CAECodecCore:
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype {self.compute_dtype}: the codec "
                              "runs float32 or bf16")
+        self.precision = core_precision(compute_dtype)
         self.model = model.to(self.device)
         self.level = model.compression_level
         self.channels_bn = model.channels_bn
@@ -205,8 +208,7 @@ class CAECodecCore:
             iy = torch.from_numpy(reflect_index(h, ph)).to(self.device)
             ix = torch.from_numpy(reflect_index(w, pw)).to(self.device)
             x = x[:, iy][:, :, ix]
-        y = self.model.encoder(x.to(self.compute_dtype), train=False,
-                               compute_dtype=self.compute_dtype)
+        y = self._apply(self.model.encoder, x)
         sym = torch.round(y - self._med).to(torch.int32)
         return sym.permute(0, 3, 1, 2).contiguous()
 
@@ -221,8 +223,14 @@ class CAECodecCore:
         if not torch.is_tensor(tiles_u8):
             tiles_u8 = torch.from_numpy(np.ascontiguousarray(tiles_u8))
         x = tiles_u8.to(self.device).float() / 255.0
-        return self.model.encoder(x.to(self.compute_dtype), train=False,
-                                  compute_dtype=self.compute_dtype).float()
+        return self._apply(self.model.encoder, x).float()
+
+    def _apply(self, track, x: torch.Tensor):
+        """The encoder or the decoder in eval mode on x in the compute type,
+        at the core's precision (the bf16 mode's layers on float32 rows
+        where its activations are float32)."""
+        return track(x.to(self.compute_dtype), train=False,
+                     compute_dtype=self.precision)
 
     @staticmethod
     def narrow_symbols(sym: torch.Tensor):
@@ -463,8 +471,7 @@ class CAECodecCore:
     def _synthesize(self, y: torch.Tensor, rec_idx: int = 0) -> torch.Tensor:
         """Float32 latents -> uint8 reconstructions at pyramid index
         ``rec_idx`` (0: full scale)."""
-        x_r, _ = self.model.decoder(y.to(self.compute_dtype), train=False,
-                                    compute_dtype=self.compute_dtype)
+        x_r, _ = self._apply(self.model.decoder, y)
         if x_r[rec_idx] is None:
             raise ValueError(
                 "Partial reconstruction at this level needs a "

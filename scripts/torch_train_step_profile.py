@@ -3,6 +3,7 @@
 the number of device operations a step, in float32 and bf16.
 
     python3 scripts/torch_train_step_profile.py [--root DIR] [--model M]
+        [--modes float32,bf16] [--top N]
 
 ``--root`` is the checkout whose ``cnn_autoencoder_tpu_torch`` is imported
 (default: this one), so two commits can be compared on one card: unpack
@@ -19,7 +20,8 @@ from seed 0.  After ``--warmup`` steps, ``--steps`` steps run under
 Prints one JSON line a mode: ``busy_ms`` (the device time of every kernel
 and copy, a step), ``device_ops`` (their count, a step), ``step_ms`` (the
 CUDA-event mean of an unprofiled step, which moves with the host), the
-card's name and power limit, and the five largest rows by device time.
+card's name and power limit, and the ``--top`` largest rows by device
+time (default five), each [ms a step, calls a step, name].
 """
 
 import argparse
@@ -75,9 +77,9 @@ def make_step(torch, model_name, dtype, x):
     return lambda i: step(x, lrs, i, generator=gen)
 
 
-def profile_steps(torch, step, first, n):
+def profile_steps(torch, step, first, n, top_rows):
     """Device time and operation count over ``n`` steps, a step, and the
-    largest rows."""
+    ``top_rows`` largest rows."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -92,7 +94,7 @@ def profile_steps(torch, step, first, n):
     busy = sum(r[0] for r in rows) / 1e3 / n
     ops = sum(r[1] for r in rows) / n
     top = [[round(us / 1e3 / n, 4), count / n, key[:80]]
-           for us, count, key in rows[:5]]
+           for us, count, key in rows[:top_rows]]
     return busy, ops, top
 
 
@@ -104,6 +106,8 @@ def main():
     parser.add_argument("--label", default="")
     parser.add_argument("--warmup", type=int, default=3)
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--modes", default="float32,bf16")
+    parser.add_argument("--top", type=int, default=5)
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -114,13 +118,14 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=False).stdout.strip().splitlines()
     x = synthetic_batch(torch)
-    for mode, dtype in (("float32", torch.float32),
-                        ("bf16", torch.bfloat16)):
-        step = make_step(torch, args.model, dtype, x)
+    dtypes = {"float32": torch.float32, "bf16": torch.bfloat16}
+    for mode in args.modes.split(","):
+        step = make_step(torch, args.model, dtypes[mode], x)
         for i in range(1, args.warmup + 1):
             step(i)
         first = args.warmup + 1
-        busy, ops, top = profile_steps(torch, step, first, args.steps)
+        busy, ops, top = profile_steps(torch, step, first, args.steps,
+                                       args.top)
         first += args.steps
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)

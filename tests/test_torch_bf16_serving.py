@@ -111,19 +111,24 @@ def test_gdn_routes_bf16_by_gradient(inverse, monkeypatch):
 
 
 def test_precision_switch():
-    """The serving precision: "highest" and "bf16" as the JAX package
-    names them, "default" and "high" not ported; codec objects take the
-    precision set when they are built and their config does not change."""
+    """The serving precision: "highest", "default", "high" and "bf16" as
+    the JAX package names them ("default" and "high" serve float32
+    activations); codec objects take the precision set when they are built
+    and their config does not change."""
     assert convops.get_default_precision() == "highest"
     assert convops.get_activations_dtype() == torch.float32
-    for name in ("high", "default"):
-        with pytest.raises(ValueError, match="not ported"):
-            convops.set_default_precision(name)
     with pytest.raises(ValueError, match="unknown precision"):
         convops.set_default_precision("fp8")
     f32 = ConvolutionalAutoencoderTurbo(FLAGSHIP, num_streams=STREAMS,
                                         device="cpu")
+    low = {}
     try:
+        for name in ("high", "default"):
+            convops.set_default_precision(name)
+            assert convops.get_default_precision() == name
+            assert convops.get_activations_dtype() == torch.float32
+            low[name] = tcodec.ConvolutionalAutoencoder(FLAGSHIP,
+                                                        device="cpu")
         convops.set_default_precision("BF16")
         assert convops.get_default_precision() == "bf16"
         assert convops.get_activations_dtype() == BF16
@@ -133,8 +138,12 @@ def test_precision_switch():
     finally:
         convops.set_default_precision("highest")
     assert f32.core.base.compute_dtype == torch.float32
+    assert f32.core.base.precision == "highest"
     assert bf16.core.base.compute_dtype == BF16
-    assert host.core.compute_dtype == BF16
+    assert host.core.compute_dtype == BF16 and host.core.precision == "bf16"
+    for name, codec in low.items():
+        assert codec.core.compute_dtype == torch.float32
+        assert codec.core.precision == name
     assert bf16.get_config() == f32.get_config()
     assert host.get_config() == {"id": "cae", "checkpoint": FLAGSHIP,
                                  "offset": 0}
@@ -142,9 +151,11 @@ def test_precision_switch():
 
 @pytest.mark.parametrize("value,out", [("bf16", "bf16 torch.bfloat16"),
                                        ("highest", "highest torch.float32"),
-                                       ("high", "not ported")])
+                                       ("high", "high torch.float32"),
+                                       ("fp8", "unknown precision")])
 def test_precision_from_environment(value, out):
-    """CAE_TPU_PRECISION sets the start value when the port is imported."""
+    """CAE_TPU_PRECISION sets the start value when the port is imported;
+    an unknown name raises there."""
     code = ("from cnn_autoencoder_tpu_torch.ops import convops as c\n"
             "print(c.get_default_precision(), c.get_activations_dtype())")
     env = dict(os.environ, CAE_TPU_PRECISION=value)
@@ -153,7 +164,7 @@ def test_precision_from_environment(value, out):
                          cwd=os.path.dirname(os.path.dirname(
                              os.path.abspath(__file__))))
     assert out in run.stdout + run.stderr
-    assert (run.returncode == 0) == (value != "high")
+    assert (run.returncode == 0) == (value != "fp8")
 
 
 @pytest.mark.parametrize("value", [None, "1", "0"])
@@ -164,15 +175,18 @@ def test_bf16_switches_raise_where_they_change_the_function(
     """The JAX package reads CAE_TPU_BF16_ACTIVATIONS (serving's
     activations) and CAE_TPU_GDN_FAST (the pool on bf16 rows) at call time;
     set to "0" in the bf16 mode they ask for another function, which the
-    port does not compute, so it raises there.  Unset, "1", or in the
-    highest mode (float32 rows) nothing raises."""
+    port computes: float32 activations, and the float32 pool on bf16 rows
+    (gdn_plain within one bf16 ulp of a float64 GDN of the same bf16 rows,
+    against two ulps with the bf16 pool's rounded operands kept out).
+    Unset, "1", or in the highest mode (float32 rows) the defaults hold."""
     if value is None:
         monkeypatch.delenv(switch, raising=False)
     else:
         monkeypatch.setenv(switch, value)
-    x = torch.from_numpy(np.random.RandomState(4).rand(6, 8)
-                         .astype(np.float32))
-    gamma, beta = 0.1 * torch.ones(8, 8), torch.ones(8)
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.rand(64, 8).astype(np.float32) * 3)
+    gamma = torch.from_numpy(0.1 + rng.rand(8, 8).astype(np.float32) / 7)
+    beta = torch.ones(8)
     # the highest mode: float32 activations and rows
     assert convops.get_activations_dtype() == torch.float32
     assert gdn_mod.norm_pool_precision(torch.float32) == torch.float32
@@ -180,17 +194,18 @@ def test_bf16_switches_raise_where_they_change_the_function(
     try:
         convops.set_default_precision("bf16")
         if switch == "CAE_TPU_BF16_ACTIVATIONS":
-            calls = [convops.get_activations_dtype]
+            want = torch.float32 if value == "0" else BF16
+            assert convops.get_activations_dtype() == want
         else:
-            calls = [lambda: gdn_mod.norm_pool_precision(BF16),
-                     lambda: gdn_plain(x.to(BF16), gamma, beta).dtype]
-        for call in calls:
-            if value == "0":
-                with pytest.raises(ValueError,
-                                   match=f"{switch}=0.*item 14"):
-                    call()
-            else:
-                assert call() == BF16
+            pool = torch.float32 if value == "0" else BF16
+            assert gdn_mod.norm_pool_precision(BF16) == pool
+            xb = x.to(BF16)
+            x64 = xb.double()
+            norm = (x64 * x64) @ gamma.double().t() + 1.0
+            ref = (x64 * torch.rsqrt(norm)).to(BF16)
+            got = gdn_plain(xb, gamma, beta)
+            assert got.dtype == BF16
+            assert _ulps(got, ref) <= (1 if value == "0" else 2)
         # float32 rows in the bf16 mode (after a batch norm) keep theirs
         assert gdn_mod.norm_pool_precision(torch.float32) == torch.float32
     finally:

@@ -58,16 +58,18 @@ def test_serving_plain_matches_pallas(cout):
 
 @pytest.mark.parametrize("cout", [129, 192])
 @pytest.mark.parametrize("mode", ["float32", "bf16"])
-def test_want_y_plain_matches_pallas(cout, mode):
+def test_want_y_plain_matches_pallas(cout, mode, monkeypatch):
     """conv_gdn_train_plain (out and the float32 pre-GDN y) at Cout > 128
     against the Pallas kernel with want_y, in float32 and under
-    set_default_precision("bf16"), with x holding bf16 values so both
-    packages multiply the same numbers: y to 1e-5 of max |y|, out to 1e-5
-    of max |out| (float32) or one bf16 ulp (the tolerances of
-    tests/test_torch_train_kernels.py at 48 channels)."""
+    set_default_precision("bf16") with CAE_TPU_PALLAS=1 (the Pallas
+    function), with x holding bf16 values so both packages multiply the
+    same numbers: y to 1e-5 of max |y|, out to 1e-5 of max |out| (float32)
+    or one bf16 ulp (the tolerances of tests/test_torch_train_kernels.py at
+    48 channels)."""
     x, k, gamma, beta = _case(cout, seed=1)
     x = torch.from_numpy(x).to(BF16).float().numpy()
     if mode == "bf16":
+        monkeypatch.setenv("CAE_TPU_PALLAS", "1")
         jax_convops.set_default_precision("bf16")
     try:
         out_j, y_j = jax_cg._fused_conv_gdn_pallas(
@@ -76,10 +78,11 @@ def test_want_y_plain_matches_pallas(cout, mode):
     finally:
         jax_convops.set_default_precision("highest")
     x_t = torch.from_numpy(x).to(BF16 if mode == "bf16" else torch.float32)
-    out_t, y_t = conv_gdn_train_plain(x_t, torch.from_numpy(k),
-                                      torch.from_numpy(gamma),
-                                      torch.from_numpy(beta))
+    out_t, y_t, r_t = conv_gdn_train_plain(x_t, torch.from_numpy(k),
+                                           torch.from_numpy(gamma),
+                                           torch.from_numpy(beta))
     assert y_t.dtype == torch.float32 and out_t.dtype == x_t.dtype
+    assert r_t is None
     assert out_t.shape == (2, 4, 5, cout)
     y_j, out_j = np.asarray(y_j), np.asarray(out_j)
     np.testing.assert_allclose(y_t.numpy(), y_j, rtol=0,

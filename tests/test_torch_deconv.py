@@ -47,14 +47,20 @@ def _layer(geometry, channels, bias, seed):
 
 def _reference(x, layer):
     """F.conv_transpose2d on the layer's operands, NHWC in and out,
-    float32 sums (bf16 operands upcast exactly)."""
+    float32 sums (bf16 operands upcast exactly).  In bf16 the bias is added
+    after the sums are rounded to bf16, with a second rounding (the JAX
+    package's default bf16 function, ``_native_conv_out``)."""
     k, s, p, op = (layer.weight.shape[-1], layer.stride, layer.padding,
                    layer.output_padding)
     weight = layer.weight.to(x.dtype).float()
     bias = None if layer.bias is None else layer.bias.to(x.dtype).float()
-    return F.conv_transpose2d(x.float().permute(0, 3, 1, 2), weight, bias,
-                              stride=s, padding=p,
-                              output_padding=op).permute(0, 2, 3, 1)
+    native = x.dtype == torch.bfloat16 and bias is not None
+    y = F.conv_transpose2d(x.float().permute(0, 3, 1, 2), weight,
+                           None if native else bias, stride=s, padding=p,
+                           output_padding=op).permute(0, 2, 3, 1)
+    if native:
+        y = (y.to(x.dtype) + layer.bias.to(x.dtype)).float()
+    return y
 
 
 def _bf16_ulp(ref: torch.Tensor) -> torch.Tensor:

@@ -189,15 +189,18 @@ def _conv_case(seed, cin=64, cout=48, hw=8):
 
 
 @pytest.mark.parametrize("mode", ["float32", "bf16"])
-def test_conv_gdn_want_y_plain_matches_pallas(mode):
+def test_conv_gdn_want_y_plain_matches_pallas(mode, monkeypatch):
     """K4's training variant: out and the float32 pre-GDN y against the
     Pallas kernel (interpret, want_y=True), in float32 and under
-    set_default_precision("bf16").  x holds bf16 values, so both packages
+    set_default_precision("bf16") with CAE_TPU_PALLAS=1 in both packages
+    (the Pallas function; the default route's is held in
+    tests/test_torch_precision.py).  x holds bf16 values, so both packages
     multiply the same numbers; y to 1e-5 of max |y|, out to 1e-5 of max
     |out| (float32) or one bf16 ulp."""
     x, k, gamma, beta = _conv_case(5)
     x = torch.from_numpy(x).to(BF16).float().numpy()
     if mode == "bf16":
+        monkeypatch.setenv("CAE_TPU_PALLAS", "1")
         jax_convops.set_default_precision("bf16")
     try:
         out_j, y_j = jax_cg._fused_conv_gdn_pallas(
@@ -206,10 +209,11 @@ def test_conv_gdn_want_y_plain_matches_pallas(mode):
     finally:
         jax_convops.set_default_precision("highest")
     x_t = torch.from_numpy(x).to(BF16 if mode == "bf16" else torch.float32)
-    out_t, y_t = conv_gdn_train(x_t, torch.from_numpy(k),
-                                torch.from_numpy(gamma),
-                                torch.from_numpy(beta))
+    out_t, y_t, r_t = conv_gdn_train(x_t, torch.from_numpy(k),
+                                     torch.from_numpy(gamma),
+                                     torch.from_numpy(beta))
     assert y_t.dtype == torch.float32 and out_t.dtype == x_t.dtype
+    assert r_t is None
     y_j, out_j = np.asarray(y_j), np.asarray(out_j)
     np.testing.assert_allclose(y_t.numpy(), y_j, rtol=0,
                                atol=1e-5 * np.abs(y_j).max())

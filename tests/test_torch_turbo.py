@@ -418,9 +418,11 @@ def test_default_device_without_card_raises(small_checkpoint, monkeypatch):
 def test_kernel_wrappers_take_only_cuda_tensors():
     from cnn_autoencoder_tpu_torch.ops.kernels import kernel_wrappers
     from cnn_autoencoder_tpu_torch.ops.kernels.conv_gdn_kernel import (
-        conv_gdn_cuda, conv_gdn_train_cuda)
+        F32_BF16X1, F32_BF16X3, PALLAS_BF16, conv_gdn_cuda,
+        conv_gdn_train_cuda)
     from cnn_autoencoder_tpu_torch.ops.kernels.gdn_kernel import (
-        gdn_bf16_cuda, gdn_cuda, gdn_train_bwd_cuda, gdn_train_fwd_cuda,
+        gdn_bf16_cuda, gdn_bf16_f32pool_cuda, gdn_cuda, gdn_train_bwd_cuda,
+        gdn_train_fwd_bf16_f32pool_cuda, gdn_train_fwd_cuda,
         gdn_train_fwd_f32_cuda)
     from cnn_autoencoder_tpu_torch.ops.kernels.rans_kernel import (
         EncodeState, compact_cuda, decode_interleaved_cuda,
@@ -435,14 +437,23 @@ def test_kernel_wrappers_take_only_cuda_tensors():
                         torch.zeros(1, 1, dtype=torch.int32))
     conv_args = (torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 8),
                  torch.eye(8), torch.ones(8))
-    calls = [lambda: gdn_cuda(x, torch.eye(8), torch.ones(8)),
-             lambda: gdn_cuda(xb, torch.eye(8), torch.ones(8)),
-             lambda: gdn_bf16_cuda(xb, torch.eye(8), torch.ones(8)),
-             lambda: gdn_train_fwd_cuda(xb, torch.eye(8), torch.ones(8)),
-             lambda: gdn_train_fwd_f32_cuda(x, torch.eye(8), torch.ones(8)),
+    conv_args_b = (conv_args[0].to(torch.bfloat16),) + conv_args[1:]
+    gdn_args = (torch.eye(8), torch.ones(8))
+    calls = [lambda: gdn_cuda(x, *gdn_args),
+             lambda: gdn_cuda(xb, *gdn_args),
+             lambda: gdn_bf16_cuda(xb, *gdn_args),
+             lambda: gdn_bf16_f32pool_cuda(xb, *gdn_args),
+             lambda: gdn_train_fwd_cuda(xb, *gdn_args),
+             lambda: gdn_train_fwd_f32_cuda(x, *gdn_args),
+             lambda: gdn_train_fwd_bf16_f32pool_cuda(xb, *gdn_args),
              lambda: gdn_train_bwd_cuda(xb, xb, xb, torch.eye(8)),
              lambda: conv_gdn_cuda(*conv_args),
+             lambda: conv_gdn_cuda(*conv_args_b),
+             lambda: conv_gdn_cuda(*conv_args_b, PALLAS_BF16),
+             lambda: conv_gdn_cuda(*conv_args, F32_BF16X1),
+             lambda: conv_gdn_cuda(*conv_args, F32_BF16X3),
              lambda: conv_gdn_train_cuda(*conv_args),
+             lambda: conv_gdn_train_cuda(*conv_args_b),
              lambda: encode_states_cuda(i, i[0], i[0], i[0], i[0, 0]),
              lambda: compact_cuda(state, 64),
              lambda: decode_interleaved_cuda(q, i[0], i[0], 2)]
@@ -450,10 +461,13 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert {fn.kernel_name for fn in kernel_wrappers()} == {
-        "gdn_fwd", "gdn_fwd_bf16", "gdn_train_fwd", "gdn_train_fwd_f32",
-        "gdn_train_bwd", "conv_gdn_fwd",
-        "conv_gdn_train_fwd", "rans_encode_states", "rans_compact",
-        "rans_decode"}
+        "gdn_fwd", "gdn_fwd_bf16", "gdn_fwd_bf16_f32pool", "gdn_train_fwd",
+        "gdn_train_fwd_f32", "gdn_train_fwd_bf16_f32pool", "gdn_train_bwd",
+        "conv_gdn_fwd", "conv_gdn_fwd_pallas_bf16", "conv_gdn_fwd_bf16",
+        "conv_gdn_fwd_bf16x1",
+        "conv_gdn_fwd_bf16x3", "conv_gdn_train_fwd", "conv_gdn_train_fwd_bf16",
+        "rans_encode_states",
+        "rans_compact", "rans_decode"}
     assert all(fn.launches == 0 for fn in kernel_wrappers())
 
 
