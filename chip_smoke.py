@@ -113,7 +113,8 @@ Phases, in order; any failure exits non-zero:
    same checks against ``CAECodecCore``, then again with the halo
    ``offset = 2**level``; (c) ``cae_bn`` on a 1024^2 crop with a latent
    halo of 2; (d) the compress and decompress CLIs as subprocesses
-   (``-cod CAETPU`` and ``-cod CAE``, zarr in and out), their stores
+   (``-cod CAETPU`` and ``-cod CAE``, zarr in and out; the four
+   compresses at once, then the four decompresses), their stores
    byte-equal to (a)'s and (b)'s and their images to the pipeline's
    decodes.  Launch counts are reset before each timed compress +
    decompress pass and read after it, logged on their own line and held
@@ -299,9 +300,28 @@ Phases, in order; any failure exits non-zero:
    plain versions within 2e-2, step-1 gradients finite and non-zero; (d)
    one float32 flagship step under each ``CAE_TPU_ANALYTIC_ENT`` mode,
    gradients against mode 0's within 3e-2 of each tensor's max, ms a step.
-16. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
-   runs of phases 3, 5, 8 (a), 9, 10, 11, 12 (b), 13, 14 and 15 (b), (c)),
-   then the last line ``{"ok": true, "device": {...}}``.
+16. Training at the low precisions, the polyphase conv and the RD sweep:
+   (a) K4's training variant in modes 4 (``conv_gdn_train_fwd_bf16x1``)
+   and 5 (``..._bf16x3``) at (16, 128, 128, 128) -> 128 and at (2, 18,
+   14, 72) -> 41 against ``conv_gdn_train_plain`` (out and y within 1e-4
+   of max |out| and max |y|), timed against the plain version and the
+   bound; (b) phase 5's float32 step at "default" and at "high", 3 steps
+   each: launches exact (K1 3, K4 ``want_y`` in mode 4 or 5 1 a step),
+   every step-1 gradient finite and non-zero, losses against the plain
+   versions' run (``LOW_PRECISION_LIMITS``: "high" within 1e-5, "default",
+   whose operands are rounded to bf16, within the bf16 mode's 2e-2), ms a
+   step and device time; (c) the train CLI's ``main`` at ``CAE_TPU_PRECISION=default`` on
+   phase 8's slides, 2 steps and a validation, launches exact, losses as
+   (b)'s at "default";
+   (d) ``CAE_TPU_POLYPHASE_CONV=1`` in bf16: phase 3's 16 tiles through
+   both cores as in phase 15 (b) (K1 on bf16 rows 4, no K4, a round trip)
+   and one bf16 step (K2 4, K3 4) within 2e-2 of the plain versions'; (e)
+   the RD sweep's CAE half (``tools/rd_sweep.py:run_cae``, bf16 as
+   ``CAE_TPU_PRECISION`` is unset) on 2 zarr holdouts of 1024^2, launches
+   exact, and its merge: the CSV row the harness's stats as formatted.
+17. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3, 5, 8 (a), 9, 10, 11, 12 (b), 13, 14, 15 (b), (c) and
+   16 (b)-(e)), then the last line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
 non-zero and prints no result.
@@ -400,6 +420,10 @@ REPLACES = {
     "conv_gdn_fwd_bf16": "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
     "conv_gdn_train_fwd_bf16":
         "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
+    "conv_gdn_train_fwd_bf16x1":
+        "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
+    "conv_gdn_train_fwd_bf16x3":
+        "cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:53",
 }
 SOURCES = {
     "gdn_fwd": "cnn_autoencoder_tpu_torch/csrc/gdn_tc.cu",
@@ -419,6 +443,8 @@ SOURCES = {
     "conv_gdn_fwd_bf16x3": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
     "conv_gdn_fwd_bf16": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
     "conv_gdn_train_fwd_bf16": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
+    "conv_gdn_train_fwd_bf16x1": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
+    "conv_gdn_train_fwd_bf16x3": "cnn_autoencoder_tpu_torch/csrc/conv_gdn.cu",
 }
 # K4's serving variant by precision: float32 (mode 0) or the bf16 mode's
 # default route (modes 2 and 3)
@@ -2860,24 +2886,11 @@ CARD = ""           # nvidia-smi's name and power limit, set in phase 1
 
 
 def synth_histology(h, w, seed=0):
-    """Smooth low-frequency tissue-like structure + stain noise: the port's
-    copy of the JAX package's ``bench.py:127`` (this script imports no JAX)."""
-    rng = np.random.RandomState(seed)
-    small = rng.rand(h // 64 + 2, w // 64 + 2, 3)
-    idx_y = (np.arange(h) / 64.0)
-    idx_x = (np.arange(w) / 64.0)
-    y0 = idx_y.astype(np.int32)
-    x0 = idx_x.astype(np.int32)
-    fy = (idx_y - y0)[:, None, None]
-    fx = (idx_x - x0)[None, :, None]
-    a = small[y0][:, x0]
-    b = small[y0][:, x0 + 1]
-    c = small[y0 + 1][:, x0]
-    d = small[y0 + 1][:, x0 + 1]
-    img = (a * (1 - fy) * (1 - fx) + b * (1 - fy) * fx
-           + c * fy * (1 - fx) + d * fy * fx)
-    img = img * 120 + 110 + rng.randn(h, w, 3) * 6
-    return np.clip(img, 0, 255).astype(np.uint8)
+    """The synthetic slide: the port's copy of the JAX package's
+    ``bench.py:127`` in ``tools/rd_sweep.py`` (this script imports no
+    JAX)."""
+    from cnn_autoencoder_tpu_torch.tools.rd_sweep import synth_histology
+    return synth_histology(h, w, seed=seed)
 
 
 def psnr_db(rec, ref):
@@ -3266,35 +3279,46 @@ def run_cli(args, env, label):
 def slide_clis(torch, slide_path, stores, work):
     """(d) ``python -m cnn_autoencoder_tpu_torch.cli.compress`` and
     ``... .cli.decompress`` as subprocesses, zarr in and zarr out, in each
-    precision: each compressed store's chunks byte-equal to the pipeline's
-    store of (a) / (b), and each decompressed image bit-equal to the
-    pipeline's decode."""
+    precision, the four compresses started at once and then the four
+    decompresses: each compressed store's chunks byte-equal to the
+    pipeline's store of (a) / (b), and each decompressed image bit-equal
+    to the pipeline's decode."""
     from cnn_autoencoder_tpu_torch.storage import zarr as zarrlib
-    for (codec, mode), (ref_path, ref_rec) in stores.items():
-        env = dict(os.environ, CAE_TPU_PRECISION=(
+    envs, outs, recs = {}, {}, {}
+    for codec, mode in stores:
+        envs[codec, mode] = dict(os.environ, CAE_TPU_PRECISION=(
             "highest" if mode == "float32" else "bf16"))
-        out = os.path.join(work, f"cli_{codec}_{mode}.zarr")
-        secs = run_cli(["cnn_autoencoder_tpu_torch.cli.compress", "-dd",
-                        slide_path, "-o", out, "-if", "zarr", "-cod", codec,
-                        "-chk", CHECKPOINT, "-ps", str(SLIDE_PATCH), "-da",
-                        "YXC", "-dg", "0/0", "-ld", work], env,
-                       f"compress CLI ({codec}, {mode})")
-        got = slide_chunks(zarrlib.open(out)["0/0"])
+        outs[codec, mode] = os.path.join(work, f"cli_{codec}_{mode}.zarr")
+        recs[codec, mode] = os.path.join(work,
+                                         f"cli_rec_{codec}_{mode}.zarr")
+    t0 = time.perf_counter()
+    finish_tools({f"compress CLI {key}": subprocess.Popen(
+        [sys.executable, "-m", "cnn_autoencoder_tpu_torch.cli.compress",
+         "-dd", slide_path, "-o", outs[key], "-if", "zarr", "-cod", key[0],
+         "-chk", CHECKPOINT, "-ps", str(SLIDE_PATCH), "-da", "YXC", "-dg",
+         "0/0", "-ld", work], cwd=ROOT, env=envs[key],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for key in stores})
+    t1 = time.perf_counter()
+    finish_tools({f"decompress CLI {key}": subprocess.Popen(
+        [sys.executable, "-m", "cnn_autoencoder_tpu_torch.cli.decompress",
+         "-dd", outs[key], "-o", recs[key], "-of", "zarr", "-dg", "0/0",
+         "-ld", work], cwd=ROOT, env=envs[key], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for key in stores})
+    t2 = time.perf_counter()
+    for (codec, mode), (ref_path, ref_rec) in stores.items():
+        got = slide_chunks(zarrlib.open(outs[codec, mode])["0/0"])
         want = slide_chunks(zarrlib.open(ref_path))
         check(got == want, f"compress CLI ({codec}, {mode}): chunks differ "
               "from the pipeline's store")
-        line = (f"CLI {codec} ({mode}) [{CARD}]: compress subprocess "
-                f"{secs:.1f} s, {len(got)} chunks byte-equal to the "
-                "pipeline's")
-        rec_dir = os.path.join(work, f"cli_rec_{codec}_{mode}.zarr")
-        secs = run_cli(["cnn_autoencoder_tpu_torch.cli.decompress", "-dd",
-                        out, "-o", rec_dir, "-of", "zarr", "-dg", "0/0",
-                        "-ld", work], env, f"decompress CLI ({codec}, {mode})")
-        rec = zarrlib.open(rec_dir)["decompressed/0/0"][...]
+        rec = zarrlib.open(recs[codec, mode])["decompressed/0/0"][...]
         check(np.array_equal(rec, ref_rec), f"decompress CLI ({codec}, "
               f"{mode}): image differs from the pipeline's decode")
-        log(line + f"; decompress subprocess {secs:.1f} s, image bit-equal "
-            "to the pipeline's decode")
+        log(f"CLI {codec} ({mode}): {len(got)} chunks byte-equal to the "
+            "pipeline's, image bit-equal to the pipeline's decode")
+    log(f"CLIs [{CARD}]: {len(stores)} compress subprocesses at once "
+        f"{t1 - t0:.1f} s, then {len(stores)} decompress subprocesses at "
+        f"once {t2 - t1:.1f} s")
 
 
 def phase_slide(torch, core, core16):
@@ -3401,9 +3425,10 @@ def recorded_steps(torch, cli, rec=None):
 def cli_run(torch, work, mode, label, steps=CLI_STEPS - 1, extra=(),
             rec=None, argv=None):
     """One in-process ``main`` of the train CLI on the card, in ``mode``'s
-    precision; returns (log dir, losses, step times, launches, wall s).
-    ``rec``: as in ``recorded_steps``; ``argv(log_dir)``, when given, the
-    CLI's arguments in place of phase 8's."""
+    precision ("float32" the highest, else a precision's name); returns
+    (log dir, losses, step times, launches, wall s).  ``rec``: as in
+    ``recorded_steps``; ``argv(log_dir)``, when given, the CLI's arguments
+    in place of phase 8's."""
     from cnn_autoencoder_tpu_torch.cli import train_cae as cli
     from cnn_autoencoder_tpu_torch.ops import convops
     from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
@@ -3416,7 +3441,7 @@ def cli_run(torch, work, mode, label, steps=CLI_STEPS - 1, extra=(),
                                cli_argv(work, log_dir, steps, extra)))
     setup_logger(args)
     saved = convops.get_default_precision()
-    convops.set_default_precision("highest" if mode == "float32" else "bf16")
+    convops.set_default_precision({"float32": "highest"}.get(mode, mode))
     try:
         with recorded_steps(torch, cli, rec) as (losses, times):
             torch.cuda.synchronize()
@@ -5779,7 +5804,7 @@ def finish_tools(procs, timeout=300):
     try:
         for label, proc in procs.items():
             stdout, stderr = proc.communicate(timeout=timeout)
-            check(proc.returncode == 0, f"(e) the {label} subprocess "
+            check(proc.returncode == 0, f"the {label} subprocess "
                   f"exited {proc.returncode}: {stderr[-3000:]}")
             out[label] = stdout
     finally:
@@ -6402,9 +6427,10 @@ def precision_kernels(torch, model, rng):
     return out
 
 
-def precision_round_trips(torch, model, core, imgs):
+def precision_round_trips(torch, model, core, imgs, runs=PRECISION_RUNS,
+                          phase="phase 15"):
     """(b) Phase 3's tiles through CAETurboCore and CAECodecCore under each
-    of PRECISION_RUNS: exact launches, lossless symbols, the plain versions
+    of ``runs``: exact launches, lossless symbols, the plain versions
     within phase 3's tolerances, decodes bit-equal, bpp and |delta PSNR|
     against float32; returns the launches summed over the runs."""
     from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
@@ -6414,7 +6440,7 @@ def precision_round_trips(torch, model, core, imgs):
     rec32 = core.decode_tiles(core.encode_tiles(imgs))
     mse = np.mean((rec32.astype(np.float64) - imgs) ** 2)
     psnr32 = 10 * np.log10(255.0 ** 2 / mse)
-    for label, precision, env, expect in PRECISION_RUNS:
+    for label, precision, env, expect in runs:
         with switched(precision, env):
             turbo = CAETurboCore(model, num_streams=1024, device="cuda")
             launches, res = serving_round_trip(torch, model, turbo, imgs,
@@ -6437,7 +6463,7 @@ def precision_round_trips(torch, model, core, imgs):
             check(np.array_equal(base.decode_tiles(frames), rec),
                   f"cae ({label}): two decodes differ")
         d_psnr = res["psnr"] - psnr32
-        log(f"phase 15 ({label}): precision {turbo.base.precision}, "
+        log(f"{phase} ({label}): precision {turbo.base.precision}, "
             f"activations {turbo.base.compute_dtype}; cae_tpu and cae "
             f"launches {expect} each, symbols lossless; PSNR "
             f"{res['psnr']:.3f} dB against float32's {psnr32:.3f} (delta "
@@ -6450,45 +6476,71 @@ def precision_round_trips(torch, model, core, imgs):
     return totals
 
 
+def counted_steps(torch, x, precision, env, compute_dtype, per_step, steps,
+                  rel_limit, label):
+    """``steps`` flagship train steps at ``precision`` under the switches
+    ``env``: launches exactly ``per_step`` a step, every step-1 gradient
+    finite and non-zero, losses within ``rel_limit`` relative of the same
+    steps through the plain versions on the card; the step-1 gradients'
+    largest difference from the plain run's (of each tensor's max) is
+    logged.  Returns (launches, losses)."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    with switched(precision, env):
+        _, _, step = train_setup(torch, compute_dtype, x)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses = []
+        for i in range(1, steps + 1):
+            stats, grads = step(i)
+            losses.append(float(stats["loss"]))
+            if i == 1:
+                first = {f"{m}.{n}": g.clone() for m, gs in grads.items()
+                         for n, g in gs.items()}
+                for name, g in first.items():
+                    check(bool(torch.isfinite(g).all())
+                          and float(g.abs().max()) > 0,
+                          f"{label} step 1: {name}")
+        torch.cuda.synchronize()
+        launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+        want = {k: n * steps for k, n in per_step.items()}
+        check({k: n for k, n in launches.items() if n} == want,
+              f"{label} steps: launches {launches}, expected {want}")
+        del step
+        with plain_versions():
+            _, _, plain_step = train_setup(torch, compute_dtype, x)
+            plain = []
+            for i in range(1, steps + 1):
+                stats, grads = plain_step(i)
+                plain.append(float(stats["loss"]))
+                if i == 1:
+                    worst = max((float((g - first[f"{m}.{n}"]).abs().max())
+                                 / float(g.abs().max()), f"{m}.{n}")
+                                for m, gs in grads.items()
+                                for n, g in gs.items())
+        rels = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+        log(f"{label}: launches over {steps} steps {want}; losses {losses} "
+            f"against the plain versions' {plain}, relative differences "
+            f"{', '.join(f'{r:.3e}' for r in rels)} (limit {rel_limit:g}); "
+            f"step-1 gradients finite and non-zero, the largest difference "
+            f"from the plain run's {worst[0]:.3e} of its tensor's max "
+            f"({worst[1]})")
+        check(max(rels) <= rel_limit, f"{label} losses differ by {rels}")
+        del plain_step
+    return launches, losses
+
+
 def precision_training(torch):
     """(c) Phase 5's bf16 step under CAE_TPU_GDN_FAST=0: exact launches,
     step-1 gradients finite and non-zero, losses against the plain
     versions'; (d) one float32 step under each CAE_TPU_ANALYTIC_ENT mode,
     its gradients against mode 0's, and ms a step.  Returns the launches
     of (c)."""
-    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
-                                                       reset_launch_counts)
     x = synthetic_batch(torch)
-    with switched("highest", {"CAE_TPU_GDN_FAST": "0"}):
-        _, _, step = train_setup(torch, torch.bfloat16, x)
-        reset_launch_counts()
-        losses = []
-        for i in range(1, TRAIN_STEPS + 1):
-            stats, grads = step(i)
-            losses.append(float(stats["loss"]))
-            if i == 1:
-                for module, gs in grads.items():
-                    for name, g in gs.items():
-                        check(bool(torch.isfinite(g).all())
-                              and float(g.abs().max()) > 0,
-                              f"GDN_FAST=0 step 1: {module}.{name}")
-        torch.cuda.synchronize()
-        launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
-        want = {k: n * TRAIN_STEPS for k, n in GDN_FAST_OFF_STEP.items()}
-        check({k: n for k, n in launches.items() if n} == want,
-              f"bf16 GDN_FAST=0 steps: launches {launches}, expected {want}")
-        del step
-        with plain_versions():
-            _, _, plain_step = train_setup(torch, torch.bfloat16, x)
-            plain = [float(plain_step(i)[0]["loss"])
-                     for i in range(1, TRAIN_STEPS + 1)]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
-        log(f"phase 15 (c) bf16 GDN_FAST=0: launches over {TRAIN_STEPS} "
-            f"steps {want}; losses {losses} against the plain versions' "
-            f"{plain}, max relative difference {rel:.3e} (limit 2e-2); "
-            "step-1 gradients finite and non-zero")
-        check(rel <= 2e-2, f"bf16 GDN_FAST=0 losses differ by {rel:.3e}")
-        del plain_step
+    launches, _ = counted_steps(torch, x, "highest", {"CAE_TPU_GDN_FAST": "0"},
+                                torch.bfloat16, GDN_FAST_OFF_STEP,
+                                TRAIN_STEPS, 2e-2, "phase 15 (c) bf16 "
+                                "GDN_FAST=0")
     grads0 = None
     for mode in ANALYTIC_MODES:
         with switched("highest", {"CAE_TPU_ANALYTIC_ENT": mode}):
@@ -6531,6 +6583,226 @@ def phase_precisions(torch, model, core):
     plus_into(totals, precision_training(torch))
     log(f"phase 15: {time.perf_counter() - t0:.1f} s; launches of its "
         f"round trips and steps {totals}")
+    return records, totals
+
+
+# -- phase 16 ----------------------------------------------------------------
+
+# launches a float32 train step at "default" and "high": K1 on the three
+# unfused GDN layers, K4's training variant in mode 4 or 5 on the fused one
+LOW_PRECISION_STEPS = {
+    "default": {"gdn_fwd": 3, "conv_gdn_train_fwd_bf16x1": 1},
+    "high": {"gdn_fwd": 3, "conv_gdn_train_fwd_bf16x3": 1},
+}
+# the steps' losses against the plain run's, relative.  "default" rounds
+# operands to bf16 at every convolution, as the bf16 mode does, so a
+# last-bit difference between a kernel and its plain version moves some
+# operands by 2^-8: the first loss moved by 2.6e-5 through the CLI, and
+# Adam's first update, lr * sign(g), carried step-1 gradients 2.1e-3 apart
+# (of a tensor's max) into 2.0e-4 at step 2 (H100 80GB HBM3); it takes
+# the bf16 mode's limit.  "high" (bf16_3x, near float32) keeps float32's
+LOW_PRECISION_LIMITS = {"default": 2e-2, "high": 1e-5}
+# a validation batch at "default": the serving variants
+DEFAULT_VALIDATION = {"gdn_fwd": 3, "conv_gdn_fwd_bf16x1": 1}
+# -s 1 gives 2 steps, then the last step's validation
+LOW_CLI_STEPS, LOW_CLI_VALIDATIONS = 2, 1
+# CAE_TPU_POLYPHASE_CONV=1 in bf16: the down stage unfused, so every GDN
+# layer takes K1 on bf16 rows in serving and K2 / K3 in training
+POLYPHASE_RUNS = (("bf16 POLYPHASE_CONV=1", "bf16",
+                   {"CAE_TPU_POLYPHASE_CONV": "1"}, {"gdn_fwd_bf16": 4}),)
+POLYPHASE_STEP = {"gdn_train_fwd": 4, "gdn_train_bwd": 4}
+# the RD sweep's CAE half: 2 holdouts of 1024^2 through the 'cae' core in
+# bf16 (its default without CAE_TPU_PRECISION), each 4 batches of one
+# 512^2 tile (``default_batch_tiles`` splits an image into at least 4):
+# K4 and K1 a batch in the encode, K1 twice in the decode
+SWEEP_IMAGES, SWEEP_SIDE, SWEEP_BATCHES = 2, 1024, 4
+SWEEP_LAUNCHES = {"gdn_fwd_bf16": 3 * SWEEP_BATCHES * SWEEP_IMAGES,
+                  "conv_gdn_fwd_bf16": SWEEP_BATCHES * SWEEP_IMAGES}
+LOW_TIMED = 3       # steps timed after the counted ones, each precision
+
+
+def low_precision_kernels(torch, model, rng):
+    """(a) K4's training variant in modes 4 and 5 at the flagship's train
+    shape (16, 128, 128, 128) -> 128 and at (2, 18, 14, 72) -> 41 against
+    ``conv_gdn_train_plain`` (out and y within 1e-4 of max |out| and max
+    |y|), timed by CUDA events beside the plain version and the bound;
+    returns {kernel name: record at the flagship's shape}."""
+    from cnn_autoencoder_tpu_torch.ops.kernels import conv_gdn_kernel as cg
+    unit = model.encoder.down_1
+    out = {}
+    with torch.no_grad():
+        kernel = unit.conv_down.kernel_hwio()
+        gamma, beta = unit.gdn_down.effective_params()
+        x = torch.from_numpy(rng.rand(TRAIN_BATCH, TRAIN_PATCH // 2,
+                                      TRAIN_PATCH // 2, 128)
+                             .astype(np.float32)).cuda()
+        odd = (torch.from_numpy(rng.rand(2, 18, 14, 72).astype(np.float32))
+               .cuda(), torch.from_numpy((rng.randn(3, 3, 72, 41) * 0.05)
+                                         .astype(np.float32)).cuda(),
+               torch.from_numpy((0.1 * rng.rand(41, 41)).astype(np.float32))
+               .cuda(), torch.from_numpy((1 + rng.rand(41))
+                                         .astype(np.float32)).cuda())
+        for mode in (cg.F32_BF16X1, cg.F32_BF16X3):
+            name = cg.TRAIN_NAMES[mode]
+            for args in ((x, kernel, gamma, beta), odd):
+                err = check_conv_train_case(
+                    torch, *args, f"{name} {tuple(args[0].shape)}", mode)
+                ms = cuda_ms(torch, lambda: cg.conv_gdn_train_cuda(*args,
+                                                                   mode), 10)
+                plain_ms = cuda_ms(torch, lambda: cg.conv_gdn_train_plain(
+                    *args, mode), 3)
+                bms, by, _ = k4_bound(args[0], args[1].shape[3], True, mode)
+                log(f"{name} {tuple(args[0].shape)} -> {args[1].shape[3]} "
+                    f"[{CARD}]: max abs {err:.3e}; kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                    f"{100 * bms / ms:.1f}% of it")
+                if args[0] is x:
+                    out[name] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bms,
+                                     bound_by=by,
+                                     shape=list(args[0].shape))
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def low_precision_steps(torch, x):
+    """(b) The flagship's bare float32 step at "default" and "high":
+    launches exact, step-1 gradients finite and non-zero, losses against
+    the plain versions' run within ``LOW_PRECISION_LIMITS``, ms a step
+    (host clock) and the device time of one step (torch.profiler).
+    Returns the launches."""
+    totals = {}
+    for precision, per_step in LOW_PRECISION_STEPS.items():
+        launches, losses = counted_steps(
+            torch, x, precision, {}, torch.float32, per_step, TRAIN_STEPS,
+            LOW_PRECISION_LIMITS[precision], f"phase 16 (b) {precision}")
+        plus_into(totals, launches)
+        with switched(precision, {}):
+            _, _, step = train_setup(torch, torch.float32, x)
+            step(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(2, LOW_TIMED + 2):
+                step(i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / LOW_TIMED * 1e3
+            dev = device_ms(torch, lambda: step(LOW_TIMED + 2), 1)
+            del step
+        log(f"phase 16 (b) {precision} [{CARD}]: {ms:.3f} ms a step (mean "
+            f"of {LOW_TIMED}, host clock), device time {dev:.3f} ms a step")
+    torch.cuda.empty_cache()
+    return totals
+
+
+def low_precision_cli(torch, work):
+    """(c) The train CLI's ``main`` at ``CAE_TPU_PRECISION=default`` on
+    phase 8's slides: 2 steps and a validation, launches exact, losses
+    against the same run through the plain versions within
+    ``LOW_PRECISION_LIMITS["default"]``.  Returns the launches."""
+    write_cli_slides(work)
+    _, losses, times, launches, wall = cli_run(torch, work, "default",
+                                               "default", steps=1)
+    want = {}
+    for per, n in ((LOW_PRECISION_STEPS["default"], LOW_CLI_STEPS),
+                   (DEFAULT_VALIDATION, LOW_CLI_VALIDATIONS)):
+        for name, k in per.items():
+            want[name] = want.get(name, 0) + k * n
+    check(len(losses) == LOW_CLI_STEPS and {
+        k: n for k, n in launches.items() if n} == want,
+        f"CLI default: {len(losses)} steps, launches {launches}, expected "
+        f"{want}")
+    with plain_versions():
+        _, plain, _, _, _ = cli_run(torch, work, "default", "default_plain",
+                                    steps=1)
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    limit = LOW_PRECISION_LIMITS["default"]
+    log(f"phase 16 (c) train CLI at default [{CARD}]: launches {want}; "
+        f"losses {losses} against the plain versions' {plain}, relative "
+        f"differences {', '.join(f'{r:.3e}' for r in rels)} (limit "
+        f"{limit:g}); main() {wall:.1f} s, step 2 {1e3 * times[-1]:.3f} ms")
+    check(max(rels) <= limit, f"CLI default: losses differ by {rels}")
+    return launches
+
+
+def rd_sweep_half(torch, work):
+    """(e) The RD sweep's CAE half (``tools/rd_sweep.py:run_cae``, its
+    precision bf16 as ``CAE_TPU_PRECISION`` is unset) and its merge on 2
+    zarr holdouts of 1024^2: launches exact, the CSV row the harness's
+    returned stats as formatted.  Returns the launches."""
+    from cnn_autoencoder_tpu_torch.ops import convops
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.tools import rd_sweep
+    img_dir, log_dir = (os.path.join(work, "holdout"),
+                        os.path.join(work, "stats"))
+    os.makedirs(log_dir)
+    rd_sweep.write_holdout(img_dir, SWEEP_IMAGES, SWEEP_SIDE, fmt="zarr")
+    env = os.environ.pop("CAE_TPU_PRECISION", None)
+    found = convops.get_default_precision()
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        (stats,) = rd_sweep.run_cae(img_dir, log_dir, work,
+                                    rd_sweep.cae_points(CHECKPOINT),
+                                    SLIDE_PATCH, device="cuda",
+                                    source_format="zarr")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+    finally:
+        if env is not None:
+            os.environ["CAE_TPU_PRECISION"] = env
+    check({k: n for k, n in launches.items() if n} == SWEEP_LAUNCHES,
+          f"rd_sweep CAE half: launches {launches}, expected "
+          f"{SWEEP_LAUNCHES}")
+    check(convops.get_default_precision() == found,
+          "rd_sweep CAE half: the precision was not restored")
+    rows = rd_sweep.merge(work, log_dir)
+    row = ("CAE", "1", stats["rate_stats"]["avg"], stats["psnr_stats"]["avg"],
+           stats["ms-ssim_stats"]["avg"], stats["ssim_stats"]["avg"],
+           stats["delta_cielab_stats"]["avg"])
+    with open(os.path.join(work, "rd_sweep.csv")) as f:
+        lines = f.read().splitlines()
+    want = "%s,%s,%.4f,%.2f,%.4f,%.4f,%.3f" % row
+    check(rows == [row] and lines == [rd_sweep.CSV_HEADER.strip(), want],
+          f"rd_sweep merge: CSV {lines}, expected {want}")
+    log(f"phase 16 (e) rd_sweep CAE half [{CARD}]: {SWEEP_IMAGES} zarr "
+        f"holdouts of {SWEEP_SIDE}^2, bf16, launches {SWEEP_LAUNCHES}, "
+        f"{wall:.2f} s; CSV row {want}")
+    return launches
+
+
+def phase_low_precision_training(torch, model, core):
+    """Phase 16: training at "default" and "high", K4's training variant in
+    modes 4 and 5, CAE_TPU_POLYPHASE_CONV=1 in bf16 and the RD sweep's CAE
+    half on the card; returns (records of the new kernel variants, the
+    launches of the main-path runs)."""
+    import shutil
+    rng = np.random.RandomState(16)
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase16")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        records = low_precision_kernels(torch, model, rng)
+        x = synthetic_batch(torch)
+        totals = low_precision_steps(torch, x)
+        plus_into(totals, low_precision_cli(torch, work))
+        imgs = np.stack([image(512, 512, seed) for seed in range(TILES)])
+        plus_into(totals, precision_round_trips(
+            torch, model, core, imgs, POLYPHASE_RUNS, "phase 16 (d)"))
+        launches, _ = counted_steps(
+            torch, x, "highest", {"CAE_TPU_POLYPHASE_CONV": "1"},
+            torch.bfloat16, POLYPHASE_STEP, 1, 2e-2,
+            "phase 16 (d) bf16 POLYPHASE_CONV=1")
+        plus_into(totals, launches)
+        plus_into(totals, rd_sweep_half(torch, work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s; launches of its steps, "
+        f"runs and round trips {totals}")
     return records, totals
 
 
@@ -6580,6 +6852,11 @@ def main():
                                                              core)
     records.update(precision_records)
     for name, n in precision_launches.items():
+        launches[name] += n
+    low_records, low_launches = phase_low_precision_training(torch, model,
+                                                             core)
+    records.update(low_records)
+    for name, n in low_launches.items():
         launches[name] += n
     check(all(launches[name] > 0 for name in records),
           f"a kernel was not launched on the main paths: {launches}")

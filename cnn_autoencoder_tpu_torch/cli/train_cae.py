@@ -12,8 +12,10 @@ checkpoint (``.msgpack`` or a reference ``.pth``), with its optimizer and
 scheduler state under ``--resume-optimizers``.  Checkpoints are the JAX
 package's files and load in either package.
 
-The compute type is ``ops/convops.py``'s default precision ("highest":
-float32, "bf16": bf16 activations); the dropout masks and the bottleneck's
+The compute type is ``ops/convops.py``'s default precision
+(``CAE_TPU_PRECISION``: "highest", "high" and "default" float32, the last
+two with one-pass or bf16_3x convolution products, "bf16" bf16
+activations); the dropout masks and the bottleneck's
 training noise come from one ``torch.Generator`` on the device, seeded from
 ``-rs``.  The architecture flags (``-res``, ``-bn``, ``-do``, ``-act``, the
 widths) reach the model; ``last_`` and ``best_`` checkpoints carry a
@@ -80,8 +82,8 @@ from ..utils.args import get_args, parse_typed_arguments
 from ..utils.device import resolve_device
 from ..utils.weights import state_to_jax
 
-# the compute type of each default precision (training runs "highest" and
-# "bf16"; the step raises at "default" and "high", ROADMAP.md item 14b)
+# the compute type of each default precision ("default" and "high" train
+# float32 activations with their convolutions' products in both directions)
 COMPUTE_DTYPES = {"highest": torch.float32, "default": torch.float32,
                   "high": torch.float32, "bf16": torch.bfloat16}
 

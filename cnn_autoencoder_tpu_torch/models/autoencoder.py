@@ -139,7 +139,7 @@ class DownsamplingUnit(_Unit):
         if mode is not None:
             gamma, beta = self.gdn_down.effective_params()
             x = fused_conv_gdn(x.contiguous(), self.conv_down.kernel_hwio(),
-                               gamma, beta, mode)
+                               gamma, beta, mode, compute_dtype)
         else:
             x = self._norm("norm_down", self.conv_down(x, compute_dtype),
                            train, batch_stats)

@@ -12,7 +12,10 @@ package's compute mode.  Float32 inputs convolve in full float32 (TF32
 off, the JAX package's HIGHEST), or, at the serving precisions "default"
 and "high" (``layer_precision``), on bf16-rounded operands in one pass or
 on their bf16 hi/lo parts in three (hi hi + hi lo + lo hi, the TPU's
-bf16_3x), with float32 sums and outputs.  bf16 inputs take the JAX
+bf16_3x), with float32 sums and outputs, and a backward that transposes
+each convolution at the same precision (``_LowPrecision``, as XLA's
+transpose rules differentiate the JAX package's DEFAULT and HIGH
+convolutions).  bf16 inputs take the JAX
 package's default route in the bf16 mode: bf16 operands (the float32
 weights rounded to bf16) with float32 sums, the sums stored as bf16, then
 the bias added in bf16 with a second rounding (``_native_conv_out``,
@@ -52,9 +55,9 @@ pays for).  Any other geometry takes the JAX package's own dilated form:
 zero-dilate, pad, and a forward convolution with the flipped weight (the
 ``lhs_dilation`` lowering, ``ops/convops.py:405-460`` there).  The JAX
 package's polyphase strided conv (``CAE_TPU_POLYPHASE_CONV=1``,
-``:262-299`` there) adds three bf16 roundings in the bf16 mode and raises
-there (ROADMAP.md item 14b); on float32 rows it changes only the order of
-float32 sums and is not read.
+``:262-299`` there) takes the place of the border form in the bf16 mode
+(``polyphase_form``: four convs, three more bf16 roundings); on float32
+rows it changes only the order of float32 sums and is not read.
 """
 
 import functools
@@ -77,8 +80,7 @@ BF16 = torch.bfloat16
 # and convolutions; "default" and "high" float32 activations whose
 # convolutions multiply in one bf16 pass or in bf16_3x (the TPU's DEFAULT
 # and HIGH), the GDN pool staying float32; "bf16" bf16 activations end to
-# end (bf16 operands, float32 sums).  Training at "default" or "high"
-# raises (ROADMAP.md §1 item 14b).
+# end (bf16 operands, float32 sums).
 PRECISIONS = {"highest": torch.float32, "high": torch.float32,
               "default": torch.float32, "bf16": BF16}
 
@@ -96,8 +98,8 @@ _DEFAULT_PRECISION = _precision_name(
 
 
 def set_default_precision(name: str) -> None:
-    """Serve at ``name``: "highest" (float32) or "bf16".  Codec cores built
-    after the call take it."""
+    """Serve and train at ``name``: "highest", "high", "default" or
+    "bf16".  Codec cores built after the call take it."""
     global _DEFAULT_PRECISION
     _DEFAULT_PRECISION = _precision_name(name)
 
@@ -153,24 +155,70 @@ def _bf16_parts(t: torch.Tensor):
     return hi, (t - hi).to(BF16).float()
 
 
-def _low_precision(conv, x: torch.Tensor, weight: torch.Tensor,
-                   precision: str) -> torch.Tensor:
-    """A float32 convolution ``conv(x, w)`` (float32 sums) at the default
-    or high precision: bf16-rounded operands, or the bf16_3x products
-    lo hi + hi lo + hi hi, small terms first (the caller adds the bias in
-    float32).  bf16 values are exact in TF32, so cuDNN and cuBLAS may take their
-    tensor cores.  Serving only: the backward of these precisions is not
-    ported."""
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        raise switches.not_ported(f"training at the {precision!r} "
-                                  "precision")
-    weight = weight.float()
-    if _float32_product(precision) == "bf16x1":
-        y = conv(x.to(BF16).float(), weight.to(BF16).float())
-    else:
+def _conv_grads(g, x, weight, geometry, mask, product):
+    """(dx, dw) of the NCHW convolution ``geometry`` = (stride, padding,
+    transposed, output_padding, groups) at the cotangent g, each transposed
+    product at ``product``, as XLA's transpose rules carry a precision into
+    both transposed convolutions: "float32" (TF32 off), "bf16x1" (g, x and
+    the weight rounded to bf16, float32 sums), "bf16x3" (the bf16_3x
+    products of the hi/lo parts of each transpose's two operands, small
+    terms first), or "bf16" (bf16 operands and gradients, ``conv_mixed``'s
+    ``raw_same``).  ``mask``: which of dx and dw to compute."""
+    stride, padding, transposed, output_padding, groups = geometry
+
+    def grads(gg, xx, ww):
+        with full_f32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                gg, xx, ww, None, [stride] * 2, [padding] * 2, [1, 1],
+                transposed, [output_padding] * 2, groups, list(mask) + [False])
+        return dx, dw
+
+    if product == "float32":
+        return grads(g, x, weight)
+    if product == "bf16":
+        return grads(g.to(BF16), x.to(BF16), weight.to(BF16))
+    if product == "bf16x1":
+        return grads(*(t.to(BF16).float() for t in (g, x, weight)))
+    (gh, gl), (xh, xl), (wh, wl) = map(_bf16_parts, (g, x, weight))
+    dx_hh, dw_hh = grads(gh, xh, wh)
+    dx_lh, dw_hl = grads(gl, xh, wh)  # dx: g lo w hi; dw: x hi g lo
+    dx_hl, dw_lh = grads(gh, xl, wl)  # dx: g hi w lo; dw: x lo g hi
+    return (None if dx_hh is None else dx_lh + dx_hl + dx_hh,
+            None if dw_hh is None else dw_lh + dw_hl + dw_hh)
+
+
+class _LowPrecision(torch.autograd.Function):
+    """A float32 convolution ``conv(x, w)`` (NCHW, float32 sums) at the
+    default or high precision: bf16-rounded operands, or the bf16_3x
+    products lo hi + hi lo + hi hi, small terms first (the caller adds the
+    bias in float32, so its gradient is the float32 sum of g).  bf16 values
+    are exact in TF32, so cuDNN and cuBLAS may take their tensor cores.
+    The backward transposes the convolution of ``geometry`` at the same
+    precision (``_conv_grads``), as XLA differentiates the JAX package's
+    DEFAULT and HIGH convolutions."""
+
+    @staticmethod
+    def forward(ctx, x, weight, product, geometry, conv):
+        ctx.save_for_backward(x, weight)
+        ctx.product, ctx.geometry = product, geometry
+        weight = weight.float()
+        if product == "bf16x1":
+            return conv(x.to(BF16).float(), weight.to(BF16).float())
         (xh, xl), (wh, wl) = _bf16_parts(x), _bf16_parts(weight)
-        y = conv(xl, wh) + conv(xh, wl) + conv(xh, wh)
-    return y
+        return conv(xl, wh) + conv(xh, wl) + conv(xh, wh)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = _conv_grads(g, x, weight, ctx.geometry,
+                             ctx.needs_input_grad[:2], ctx.product)
+        return dx, dw, None, None, None
+
+
+def _low_precision(conv, x, weight, precision, geometry):
+    """``_LowPrecision`` at ``precision``'s product."""
+    return _LowPrecision.apply(x, weight, _float32_product(precision),
+                               geometry, conv)
 
 
 def xavier_uniform_torchlike_(weight: torch.Tensor, fan_in: int,
@@ -246,11 +294,10 @@ class _ConvMixed(torch.autograd.Function):
         xb, wb = ctx.saved_tensors
         stride, groups, transposed = ctx.geometry
         p = 1 if transposed else 0
-        need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dx, dw, _ = torch.ops.aten.convolution_backward(
-            g.to(torch.bfloat16), xb, wb, None, [stride] * 2, [p, p],
-            [1, 1], transposed, [p, p], groups, [need_x, need_w, False])
-        db = g.sum((0, 2, 3)) if ctx.has_bias and need_b else None
+        dx, dw = _conv_grads(g, xb, wb, (stride, p, transposed, p, groups),
+                             ctx.needs_input_grad[:2], "bf16")
+        db = (g.sum((0, 2, 3)) if ctx.has_bias and ctx.needs_input_grad[2]
+              else None)
         return (None if dx is None else dx.to(g.dtype),
                 None if dw is None else dw.float(), db, None, None, None)
 
@@ -329,9 +376,10 @@ class Conv2dReflect(nn.Module):
                                  self.stride, self.groups, False)
         elif _float32_product(precision) != "float32":
             y = _low_precision(
-                lambda a, w: F.conv2d(self._padded(a), w, stride=self.stride,
-                                      groups=self.groups),
-                x, self.weight, precision)
+                functools.partial(F.conv2d, stride=self.stride,
+                                  groups=self.groups),
+                self._padded(x), self.weight, precision,
+                (self.stride, 0, False, 0, self.groups))
             if self.bias is not None:
                 y = y + self.bias.float()[:, None, None]
         else:
@@ -346,9 +394,10 @@ class Conv2dReflect(nn.Module):
         k, (h, w) = self.weight.shape[-1], x.shape[2:]
         s2 = (k == 3 and self.stride == 2 and h % 2 == 0 and w % 2 == 0
               and min(h, w) >= 2)
-        if s2:
-            switches.check_polyphase_conv()
-        if not switches.native_conv_out():
+        native = switches.native_conv_out()
+        if s2 and switches.polyphase_conv():
+            return self._polyphase(x, native)
+        if not native:
             # float32 sums with the bias, one rounding
             return _ConvMixed.apply(self._padded(x).float(), self.weight,
                                     self.bias, self.stride, self.groups,
@@ -363,6 +412,45 @@ class Conv2dReflect(nn.Module):
                              groups=self.groups)
         return y if self.bias is None else y + self.bias.to(BF16)[:, None,
                                                                    None]
+
+    def _polyphase(self, x: torch.Tensor, native: bool) -> torch.Tensor:
+        """``CAE_TPU_POLYPHASE_CONV=1`` on bf16 NCHW rows, the 3x3 stride-2
+        reflect conv as four stride-1 convs (``polyphase_form``), each
+        differentiated by ``conv_mixed``'s rule.  With ``native`` each
+        conv's sums are stored as bf16, the three adds and then the bias
+        round in bf16; else the convs give float32, summed with the bias
+        and rounded once."""
+        if native:
+            y = polyphase_form(x, self.weight, lambda a, w: F.conv2d(
+                a, w.to(BF16), groups=self.groups))
+            return y if self.bias is None else y + self.bias.to(BF16)[
+                :, None, None]
+        y = polyphase_form(x, self.weight, lambda a, w: _ConvMixed.apply(
+            a.float(), w, None, 1, self.groups, False))
+        if self.bias is not None:
+            y = y + self.bias.float()[:, None, None]
+        return y.to(BF16)
+
+
+def polyphase_form(x: torch.Tensor, weight: torch.Tensor, conv
+                   ) -> torch.Tensor:
+    """The JAX package's ``conv_s2_reflect_polyphase`` on NCHW x (even H
+    and W): a 3x3 stride-2 reflect conv as four VALID stride-1 convs over
+    the parity phases, tap (a, b) multiplying x[2i + a - 1, 2j + b - 1].
+    Reflected row -1 is row 1, the odd rows' first, so the odd phases are
+    edge-padded by one row or column.  ``conv(inp, w)`` returns a conv's
+    output as it is stored; the adds run in that type, in JAX's order."""
+    ev, od = x[:, :, 0::2], x[:, :, 1::2]
+    od = torch.cat([od[:, :, :1], od], 2)
+    xee, xeo = ev[..., 0::2], ev[..., 1::2]
+    xoe, xoo = od[..., 0::2], od[..., 1::2]
+    xeo = torch.cat([xeo[..., :1], xeo], 3)
+    xoo = torch.cat([xoo[..., :1], xoo], 3)
+    with full_f32():
+        y = conv(xee, weight[:, :, 1:2, 1:2])
+        y = y + conv(xoe, weight[:, :, 0::2, 1:2])
+        y = y + conv(xeo, weight[:, :, 1:2, 0::2])
+        return y + conv(xoo, weight[:, :, 0::2, 0::2])
 
 
 def border_form(x: torch.Tensor, weight: torch.Tensor, conv) -> torch.Tensor:
@@ -565,8 +653,12 @@ class ConvTranspose2dTorch(nn.Module):
         mixed = _mixed(x, precision)
         if not mixed and _float32_product(precision) != "float32":
             y = _low_precision(
-                lambda a, w: self._transposed(a, w, None, polyphase, False),
-                x, self.weight, precision)
+                lambda a, w: self._transposed(a.permute(0, 2, 3, 1), w, None,
+                                              polyphase, False)
+                .permute(0, 3, 1, 2),
+                x.permute(0, 3, 1, 2), self.weight, precision,
+                (self.stride, self.padding, True, self.output_padding,
+                 self.groups)).permute(0, 2, 3, 1)
             return y if self.bias is None else y + self.bias.float()
         weight, bias = _conv_operands(x, self.weight, self.bias)
         return self._transposed(x, weight, bias, polyphase, mixed)

@@ -31,18 +31,21 @@ the tensor cores in one of six modes, each a function of the JAX package
 ``conv_gdn_mode`` picks the mode from the rows' type, the compute mode and
 the switches, read at call time as the JAX package reads them.  Under
 ``CAE_TPU_GDN_FAST=0`` the bf16 mode's default route has a float32 pool on
-bf16 y, which no mode computes: ``conv_gdn_mode`` returns None and the
-stage runs unfused (``Conv2dReflect``, then K1 or K2 on bf16 rows with the
-float32 pool).  ``conv_gdn_cuda`` serves in every mode and counts its
+bf16 y, and under ``CAE_TPU_POLYPHASE_CONV=1`` the polyphase conv's
+roundings, which no mode computes: ``conv_gdn_mode`` returns None and the
+stage runs unfused (``Conv2dReflect``, then K1, or K2 and K3, on bf16
+rows).  ``conv_gdn_cuda`` serves in every mode and counts its
 launches under the mode's kernel name (``SERVING_NAMES``: modes 2 and 3
 share ``conv_gdn_fwd_bf16``); ``conv_gdn_train_cuda``, the training
-variant, takes modes 0, 2 and 3 and counts them likewise
+variant, takes every mode but 1 and counts them likewise
 (``TRAIN_NAMES``).
 
 ``fused_conv_gdn`` is the differentiable entry (the JAX ``fused_conv_gdn``
-custom VJP).  In mode 0 its backward is JAX's ``_fused_bwd``: the norm
-recomputed from y in full float32, ``dnorm``, ``dy``, ``dgamma`` and
-``dbeta`` as torch ops, then the reflect-pad conv's own gradients.  In
+custom VJP).  In modes 0, 4 and 5 its backward is JAX's ``_fused_bwd``
+(mode 0) or the default route's float32 GDN and conv (modes 4 and 5): the
+norm recomputed from y in full float32, ``dnorm``, ``dy``, ``dgamma`` and
+``dbeta`` as torch ops, then the reflect-pad conv's own gradients at the
+float32 precision in force ("highest", "default" or "high").  In
 modes 2 and 3 it is the default route's: ``gdn_mixed``'s
 (``gdn_mixed_bwd``: K3, ``dgamma`` over its bf16 ``dnb`` and ``dbeta``
 over the float32 ``dnorm``), then ``conv_mixed``'s.
@@ -57,7 +60,8 @@ import torch.nn.functional as F
 
 from ...utils.device import full_f32
 from .. import switches
-from ..convops import border_form, layer_precision, reflect_pad
+from ..convops import (_conv_grads, _float32_product, border_form,
+                       layer_precision, reflect_pad)
 from .build import check_launch, load_library, stream_handle
 from .gdn_kernel import _norm, gdn_mixed_bwd, gdn_plain
 
@@ -71,14 +75,13 @@ def conv_gdn_mode(dtype: torch.dtype, compute_dtype=None) -> Optional[int]:
     """The mode the down stage takes now for rows of ``dtype`` in the
     compute mode ``compute_dtype`` (``convops.layer_precision``), or None
     where it runs unfused (the bf16 mode's default route under
-    ``CAE_TPU_GDN_FAST=0``)."""
+    ``CAE_TPU_GDN_FAST=0`` or ``CAE_TPU_POLYPHASE_CONV=1``)."""
     pallas = switches.pallas_fused_conv()
     precision = layer_precision(compute_dtype)
     if dtype == BF16:
         if pallas:
             return PALLAS_BF16
-        switches.check_polyphase_conv()
-        if not switches.gdn_fast():
+        if switches.polyphase_conv() or not switches.gdn_fast():
             return None
         if switches.border_conv() and switches.native_conv_out():
             return BORDER_BF16
@@ -235,7 +238,9 @@ class _Launches:
 SERVING = {name: _Launches(name) for name in SERVING_NAMES.values()}
 # the training variant's, in the modes that train
 TRAIN_NAMES = {F32: "conv_gdn_train_fwd", ROUND_BF16: "conv_gdn_train_fwd_bf16",
-               BORDER_BF16: "conv_gdn_train_fwd_bf16"}
+               BORDER_BF16: "conv_gdn_train_fwd_bf16",
+               F32_BF16X1: "conv_gdn_train_fwd_bf16x1",
+               F32_BF16X3: "conv_gdn_train_fwd_bf16x3"}
 TRAIN = {name: _Launches(name) for name in TRAIN_NAMES.values()}
 
 
@@ -259,8 +264,8 @@ def conv_gdn_cuda(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
 def conv_gdn_train_cuda(x: torch.Tensor, kernel: torch.Tensor,
                         gamma: torch.Tensor, beta: torch.Tensor,
                         mode: Optional[int] = None):
-    """K4, training (want_y) variant in modes 0, 2 and 3 (None: the mode
-    now), counted under ``TRAIN_NAMES[mode]``: (out, y, r) as
+    """K4, training (want_y) variant in modes 0, 2, 3, 4 and 5 (None: the
+    mode now), counted under ``TRAIN_NAMES[mode]``: (out, y, r) as
     ``conv_gdn_train_plain`` returns them; raises on what it does not
     take."""
     mode = conv_gdn_mode(x.dtype) if mode is None else mode
@@ -291,25 +296,24 @@ def conv_gdn_train(x, kernel, gamma, beta, mode: Optional[int] = None):
     return conv_gdn_train_cuda(x, kernel, gamma, beta, mode)
 
 
-def _reflect_conv_grads(x, kernel, dy, need_x, need_kernel):
+def _reflect_conv_grads(x, kernel, dy, need_x, need_kernel, product):
     """(dx, dkernel) of the reflect-pad 3x3/s2 conv at the cotangent dy
-    (NHWC), in x's compute type: for bf16 x the cotangent is rounded to
-    bf16 and the kernel's gradient widened to float32 (the mixed-precision
-    rule of the JAX package's ``conv_mixed``).  The pad's own backward
-    folds the reflected border into dx, in a fixed order
-    (``convops.reflect_pad``)."""
-    cd = x.dtype
-    w = kernel.detach().permute(3, 2, 0, 1).to(cd)
-    d = dy.permute(0, 3, 1, 2).to(cd)
+    (NHWC), each transposed product at ``product`` (``convops.
+    _conv_grads``): "bf16" for bf16 x (``conv_mixed``'s rule: the cotangent
+    rounded to bf16, the kernel's gradient widened to float32), else the
+    float32 precision's.  The pad's own backward folds the reflected border
+    into dx, in a fixed order (``convops.reflect_pad``)."""
+    w = kernel.detach().permute(3, 2, 0, 1)
     with torch.enable_grad():
         xd = x.detach().requires_grad_(need_x)
         xp = reflect_pad(xd.permute(0, 3, 1, 2), 1)
+    dxp, dw = _conv_grads(dy.permute(0, 3, 1, 2), xp.detach(), w,
+                          (2, 0, False, 0, 1), (need_x, need_kernel),
+                          product)
     dx = dkernel = None
     if need_x:
-        dxp = torch.nn.grad.conv2d_input(xp.shape, w, d, stride=2)
-        (dx,) = torch.autograd.grad(xp, xd, dxp)
+        (dx,) = torch.autograd.grad(xp, xd, dxp.to(x.dtype))
     if need_kernel:
-        dw = torch.nn.grad.conv2d_weight(xp.detach(), w.shape, d, stride=2)
         dkernel = dw.float().permute(2, 3, 1, 0)
     return dx, dkernel
 
@@ -317,9 +321,10 @@ def _reflect_conv_grads(x, kernel, dy, need_x, need_kernel):
 class _FusedConvGDN(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, kernel, gamma, beta, mode):
+    def forward(ctx, x, kernel, gamma, beta, mode, product):
         out, y, r = conv_gdn_train(x, kernel, gamma, beta, mode)
         ctx.save_for_backward(x, kernel, gamma, beta, y, r)
+        ctx.product = product
         return out
 
     @staticmethod
@@ -331,10 +336,9 @@ class _FusedConvGDN(torch.autograd.Function):
             dy, dgamma, dbeta = gdn_mixed_bwd(
                 g.contiguous().view(-1, c), y.view(-1, c), r.view(-1, c),
                 gamma, False, need_g, need_b)
-            with full_f32():
-                dx, dkernel = _reflect_conv_grads(x, kernel, dy.view(y.shape),
-                                                  need_x, need_k)
-            return dx, dkernel, dgamma, dbeta, None
+            dx, dkernel = _reflect_conv_grads(x, kernel, dy.view(y.shape),
+                                              need_x, need_k, "bf16")
+            return dx, dkernel, dgamma, dbeta, None, None
         with full_f32():
             y2 = y * y
             norm = torch.matmul(y2, gamma.t()) + beta
@@ -345,18 +349,24 @@ class _FusedConvGDN(torch.autograd.Function):
             dgamma = (torch.matmul(dnorm.reshape(-1, c).t(), y2.reshape(-1, c))
                       if need_g else None)
             dbeta = dnorm.sum((0, 1, 2)) if need_b else None
-            dx, dkernel = _reflect_conv_grads(x, kernel, dy, need_x, need_k)
-        return dx, dkernel, dgamma, dbeta, None
+        dx, dkernel = _reflect_conv_grads(x, kernel, dy, need_x, need_k,
+                                          ctx.product)
+        return dx, dkernel, dgamma, dbeta, None, None
 
 
 def fused_conv_gdn(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
-                   beta: torch.Tensor, mode: Optional[int] = None
-                   ) -> torch.Tensor:
+                   beta: torch.Tensor, mode: Optional[int] = None,
+                   compute_dtype=None) -> torch.Tensor:
     """reflect-pad -> 3x3/s2 conv -> GDN in ``mode`` (None: the mode now
-    for x's type).  When a gradient is wanted, the training variant with
-    its backward (modes 0, 2, 3); otherwise the serving variant.  CPU
-    tensors take the plain versions, CUDA tensors the kernel."""
-    mode = conv_gdn_mode(x.dtype) if mode is None else mode
+    for x's type in the compute mode ``compute_dtype``).  When a gradient
+    is wanted, the training variant with its backward, whose conv
+    transposes run at the precision of ``compute_dtype``
+    (``convops.layer_precision``), not at the forward's mode: under
+    ``CAE_TPU_PALLAS=1`` at "default" or "high" the JAX package's forward
+    is its HIGHEST kernel (mode 0) and its ``_fused_bwd`` transposes
+    ``_reflect_conv`` at DEFAULT or HIGH.  Otherwise the serving variant.
+    CPU tensors take the plain versions, CUDA tensors the kernel."""
+    mode = conv_gdn_mode(x.dtype, compute_dtype) if mode is None else mode
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, kernel, gamma, beta)):
         if mode == PALLAS_BF16:
@@ -364,8 +374,15 @@ def fused_conv_gdn(x: torch.Tensor, kernel: torch.Tensor, gamma: torch.Tensor,
                 "bf16 training under CAE_TPU_PALLAS=1: the JAX package's "
                 "jax.grad of its fused conv + GDN stage raises a TypeError "
                 "there (ROADMAP.md §3, found in the reference)")
-        if mode not in (F32,) + ROUNDED:
-            raise switches.not_ported(f"the fused stage's backward in "
-                                      f"mode {mode}")
-        return _FusedConvGDN.apply(x, kernel, gamma, beta, mode)
+        precision = layer_precision(compute_dtype)
+        if mode in ROUNDED:
+            product = "bf16"
+        elif precision == "bf16":
+            raise ValueError(
+                "the fused stage does not train float32 rows in the bf16 "
+                "mode (the JAX package's GDN there is gdn_mixed); no unit "
+                "sends them to it, a batch norm's output never meets it")
+        else:
+            product = _float32_product(precision)
+        return _FusedConvGDN.apply(x, kernel, gamma, beta, mode, product)
     return conv_gdn(x, kernel, gamma, beta, mode)

@@ -2,8 +2,7 @@
 computes, read at call time from the environment as the JAX package reads
 them (its modules read them when a layer is traced).
 
-Each is ported (the layers compute the function it selects) or raises
-``ValueError`` naming the ROADMAP item that would port it.  The switches
+Each is ported: the layers compute the function it selects.  The switches
 that do not change the function are not read: ``CAE_TPU_GDN_ROW_TILE``
 (the result does not depend on the tile) and
 ``CAE_TPU_DISABLE_NATIVE_RANS`` (the same bytes).
@@ -69,6 +68,10 @@ def border_conv() -> bool:
 
 
 def polyphase_conv() -> bool:
+    """``CAE_TPU_POLYPHASE_CONV=1``: the bf16 mode's 3x3 stride-2 reflect
+    convs as four stride-1 convs on the parity phases (JAX
+    ``conv_s2_reflect_polyphase``, ahead of the border form); float32 rows
+    do not read it (it changes only the order of float32 sums)."""
     return _env("CAE_TPU_POLYPHASE_CONV", "0").lower() == "1"
 
 
@@ -94,16 +97,3 @@ def analytic_ent() -> str:
     """``CAE_TPU_ANALYTIC_ENT``: "0" autodiff of the likelihood chain, "1",
     "2" and "bf16" its analytic backwards (``models/entropy.py``)."""
     return _env("CAE_TPU_ANALYTIC_ENT", "0")
-
-
-def not_ported(what: str) -> ValueError:
-    """The error for a function the port does not compute yet."""
-    return ValueError(f"{what} is not ported (ROADMAP.md §1 item 14b)")
-
-
-def check_polyphase_conv() -> None:
-    """``CAE_TPU_POLYPHASE_CONV=1`` adds three bf16 roundings to the bf16
-    mode's strided convs (JAX ``conv_s2_reflect_polyphase``), which the
-    port does not compute."""
-    if polyphase_conv():
-        raise not_ported("CAE_TPU_POLYPHASE_CONV=1 in the bf16 mode")

@@ -2,7 +2,8 @@
 package's ``scripts/compute_metrics.py``.
 
     python -m cnn_autoencoder_tpu_torch.tools.compute_metrics -sd src \
-        -dd tmp -sf png -df JPEG -cq 80 -ld logs [-li _id]
+        -dd tmp -sf png -df JPEG -cq 80 -ld logs [-li _id] \
+        [--device cpu]
 
 Compresses every source image at a given quality, computes RMSE, MS-SSIM,
 SSIM, PSNR and delta-E with bpp from the stored file size, and saves
@@ -110,8 +111,10 @@ def main(argv=None, device=None):
                         dest="comp_quality", default=100)
     parser.add_argument("-li", "--log-id", type=str, dest="log_identifier",
                         default="")
+    parser.add_argument("--device", type=str, dest="device", default=None,
+                        help="where the metrics run (default: the card)")
     args = parser.parse_args(argv)
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None else args.device)
 
     # case/dot-insensitive source format; '.jpg' files match 'jpeg'
     key = args.src_format.lower().lstrip(".")

@@ -7,8 +7,11 @@ bottleneck's auxiliary quantile loss touch disjoint parameters, so one
 backward serves both), and the per-slot optimizer update.  Its compute type
 is explicit, the counterpart of ``convops.set_default_precision``:
 
-* ``torch.float32``: the network runs in full float32; TF32 stays off in
-  the forward and in the backward convolutions and products.
+* ``torch.float32``: the network runs in float32 at the default
+  precision's float32 form (``convops.layer_precision``): in full float32
+  at "highest" (TF32 off in the forward and in the backward convolutions
+  and products), or with the convolutions' products at "default" or
+  "high" in both directions, as XLA transposes the JAX package's.
 * ``torch.bfloat16``: the batch is cast to bf16 and the network carries bf16
   activations (convs with bf16 operands and float32 sums, GDN through K2
   and K3); the distortion target stays the float32 batch.  Batch norms
@@ -47,9 +50,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.tasks import fold_batch_stats, make_forward_fn, module_runner
-from ..ops import switches
 from ..ops.batchnorm import BatchNorm
-from ..ops.convops import get_default_precision
 from ..parallel.distributed import world_size
 from ..utils.device import full_f32
 from .optim import apply_module_updates
@@ -61,14 +62,6 @@ def _check_dtype(compute_dtype):
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                          f"got {compute_dtype}")
-
-
-def _check_precision(compute_dtype):
-    """Float32 training takes the highest precision: the backward of the
-    "default" and "high" convolutions is not ported."""
-    precision = get_default_precision()
-    if compute_dtype == torch.float32 and precision in ("default", "high"):
-        raise switches.not_ported(f"training at the {precision!r} precision")
 
 
 def _net_aux(model, trainable_modules: Sequence[str] = (),
@@ -176,7 +169,6 @@ def make_train_step(model, criterion, optimizers,
     docstring; ``x``, ``t``, ``noise`` and ``masks`` are then this rank's
     share of the global batch); it is set on the model's batch norms."""
     _check_dtype(compute_dtype)
-    _check_precision(compute_dtype)
     _set_batch_norm_group(model, group)
     trainable = [m for m in (trainable_modules or []) if hasattr(model, m)]
     forward = make_forward_fn(model, enabled_modules, trainable, remat=remat)

@@ -454,6 +454,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
              lambda: conv_gdn_cuda(*conv_args, F32_BF16X3),
              lambda: conv_gdn_train_cuda(*conv_args),
              lambda: conv_gdn_train_cuda(*conv_args_b),
+             lambda: conv_gdn_train_cuda(*conv_args, F32_BF16X1),
+             lambda: conv_gdn_train_cuda(*conv_args, F32_BF16X3),
              lambda: encode_states_cuda(i, i[0], i[0], i[0], i[0, 0]),
              lambda: compact_cuda(state, 64),
              lambda: decode_interleaved_cuda(q, i[0], i[0], 2)]
@@ -466,6 +468,7 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         "conv_gdn_fwd", "conv_gdn_fwd_pallas_bf16", "conv_gdn_fwd_bf16",
         "conv_gdn_fwd_bf16x1",
         "conv_gdn_fwd_bf16x3", "conv_gdn_train_fwd", "conv_gdn_train_fwd_bf16",
+        "conv_gdn_train_fwd_bf16x1", "conv_gdn_train_fwd_bf16x3",
         "rans_encode_states",
         "rans_compact", "rans_decode"}
     assert all(fn.launches == 0 for fn in kernel_wrappers())
