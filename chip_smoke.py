@@ -319,9 +319,25 @@ Phases, in order; any failure exits non-zero:
    the RD sweep's CAE half (``tools/rd_sweep.py:run_cae``, bf16 as
    ``CAE_TPU_PRECISION`` is unset) on 2 zarr holdouts of 1024^2, launches
    exact, and its merge: the CSV row the harness's stats as formatted.
-17. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
-   runs of phases 3, 5, 8 (a), 9, 10, 11, 12 (b), 13, 14, 15 (b), (c) and
-   16 (b)-(e)), then the last line ``{"ok": true, "device": {...}}``.
+17. The model mesh axis (channel tensor parallelism) on the one card,
+   ranks over gloo: (a) the train CLI's ``main`` over ``devices=["cuda:0"]
+   * 2`` under ``CAE_TPU_MODEL_PARALLEL=2`` (data 1 x model 2), flagship
+   float32 and bf16, 3 steps and a validation, against one process:
+   losses within 1e-5 / 2e-2 relative, every rank's launches one
+   process's, step-1 gradients finite and non-zero, only rank 0 writing,
+   ``last_`` with one process's keys and shapes and served through
+   ``CAETurboCore`` on phase 3's 16 tiles with phase 3's checks; ms a step
+   and a rank's parameter bytes beside one process's; (b) phase 5's float32
+   step over a (2, 2) mesh of four ranks (subprocesses), 3 steps against
+   one process within 1e-5, launches exact per rank, ms a step, the model
+   axis's gathers and partial sums timed in a fourth step, a rank's
+   parameter and optimizer bytes; (c) phase 3's 16 tiles through both
+   cores over a (2, 2) mesh, float32 and bf16: frames byte-equal to one
+   device's, launches a data shard as phase 13 (a) counts them.
+18. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   runs of phases 3, 5, 8 (a), 9, 10, 11, 12 (b), 13, 14, 15 (b), (c),
+   16 (b)-(e) and 17), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
 non-zero and prints no result.
@@ -5356,13 +5372,13 @@ def expect_launches(label, launches, want):
           f"{label}: launches {launches}, expected {want}")
 
 
-def mesh_turbo(torch, one, mesh_core, imgs, mode, totals):
+def mesh_turbo(torch, one, mesh_core, imgs, mode, totals, tag="(a)"):
     """One counted round trip of ``imgs`` through the mesh's turbo core:
     frames byte-equal to the one-device core's, decodes bit-equal,
     symbols lossless, launches per shard exact.  Returns (frames, rec)."""
     n = MESH_SHARDS
     gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
-    label = f"(a) cae_tpu {mode}, {len(imgs)} tiles over {n} shards"
+    label = f"{tag} cae_tpu {mode}, {len(imgs)} tiles over {n} shards"
     retries = mesh_core.capacity_retries
     (frames, rec), launches = counted(torch, lambda: (
         lambda f: (f, mesh_core.decode_tiles(f)))(
@@ -5387,12 +5403,12 @@ def mesh_turbo(torch, one, mesh_core, imgs, mode, totals):
     return frames, rec
 
 
-def mesh_cae(torch, one, mesh_core, imgs, mode, totals):
+def mesh_cae(torch, one, mesh_core, imgs, mode, totals, tag="(a)"):
     """The 'cae' core over the mesh: host frames byte-equal to the
     one-device core's, decodes bit-equal, K1 and K4 per shard."""
     n = MESH_SHARDS
     gdn = "gdn_fwd" if mode == "float32" else "gdn_fwd_bf16"
-    label = f"(a) cae {mode}, {len(imgs)} tiles over {n} shards"
+    label = f"{tag} cae {mode}, {len(imgs)} tiles over {n} shards"
     (frames, rec), launches = counted(torch, lambda: (
         lambda f: (f, mesh_core.decode_tiles(f)))(
             mesh_core.encode_tiles(imgs)))
@@ -5532,6 +5548,8 @@ class StepProbe:
                             for name, m in model.named_modules()
                             if isinstance(m, BatchNorm)
                             for k in ("mean", "var")}
+            out["param_bytes"] = sum(p.numel() * p.element_size()
+                                     for p in model.parameters())
         if step == self.last_step and dist.is_initialized():
             flat = torch.cat([g.reshape(-1).float() for g in leaves])
             dist.all_reduce(flat)
@@ -6806,6 +6824,327 @@ def phase_low_precision_training(torch, model, core):
     return records, totals
 
 
+# -- phase 17 ----------------------------------------------------------------
+
+AXIS_DATA, AXIS_MODEL = 2, 2    # (b) and (c): four ranks or shards on the card
+AXIS_TIMED = 2                  # (b): steps 2-3 timed, then one with the
+                                # model axis's collectives timed on their own
+
+
+def axis_rank(work):
+    """(b)'s subprocess: one rank of the bare float32 step over a (2, 2)
+    mesh of gloo ranks on the one card (its group from
+    ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``), phase
+    5's batch and model, its data index's 8 rows and its model index's
+    parameter shards; prints its report."""
+    import torch
+    import torch.distributed as dist
+    from cnn_autoencoder_tpu_torch.criteria.loss import setup_loss
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.parallel import distributed
+    from cnn_autoencoder_tpu_torch.parallel.mesh import shard_model
+    from cnn_autoencoder_tpu_torch.training.loop import make_train_step
+    from cnn_autoencoder_tpu_torch.training.optim import setup_optimizers
+    check(distributed.initialize_multihost(backend="gloo", device="cuda:0"),
+          "initialize_multihost formed no group")
+    try:
+        rank = dist.get_rank()
+        group, model_group = distributed.mesh_groups(AXIS_DATA, AXIS_MODEL)
+        x = synthetic_batch(torch)[distributed.local_batch_slice(
+            TRAIN_BATCH, AXIS_MODEL)]
+        model = autoencoder_from_state_dict(CHECKPOINT, device="cuda").train()
+        full_bytes = sum(p.numel() * p.element_size()
+                         for p in model.parameters())
+        shard_model(model, model_group, rank % AXIS_MODEL, AXIS_MODEL)
+        trainable = ["encoder", "decoder", "fact_ent"]
+        optimizers = setup_optimizers(model, trainable)
+        step = make_train_step(model, setup_loss("RateMSE",
+                                                 distortion_lambda=0.01),
+                               optimizers, trainable_modules=trainable,
+                               group=group, model_group=model_group)
+        lrs = {k: TRAIN_LR for k in optimizers}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses, times, grads_ok = [], [], None
+        for i in range(1, TRAIN_STEPS + 1):
+            t0 = time.perf_counter()
+            stats, grads = step(x, lrs, i, generator=gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(stats["loss"]))
+            if i == 1:
+                grads_ok = all(bool(torch.isfinite(g).all())
+                               and float(g.abs().max()) > 0
+                               for gs in grads.values() for g in gs.values())
+        launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+        # one more step with the model axis's collectives timed by host
+        # clock, each between two synchronizes
+        spent = {"gather": [0.0, 0, 0], "sum": [0.0, 0, 0]}
+
+        def timed(kind, fn):
+            def run(t, *args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(t, *args)
+                torch.cuda.synchronize()
+                rec = spent[kind]
+                rec[0] += time.perf_counter() - t0
+                rec[1] += 1
+                rec[2] += out.numel() * out.element_size()
+                return out
+            return run
+
+        saved = distributed.all_gather_axis, distributed._all_reduce_f32
+        distributed.all_gather_axis = timed("gather", saved[0])
+        distributed._all_reduce_f32 = timed("sum", saved[1])
+        try:
+            t0 = time.perf_counter()
+            step(x, lrs, TRAIN_STEPS + 1, generator=gen)
+            torch.cuda.synchronize()
+            instrumented = time.perf_counter() - t0
+        finally:
+            distributed.all_gather_axis, distributed._all_reduce_f32 = saved
+        opt_bytes = sum(t.numel() * t.element_size() for s in optimizers.values()
+                        for d in (s.mu, s.nu, s.acc) for t in d.values())
+        report = dict(
+            rank=rank, losses=losses, grads_ok=grads_ok, launches=launches,
+            step_ms=1e3 * sum(times[1:]) / AXIS_TIMED,
+            instrumented_ms=1e3 * instrumented,
+            collectives={k: dict(ms=1e3 * v[0], calls=v[1], bytes=v[2])
+                         for k, v in spent.items()},
+            param_bytes=sum(p.numel() * p.element_size()
+                            for p in model.parameters()),
+            full_param_bytes=full_bytes, opt_bytes=opt_bytes)
+    finally:
+        dist.destroy_process_group()
+    print("AXIS_REPORT " + json.dumps(report), flush=True)
+
+
+def axis_ranks_start(work):
+    """(b)'s four ranks as subprocesses through a ``file://`` rendezvous."""
+    n = AXIS_DATA * AXIS_MODEL
+    env = dict(os.environ, COORDINATOR_ADDRESS="file://" + os.path.join(
+        work, "axis_rendezvous"), NUM_PROCESSES=str(n))
+    return [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.axis_rank(sys.argv[1])", work], cwd=ROOT,
+        env=dict(env, PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(n)]
+
+
+def axis_reference(torch):
+    """(b)'s one process: phase 5's float32 step, 3 counted steps and 2
+    timed; (losses, ms a step, parameter bytes, optimizer bytes)."""
+    x = synthetic_batch(torch)
+    model, _, step = train_setup(torch, torch.float32, x)
+    times, losses = [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        losses.append(float(step(i)[0]["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    param = sum(p.numel() * p.element_size() for p in model.parameters())
+    del model, step
+    torch.cuda.empty_cache()
+    return losses, 1e3 * sum(times[1:]) / AXIS_TIMED, param, 3 * param
+
+
+def axis_ranks_check(torch, procs, ref, totals):
+    """(b)'s checks on the ranks of ``axis_ranks_start``."""
+    ref_losses, ref_ms, ref_param, ref_opt = ref
+    reports = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            check(p.returncode == 0, f"(b) rank exited {p.returncode}: "
+                  f"{out[-2000:]} {err[-3000:]}")
+            reports.append(json.loads(out.split("AXIS_REPORT ", 1)[1]
+                                      .splitlines()[0]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    want = {k: n * TRAIN_STEPS for k, n in STEP_LAUNCHES["float32"].items()}
+    lines = []
+    for r in sorted(reports, key=lambda r: r["rank"]):
+        tag = f"(b) rank {r['rank']} (data {r['rank'] // AXIS_MODEL}, model " \
+              f"{r['rank'] % AXIS_MODEL})"
+        expect_launches(tag, r["launches"], want)
+        plus_into(totals, r["launches"])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                      ref_losses))
+        check(r["grads_ok"] and rel <= 1e-5, f"{tag}: step-1 gradients "
+              f"finite and non-zero {r['grads_ok']}, losses {r['losses']} "
+              f"against one process's {ref_losses} ({rel:.3e} > 1e-5)")
+        check(r["param_bytes"] < r["full_param_bytes"], f"{tag}: parameters "
+              f"of {r['param_bytes']} bytes, not sharded")
+        g, s = r["collectives"]["gather"], r["collectives"]["sum"]
+        lines.append(
+            f"rank {r['rank']}: losses within {rel:.3e}, {r['step_ms']:.3f} "
+            f"ms a step (steps 2-3); step 4 with its model-axis collectives "
+            f"timed {r['instrumented_ms']:.3f} ms, gathers {g['ms']:.3f} ms "
+            f"({g['calls']} calls, {g['bytes']} bytes out), partial sums "
+            f"{s['ms']:.3f} ms ({s['calls']} calls, {s['bytes']} bytes); "
+            f"parameters {r['param_bytes']} of {r['full_param_bytes']} "
+            f"bytes, optimizer state {r['opt_bytes']} bytes")
+    log(f"(b) bare float32 step over a ({AXIS_DATA}, {AXIS_MODEL}) mesh of "
+        f"gloo ranks on the one card [{CARD}], {TRAIN_BATCH} x "
+        f"{TRAIN_PATCH}^2 ({TRAIN_BATCH // AXIS_DATA} a data index), "
+        f"{TRAIN_STEPS} steps against one process (losses {ref_losses}, "
+        f"{ref_ms:.3f} ms a step, parameters {ref_param} bytes, optimizer "
+        f"state {ref_opt} bytes); launches exact per rank: "
+        + "; ".join(lines))
+
+
+def axis_serving(torch, model, core, core16, totals):
+    """(c) Both cores over a (2, 2) mesh of the one card, float32 and
+    bf16: each data shard on its model group's first device, frames
+    byte-equal to one device's, launches a data shard as phase 13 (a)
+    counts them."""
+    from cnn_autoencoder_tpu_torch.parallel.mesh import (create_mesh,
+                                                         data_devices)
+    from cnn_autoencoder_tpu_torch.storage.cae_codec import CAECodecCore
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
+    mesh = create_mesh(data=AXIS_DATA, model=AXIS_MODEL,
+                       devices=["cuda:0"] * (AXIS_DATA * AXIS_MODEL))
+    check(mesh.shape == {"data": AXIS_DATA, "model": AXIS_MODEL}
+          and len(data_devices(mesh)) == AXIS_DATA == MESH_SHARDS,
+          f"(c) mesh {mesh.shape}")
+    imgs = np.stack([image(512, 512, seed) for seed in range(TILES)])
+    for mode, one in (("float32", core), ("bf16", core16)):
+        dtype = one.base.compute_dtype
+        m_turbo = CAETurboCore(model, num_streams=1024, mesh=mesh,
+                               compute_dtype=dtype)
+        check(len(m_turbo.shards) == AXIS_DATA, "(c) turbo core shards")
+        m_turbo.decode_tiles(m_turbo.encode_tiles(imgs))    # warm-up
+        tag = f"(c) ({AXIS_DATA}, {AXIS_MODEL}) mesh,"
+        mesh_turbo(torch, one, m_turbo, imgs, mode, totals, tag)
+        mesh_cae(torch, one.base, CAECodecCore(model, mesh=mesh,
+                                               compute_dtype=dtype),
+                 imgs, mode, totals, tag)
+
+
+def axis_cli(torch, work, mode, totals):
+    """(a) in ``mode``: the train CLI under ``CAE_TPU_MODEL_PARALLEL=2``
+    over ``devices=["cuda:0"] * 2`` (data 1 x model 2, gloo) against one
+    process: losses, launches a rank, step-1 gradients, the files,
+    ``last_``'s keys and shapes, and rank 0's ``last_`` served through
+    ``CAETurboCore`` with phase 3's checks.  Returns its log line."""
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
+    from cnn_autoencoder_tpu_torch.training.checkpoint import load_checkpoint
+    label = f"axis_{mode}"
+    one_dir, one, one_wall = mesh_cli_run(torch, work, "flagship", mode,
+                                          None, ["cuda:0"], label + "_one")
+    os.environ["CAE_TPU_MODEL_PARALLEL"] = str(AXIS_MODEL)
+    try:
+        two_dir, two, two_wall = mesh_cli_run(
+            torch, work, "flagship", mode, None, ["cuda:0"] * AXIS_MODEL,
+            label + "_two")
+    finally:
+        del os.environ["CAE_TPU_MODEL_PARALLEL"]
+    rtol = 1e-5 if mode == "float32" else 2e-2
+    check([(r["rank"], r["ranks"]) for r in two]
+          == [(i, AXIS_MODEL) for i in range(AXIS_MODEL)],
+          f"(a) {mode}: reports {[(r['rank'], r['ranks']) for r in two]}")
+    want = cli_expected(mode, ARCH_STEPS, ARCH_VALIDATIONS)
+    ref = [s["loss"] for s in one[0]["on_step"]]
+    worst = 0.0
+    for r in [one[0]] + two:
+        tag = f"(a) {mode} rank {r['rank']} of {r['ranks']}"
+        expect_launches(tag, r["launches"], want)
+        plus_into(totals, r["launches"])
+        steps = r["on_step"]
+        losses = [s["loss"] for s in steps]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        worst = max(worst, rel)
+        check(len(steps) == ARCH_STEPS and steps[0]["grads_ok"]
+              and rel <= rtol, f"{tag}: {len(steps)} steps, step-1 "
+              f"gradients finite and non-zero {steps[0]['grads_ok']}, "
+              f"losses {losses} against one process's {ref} ({rel:.3e} > "
+              f"{rtol})")
+    with open(next(os.path.join(two_dir, f) for f in os.listdir(two_dir)
+                   if f.endswith(".log"))) as f:
+        logs = f.read()
+    paths = cli_checkpoints(two_dir)
+    check(set(paths) == {"last", "best"}
+          and f"Training mesh: data=1 x model={AXIS_MODEL}" in logs
+          and "Rank 0 of 2" in logs and "Rank 1" not in logs,
+          f"(a) {mode}: the files of the model-axis run: "
+          f"{sorted(os.listdir(two_dir))}")
+    a, b = (dict(tree_leaves({m: load_checkpoint(p)[m] for m in
+                              ("encoder", "decoder", "fact_ent")}))
+            for p in (paths["last"], cli_checkpoints(one_dir)["last"]))
+    check(a.keys() == b.keys() and all(np.shape(a[k]) == np.shape(b[k])
+                                       for k in b),
+          f"(a) {mode}: rank 0's last_ has other keys or shapes than one "
+          "process's")
+    served = autoencoder_from_state_dict(paths["last"], device="cuda")
+    imgs = np.stack([image(512, 512, seed) for seed in range(TILES)])
+    launches, rec = serving_round_trip(
+        torch, served, CAETurboCore(served, num_streams=1024,
+                                    device="cuda"), imgs, "float32")
+    plus_into(totals, launches)
+
+    def step_ms(report):
+        t = [s["t"] for s in report["on_step"]]
+        return 1e3 * (t[-1] - t[0]) / (len(t) - 1)
+
+    return (f"{mode}: losses {[round(s['loss'], 6) for s in two[0]['on_step']]}"
+            f" within {worst:.3e} (limit {rtol}) of one process's; "
+            f"{step_ms(one[0]):.3f} ms a step on one process, "
+            f"{step_ms(two[0]):.3f} / {step_ms(two[1]):.3f} on the two ranks "
+            f"(steps 2-3, host clock); parameters a rank "
+            f"{two[0]['on_step'][0]['param_bytes']} of "
+            f"{one[0]['on_step'][0]['param_bytes']} bytes; main() "
+            f"{one_wall:.1f} / {two_wall:.1f} s; rank 0's last_ serves "
+            f"{TILES} tiles at {rec['psnr']:.3f} dB, {rec['bpp']:.4f} bpp")
+
+
+def phase_model_axis(torch, model, core, core16):
+    """Phase 17: the model mesh axis on the one card; returns its launches
+    for the ``kernels`` line.  (b)'s four ranks start while (c) and the
+    slides run; (a)'s runs follow them."""
+    import shutil
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase17")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    totals, procs = {}, []
+    try:
+        ref = axis_reference(torch)
+        procs = axis_ranks_start(work)
+        t1 = time.perf_counter()
+        axis_serving(torch, model, core, core16, totals)
+        write_cli_slides(work)
+        t2 = time.perf_counter()
+        axis_ranks_check(torch, procs, ref, totals)
+        t3 = time.perf_counter()
+        lines = [axis_cli(torch, work, mode, totals)
+                 for mode in ("float32", "bf16")]
+        log(f"(a) the train CLI under CAE_TPU_MODEL_PARALLEL={AXIS_MODEL} "
+            f"[{CARD}], data 1 x model {AXIS_MODEL} over gloo on the one "
+            f"card, {CLI_BATCH} x {CLI_PATCH}^2, {ARCH_STEPS} steps and 1 "
+            "validation; every rank's launches one process's, only rank 0 "
+            "wrote, last_ with one process's keys and shapes: "
+            + "; ".join(lines))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s ((b)'s one process "
+        f"{t1 - t0:.1f} s, (c) and the slides {t2 - t1:.1f} s beside (b)'s "
+        f"ranks, their end {t3 - t2:.1f} s, (a) {time.perf_counter() - t3:.1f}"
+        f" s); launches {totals}")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6857,6 +7196,8 @@ def main():
                                                              core)
     records.update(low_records)
     for name, n in low_launches.items():
+        launches[name] += n
+    for name, n in phase_model_axis(torch, model, core, core16).items():
         launches[name] += n
     check(all(launches[name] > 0 for name in records),
           f"a kernel was not launched on the main paths: {launches}")

@@ -15,8 +15,9 @@ under ``CAE_TPU_PACKED_THRESHOLD_MBPS``): environment variables, as in the
 JAX CLI, with no flag.  On the card (``device=None``) the CAE cores serve
 over ``parallel/mesh.py:serving_mesh()``: with more than one visible card
 every batch shards over all of them, one contiguous shard a card (off
-with ``CAE_TPU_SERVE_MESH=0``; the ``model`` axis waits for
-``ROADMAP.md`` item 10b).  ``cli()`` joins a multi-process start
+with ``CAE_TPU_SERVE_MESH=0``; a core given a ``(data, model)`` mesh
+serves each data shard on the first device of its model group, as the
+JAX cores replicate over ``model``).  ``cli()`` joins a multi-process start
 (``parallel/distributed.py:initialize_multihost``); only rank 0 writes
 the store, the other ranks log and exit, as the JAX CLI's do.
 """

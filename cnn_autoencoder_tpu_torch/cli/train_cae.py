@@ -34,21 +34,28 @@ Devices and processes (the JAX CLI's training mesh and multi-host start,
 in PyTorch's idiom of one process a card): ``main(args, device=None,
 devices=None)`` trains on ``devices`` (default: ``[device]`` when it is
 given, else every visible card; ``None`` without a card raises, the tests
-pass ``"cpu"``).  Data parallelism takes the largest divisor of both batch
-sizes that fits the devices (JAX ``cli/train_cae.py:396-403``); above one,
-``main`` starts one rank a device with ``torch.multiprocessing`` (spawn)
-and a ``file://`` rendezvous in the log directory, over NCCL when every
-rank has a card of its own and gloo on the CPU or where ranks share a card
-(``parallel/distributed.py``), and waits for them.  A process already
-started as a rank (the JAX package's ``COORDINATOR_ADDRESS`` /
-``NUM_PROCESSES`` / ``PROCESS_ID``, or torchrun's variables) joins its
-group instead, on ``cuda:LOCAL_RANK``, and both batch sizes must divide by
-the number of ranks.  Every rank reads the same global batches, keeps its
-contiguous share (``local_batch_slice``; a ragged batch is cut to a
-multiple of the ranks, with one log line) and steps data-parallel
-(``training/loop.py``); only rank 0 writes the log, ``last_`` / ``best_``
-and the stats.  ``CAE_TPU_TRAIN_MESH=0`` trains on the first device alone;
-``CAE_TPU_MODEL_PARALLEL`` above 1 raises (``ROADMAP.md`` item 10b).
+pass ``"cpu"``).  ``CAE_TPU_MODEL_PARALLEL=m`` (default 1) is the model
+axis: data parallelism takes the largest divisor of both batch sizes that
+fits ``len(devices) // m`` (JAX ``cli/train_cae.py:380-403``), and above
+one rank in all ``main`` starts ``data * m`` ranks, one a device, with
+``torch.multiprocessing`` (spawn) and a ``file://`` rendezvous in the log
+directory, over NCCL when every rank has a card of its own and gloo on the
+CPU or where ranks share a card (``parallel/distributed.py``), and waits
+for them.  A process already started as a rank (the JAX package's
+``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``, or
+torchrun's variables) joins its group instead, on ``cuda:LOCAL_RANK``;
+the number of ranks must divide by ``m``, and both batch sizes by the
+data axis's size.  Rank ``r`` is data index ``r // m``, model index ``r %
+m`` (``distributed.mesh_groups``).  Every rank reads the same global
+batches, keeps its data index's contiguous share (``local_batch_slice``;
+a ragged batch is cut to a multiple of the data axis, with one log line)
+and steps data-parallel over its data group (``training/loop.py``); under
+``m > 1`` its model holds the sharded parameters as its model index's
+slices (``parallel/mesh.py:shard_model``), and ``last_`` / ``best_`` hold
+them gathered, with the same keys, shapes and layout as one process's (a
+resume reads them whole and shards them).  Only rank 0 writes the log,
+``last_`` / ``best_`` and the stats.  ``CAE_TPU_TRAIN_MESH=0`` trains on
+the first device alone, whatever the model axis.
 """
 
 import logging
@@ -67,10 +74,10 @@ from ..data.datautils import get_data
 from ..models.factory import CAEModel, autoencoder_from_state_dict, build_model
 from ..ops.convops import get_default_precision, set_default_precision
 from ..ops.kernels import kernel_wrappers
-from ..parallel.distributed import (backend_for, initialize_multihost,
-                                    local_batch_slice, rank_device,
-                                    world_size)
-from ..parallel.mesh import (check_model_axis, create_mesh,
+from ..parallel.distributed import (backend_for, full_param,
+                                    initialize_multihost, local_batch_slice,
+                                    mesh_groups, rank_device, world_size)
+from ..parallel.mesh import (create_mesh, gather_model_state, shard_model,
                              visible_devices)
 from ..training import checkpoint as ckpt
 from ..training.loop import make_eval_step, make_train_step, valid
@@ -205,10 +212,11 @@ def _host(stats: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 def train(model, train_data, valid_data, criterion, stopping_criteria,
           optimizers, schedulers, lrs, args,
           compute_dtype: torch.dtype = torch.float32, group=None,
-          on_step=None) -> Dict:
+          on_step=None, model_group=None) -> Dict:
     """The host training loop (JAX ``cli/train_cae.py:150``) on the model's
     device, data-parallel over ``group`` when one is given (this rank
-    feeds its share of every global batch).  ``on_step(step, stats, grads,
+    feeds its data index's share of every global batch), with the model's
+    parameters held as shards over ``model_group`` when one is given.  ``on_step(step, stats, grads,
     model)``, when given, runs after every train step (sub-steps
     included) with the host stats, the step's gradients and the updated
     model.  Returns
@@ -221,13 +229,16 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
     train_step = make_train_step(model, criterion, optimizers,
                                  enabled_modules=args.enabled_modules,
                                  trainable_modules=trainable,
-                                 compute_dtype=compute_dtype, group=group)
+                                 compute_dtype=compute_dtype, group=group,
+                                 model_group=model_group)
     eval_step = make_eval_step(model, criterion,
                                enabled_modules=args.enabled_modules,
-                               compute_dtype=compute_dtype, group=group)
+                               compute_dtype=compute_dtype, group=group,
+                               model_group=model_group)
     generator = torch.Generator(device=device).manual_seed(
         int(args.seed or 0))
     n_ranks = world_size(group)
+    model_size = world_size(model_group)
     ragged_logged = [False]
     observed = []
 
@@ -243,11 +254,11 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
                 if keep < len(x) and not ragged_logged[0]:
                     ragged_logged[0] = True
                     logger.info("Ragged batch of %d (not divisible by %d "
-                                "processes): keeping %d"
+                                "data shards): keeping %d"
                                 % (len(x), n_ranks, keep))
                 if keep == 0:
                     continue
-                sl = local_batch_slice(keep)
+                sl = local_batch_slice(keep, model_size)
                 x = x[sl]
                 t = None if t is None else t[sl]
             yield (torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
@@ -300,10 +311,13 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
                 channel_e = int(np.median(channel_e_history)) \
                     if channel_e_history else -1
                 lr_str = " ".join(f"{k}={v:.2e}" for k, v in lrs.items())
+                # (gathered over the model group on every rank)
+                quantiles = (full_param(model.fact_ent, "quantiles").detach()
+                             .cpu().numpy() if hasattr(model, "fact_ent")
+                             else None)
                 log_str, curr_rec = loggers.log_info(
                     step, i + 1, len(train_data), stats,
-                    quantiles=model.fact_ent.quantiles.detach().cpu().numpy()
-                    if hasattr(model, "fact_ent") else None,
+                    quantiles=quantiles,
                     avg_loss=sum_loss / (i + 1), channel_e=channel_e,
                     step_type="Training", lr=lr_str)
                 logger.debug(log_str)
@@ -349,8 +363,11 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
 
                 scheduler_states = {k: s.state_dict()
                                     for k, s in schedulers.items()}
+                # (collectives under the model axis: every rank gathers,
+                # rank 0 writes)
                 best_valid_loss = loggers.checkpoint(
-                    step, state_to_jax(model.state_dict(), model.config),
+                    step, state_to_jax(gather_model_state(model),
+                                       model.config),
                     {k: optimizer_state_dict(s, model)
                      for k, s in optimizers.items()},
                     scheduler_states, best_valid_loss, train_loss_history,
@@ -385,7 +402,8 @@ def train(model, train_data, valid_data, criterion, stopping_criteria,
                 raise RuntimeError(
                     "no training batch survived this epoch: the loader "
                     "gave none, or its batch size is too small for %d "
-                    "processes (see the 'Ragged batch' log line)" % n_ranks)
+                    "data shards (see the 'Ragged batch' log line)"
+                    % n_ranks)
             continue
         break
     else:
@@ -405,16 +423,32 @@ def data_parallel_size(args, n_devices: int) -> int:
     return max(d for d in range(1, n_devices + 1) if g % d == 0)
 
 
-def _check_rank_batches(args, n_ranks: int) -> None:
-    """Ranks started from outside must divide both batch sizes (the JAX
-    CLI's multi-host rule)."""
+def _check_rank_batches(args, n_ranks: int, model_size: int = 1) -> int:
+    """Ranks started from outside: their count must divide by the model
+    axis's size, and both batch sizes by the data axis's (the JAX CLI's
+    multi-host rule).  Returns the data axis's size."""
+    if n_ranks % model_size:
+        raise ValueError("multi-process training over model=%d needs a "
+                         "process count divisible by it (%d)"
+                         % (model_size, n_ranks))
+    data = n_ranks // model_size
     bs = int(getattr(args, "batch_size", 0) or 0)
     vbs = int(getattr(args, "val_batch_size", 0) or 0) or bs
     for name, b in (("batch size", bs), ("validation batch size", vbs)):
-        if b % n_ranks:
+        if b % data:
             raise ValueError("multi-process training needs the global %s "
-                             "(%d) divisible by the process count (%d)"
-                             % (name, b, n_ranks))
+                             "(%d) divisible by the data-mesh size (%d)"
+                             % (name, b, data))
+    return data
+
+
+def model_parallel_size() -> int:
+    """``CAE_TPU_MODEL_PARALLEL``, the model axis's size (1 unset)."""
+    m = int(os.environ.get("CAE_TPU_MODEL_PARALLEL", "1") or 1)
+    if m < 1:
+        raise ValueError(f"CAE_TPU_MODEL_PARALLEL={m}: the model axis "
+                         "needs a size >= 1")
+    return m
 
 
 def main(args, device=None, devices=None, on_step=None) -> List[Dict]:
@@ -423,33 +457,37 @@ def main(args, device=None, devices=None, on_step=None) -> List[Dict]:
     here) is ``train``'s.  Returns one report a rank, in rank order:
     ``{"rank", "ranks", "device", "completed", "on_step", "launches"}``
     (``launches``: the rank's process's kernel launches by kernel)."""
-    check_model_axis(int(os.environ.get("CAE_TPU_MODEL_PARALLEL", "1")
-                         or 1))
+    model = model_parallel_size()
     if initialize_multihost(device=device) or dist.is_initialized():
-        n = dist.get_world_size()
-        _check_rank_batches(args, n)
+        data = _check_rank_batches(args, dist.get_world_size(), model)
         dev = rank_device() if device is None else resolve_device(device)
-        return [_train_rank(args, dev, dist.group.WORLD, on_step)]
+        return [_train_rank(args, dev, *mesh_groups(data, model),
+                            on_step=on_step)]
     if devices is None:
         devices = [device] if device is not None else visible_devices()
     # the training mesh's devices: one spelling a card, so that ranks
     # sharing one are seen to
     devices = list(create_mesh(devices=devices).devices)
     if os.environ.get("CAE_TPU_TRAIN_MESH", "1") == "0":
-        devices = devices[:1]
-    n = data_parallel_size(args, len(devices))
+        devices, model = devices[:1], 1
+    if model > len(devices):
+        raise ValueError(f"CAE_TPU_MODEL_PARALLEL={model} needs at least "
+                         f"{model} devices, {len(devices)} given")
+    data = data_parallel_size(args, len(devices) // model)
+    n = data * model
     if n == 1:
-        return [_train_rank(args, devices[0], None, on_step)]
+        return [_train_rank(args, devices[0], None, on_step=on_step)]
     devices = devices[:n]
     shared = len(set(devices)) < n
     backend = backend_for(devices[0], shared)
     logging.getLogger(args.mode + "_log").info(
-        "Training mesh: data=%d over %s (%s)" % (n, [str(d) for d in devices],
-                                                backend))
-    return _spawn_ranks(args, devices, backend, on_step)
+        "Training mesh: data=%d x model=%d over %s (%s)"
+        % (data, model, [str(d) for d in devices], backend))
+    return _spawn_ranks(args, devices, backend, on_step, model)
 
 
-def _spawn_ranks(args, devices, backend: str, on_step) -> List[Dict]:
+def _spawn_ranks(args, devices, backend: str, on_step,
+                 model: int = 1) -> List[Dict]:
     """One spawned process a device, joined through a ``file://``
     rendezvous in the log directory; their reports in rank order.  A rank
     that raises stops the others and raises here."""
@@ -462,7 +500,7 @@ def _spawn_ranks(args, devices, backend: str, on_step) -> List[Dict]:
     procs = mp.start_processes(
         _rank_worker, args=(len(devices), "file://" + rendezvous, args,
                             devices, backend, get_default_precision(),
-                            on_step, queue),
+                            on_step, queue, model),
         nprocs=len(devices), join=False, start_method="spawn")
     reports = []
     try:
@@ -481,8 +519,10 @@ def _spawn_ranks(args, devices, backend: str, on_step) -> List[Dict]:
 
 
 def _rank_worker(rank: int, n: int, rendezvous: str, args, devices,
-                 backend: str, precision: str, on_step, queue) -> None:
-    """A spawned rank: join the group, train, report, leave."""
+                 backend: str, precision: str, on_step, queue,
+                 model: int = 1) -> None:
+    """A spawned rank: join the group, form the mesh's groups, train,
+    report, leave."""
     device = devices[rank]
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -491,23 +531,32 @@ def _rank_worker(rank: int, n: int, rendezvous: str, args, devices,
                             rank=rank)
     try:
         loggers.setup_logger(args)
-        queue.put(_train_rank(args, device, dist.group.WORLD, on_step))
+        queue.put(_train_rank(args, device, *mesh_groups(n // model, model),
+                              on_step=on_step))
     finally:
         dist.destroy_process_group()
 
 
-def _train_rank(args, dev: torch.device, group, on_step) -> Dict:
-    """One process's training on ``dev``: data-parallel over ``group``, or
-    alone for ``None``."""
+def _train_rank(args, dev: torch.device, group, model_group=None,
+                on_step=None) -> Dict:
+    """One process's training on ``dev``: data-parallel over ``group``
+    (None: one data index), its parameters sharded over ``model_group``
+    (None: whole), or alone."""
     logger = logging.getLogger(args.mode + "_log")
     compute_dtype = COMPUTE_DTYPES[get_default_precision()]
-    rank, n_ranks = (0, 1) if group is None else (dist.get_rank(group),
-                                                  world_size(group))
+    alone = group is None and model_group is None
+    rank, n_ranks = (0, 1) if alone else (dist.get_rank(),
+                                          dist.get_world_size())
 
     train_data, valid_data, num_classes = get_data(args, device=dev)
     args.num_classes = num_classes
 
     model = setup_network(args, device=dev)
+    if model_group is not None:
+        # read whole (a checkpoint's or the seed's), held as this rank's
+        # slices before the optimizer makes its state
+        shard_model(model, model_group, dist.get_rank(model_group),
+                    world_size(model_group))
     criterion, stopping_criteria = setup_criteria(args,
                                                   checkpoint=args.checkpoint)
     optimizers, schedulers, lrs = setup_optim(model, args)
@@ -521,13 +570,14 @@ def _train_rank(args, dev: torch.device, group, on_step) -> Dict:
     logger.info("Criterion: %s" % args.criterion)
     logger.info("Optimizers: %s" % {k: lrs[k] for k in optimizers})
     logger.info("Compute type: %s on %s" % (compute_dtype, dev))
-    if group is not None:
+    if not alone:
         logger.info("Rank %d of %d on %s over %s"
-                    % (rank, n_ranks, dev, dist.get_backend(group)))
+                    % (rank, n_ranks, dev, dist.get_backend()))
 
     result = train(model, train_data, valid_data, criterion,
                    stopping_criteria, optimizers, schedulers, lrs, args,
-                   compute_dtype=compute_dtype, group=group, on_step=on_step)
+                   compute_dtype=compute_dtype, group=group, on_step=on_step,
+                   model_group=model_group)
     # (a wrapper swapped for its plain version has no count)
     return dict(result, rank=rank, ranks=n_ranks, device=str(dev),
                 launches={fn.kernel_name: fn.launches

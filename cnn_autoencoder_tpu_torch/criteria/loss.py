@@ -18,7 +18,11 @@ JAX package's ``criteria/loss.py:37-168``.  It sums, in this order:
 and ``num_filters`` (the auxiliary loss), ``decoder_fn`` (PenaltyB), and in
 data-parallel training ``group``, the process group over which the
 reductions that are not a mean of equal shards are taken: penalty A's
-medians and the class-weighted cross entropy's sums.
+medians and the class-weighted cross entropy's sums.  Under the model mesh
+axis ``entropy_group`` is the model group the bottleneck's parameters are
+sharded over: the auxiliary loss of the rank's channels is then summed
+over it (``distributed.sum_model``, whose backward leaves each rank's
+cotangent as it is).
 """
 
 from typing import Dict, Optional
@@ -26,6 +30,7 @@ from typing import Dict, Optional
 import torch
 
 from ..models.entropy import aux_loss_fn
+from ..parallel.distributed import sum_model
 from .classification import CLASSLOSS_LIST
 from .ratedist import (DIST_LOSS_LIST, PENALTY_LOSS_LIST, RATE_LOSS_LIST,
                        penalty_a, penalty_b)
@@ -102,6 +107,9 @@ class GeneralLoss:
             if net is not None and "fact_ent_params" in net:
                 loss_dict["entropy_loss"] = aux_loss_fn(
                     net["fact_ent_params"], net["num_filters"])
+                if net.get("entropy_group") is not None:
+                    loss_dict["entropy_loss"] = sum_model(
+                        loss_dict["entropy_loss"], net["entropy_group"])
             loss = loss + loss_dict["rate_loss"]
         if self._penalty_type == "PenaltyA":
             loss_dict.update(penalty_a(x=inputs, y=outputs["y"],

@@ -25,6 +25,16 @@ from ``jax.random``; the port draws it from an explicit ``torch.Generator``
 or takes it from the caller, so a test can give both packages the same
 noise.
 
+Under the model mesh axis the bottleneck's parameters are held as
+channel shards (``parallel/mesh.py:shard_model``), and ``forward`` works
+on the rank's channels: it takes them from the full ``y`` (their
+cotangent is partial, all-reduced in the backward:
+``distributed.copy_to_model``), slices the noise from the global draw,
+quantizes and computes the likelihood with the rank's parameters, then
+gathers ``y_q`` and the likelihood, so that the criteria and the decoder
+see whole tensors.  The auxiliary loss over the rank's channels is a
+partial, summed over the model group by the loss composer.
+
 ``update_cdf_tables`` bakes the host coder's 16-bit tables on the host, as
 the JAX package's does, bit for bit (``coding/xla_f32.py``).
 """
@@ -40,6 +50,7 @@ from ..coding import xla_f32
 from ..coding.cdf import pmf_to_quantized_cdf
 from ..ops import switches
 from ..ops.bounds import lower_bound
+from ..parallel.distributed import copy_to_model, gather_model, param_shard
 from ..utils.device import full_f32
 
 
@@ -305,9 +316,30 @@ class FactorizedEntropyBottleneck(nn.Module):
             return torch.round(y - medians) + medians
         raise ValueError(f"Invalid quantization mode: {mode}")
 
+    @property
+    def shard(self):
+        """The model-axis shard the parameters are held as, or None."""
+        return param_shard(self, "quantiles")
+
     def forward(self, y: torch.Tensor, training: bool = False,
                 noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
+        shard = self.shard
+        if shard is None:
+            return self._forward(y, training, noise, generator)
+        # the rank's channels (module docstring); the noise is the global
+        # draw's, as one process draws it
+        if training and noise is None:
+            noise = torch.rand(y.shape, generator=generator, dtype=y.dtype,
+                               device=y.device) - 0.5
+        c = y.dim() - 1
+        y_q, p_y = self._forward(
+            shard.narrow(copy_to_model(y, shard.group), c), training,
+            None if noise is None else shard.narrow(noise, c), generator)
+        return (gather_model(y_q, shard.group, c),
+                gather_model(p_y, shard.group, c))
+
+    def _forward(self, y, training, noise, generator):
         y_q = self.quantize(y, "noise" if training else "dequantize", noise,
                             generator)
         p_y = likelihood_fn(self.params(), y_q, self.num_filters,

@@ -42,6 +42,16 @@ Both layers take ``groups`` (the JAX package's ``feature_group_count``):
 ``ConvTranspose2dTorch`` in the dilated form with a grouped forward
 convolution, which sums in a fixed order as the polyphase form does.
 
+A layer whose kernel is held as a model-axis shard
+(``parallel/mesh.py:shard_model``: its output channels, and its bias
+with them) is column-parallel: its input, the same on every rank of the
+model group, enters through ``distributed.copy_to_model`` (its cotangent
+from one rank is a partial sum, all-reduced in the backward), every form
+above computes the rank's output channels with its kernel slice, and
+``distributed.gather_model`` concatenates them (its backward takes the
+rank's own channels of the cotangent).  ``kernel_hwio`` gives the
+gathered kernel, for the fused conv+GDN stage.
+
 Transposed convolutions add in a fixed order on every device, so a decode
 is bit-reproducible on the card (cuDNN's default algorithms for them add
 in a varying order).  The 3x3 stride-2 geometry of every ``deconv_up`` is
@@ -68,6 +78,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.distributed import (copy_to_model, full_param,
+                                    gather_model, param_shard)
 from ..utils.device import full_f32
 from . import switches
 
@@ -336,6 +348,18 @@ def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     return _ReflectPad.apply(x, p)
 
 
+def _column_parallel(layer: nn.Module, x: torch.Tensor,
+                     compute_dtype) -> torch.Tensor:
+    """``layer._forward`` on NHWC ``x``; with its kernel held as a
+    model-axis shard, the rank's output channels gathered over the model
+    group (module docstring)."""
+    shard = param_shard(layer, "weight")
+    if shard is None:
+        return layer._forward(x, compute_dtype)
+    y = layer._forward(copy_to_model(x, shard.group), compute_dtype)
+    return gather_model(y, shard.group, 3)
+
+
 class Conv2dReflect(nn.Module):
     """Reflect pad by k//2, then a VALID convolution (torch Conv2d with
     ``padding_mode='reflect'``)."""
@@ -360,13 +384,17 @@ class Conv2dReflect(nn.Module):
         _init_conv(self.weight, self.bias, cin, cout, generator)
 
     def kernel_hwio(self) -> torch.Tensor:
-        """The weight in the JAX package's HWIO layout (contiguous)."""
-        return self.weight.permute(2, 3, 1, 0).contiguous()
+        """The whole weight (gathered where it is held as a model-axis
+        shard) in the JAX package's HWIO layout (contiguous)."""
+        return full_param(self, "weight").permute(2, 3, 1, 0).contiguous()
 
     def _padded(self, x: torch.Tensor) -> torch.Tensor:
         return reflect_pad(x, self.pad) if self.pad else x
 
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        return _column_parallel(self, x, compute_dtype)
+
+    def _forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
         if x.dtype == BF16:
             return self._bf16(x).permute(0, 2, 3, 1)
@@ -637,6 +665,9 @@ class ConvTranspose2dTorch(nn.Module):
                    cout_g * self.groups, generator)
 
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        return _column_parallel(self, x, compute_dtype)
+
+    def _forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         polyphase = (self.weight.shape[-1], self.stride, self.padding,
                      self.output_padding, self.groups) == (3, 2, 1, 1, 1)
         if x.dtype == BF16:

@@ -26,11 +26,16 @@ type, so in the bf16 mode a GDN after a batch norm (float32 rows) takes it
 too: the layer's ``compute_dtype`` argument carries the mode, and with it
 bf16 a GDN that wants a gradient runs ``gdn_mixed`` on float32 rows (K2 on
 float32 rows with its full-float32 pool, K3 with a float32 cotangent).
+
+Under the model mesh axis ``gamma`` (by rows) and ``beta`` may be held as
+shards (``parallel/mesh.py:shard_model``): the layer gathers them and
+launches its kernel on the rank's rows, as one process does.
 """
 
 import torch
 from torch import nn
 
+from ..parallel.distributed import full_param
 from . import switches
 from .convops import layer_precision
 from .bounds import nonneg_init, nonneg_param
@@ -79,9 +84,11 @@ class GDN(nn.Module):
                                               * torch.eye(channels)))
 
     def effective_params(self):
-        """(gamma, beta) after the non-negative reparameterization."""
-        return (nonneg_param(self.gamma, 0.0),
-                nonneg_param(self.beta, self.beta_min))
+        """(gamma, beta) after the non-negative reparameterization, whole:
+        gathered over the model group where they are held as shards (the
+        JAX kernels' rule: rows split, parameters replicated)."""
+        return (nonneg_param(full_param(self, "gamma"), 0.0),
+                nonneg_param(full_param(self, "beta"), self.beta_min))
 
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         gamma, beta = self.effective_params()

@@ -5,7 +5,11 @@ Replaces ``cnn_autoencoder_tpu/ops/pallas/conv_gdn_kernel.py:_kernel`` in
 both variants: serving (the output only) and training (the TPU kernel's
 ``want_y``: the output and the pre-GDN conv output ``y``, the backward's
 residual).  Layouts are the JAX package's: NHWC input, HWIO kernel (3, 3,
-Cin, Cout), ``gamma``/``beta`` already reparameterized.  The kernel takes
+Cin, Cout), ``gamma``/``beta`` already reparameterized, whole (under the
+model mesh axis the fused stage gathers them first: the JAX kernel's
+``custom_partitioning`` rule splits rows and replicates the parameters,
+so a rank launches the kernel on its rows as one process does).  The
+kernel takes
 any Cin and Cout and even H and W (it raises otherwise), and computes on
 the tensor cores in one of six modes, each a function of the JAX package
 (``csrc/conv_gdn.cu`` sets out their arithmetic):

@@ -1,26 +1,35 @@
-"""Device meshes and the sharding rule: the port of the JAX package's
-``parallel/mesh.py``.
+"""Device meshes, the sharding rule and channel-sharded parameters: the
+port of the JAX package's ``parallel/mesh.py``.
 
 A ``DeviceMesh`` is a list of ``torch.device``s and a shape ``{"data": d,
-"model": m}``.  The JAX package hands such a mesh to GSPMD; the port runs
-it by hand:
+"model": m}``, laid out as the JAX mesh's: ``devices[i * m + j]`` is data
+index ``i``, model index ``j``.  The JAX package hands such a mesh to
+GSPMD; the port runs it by hand:
 
 * serving: ``CAECodecCore`` and ``CAETurboCore`` (``storage/``) pad a tile
   batch to a multiple of ``data`` by repeating its last tile and run each
-  contiguous shard on its mesh device, with every kernel launched per shard
-  on that device's own rows (the JAX kernels' ``custom_partitioning``
-  rules split rows the same way, with the parameters replicated);
-* training runs one process a card (``parallel/distributed.py``,
-  ``cli/train_cae.py``), so a training mesh only sizes the process group.
+  contiguous shard on ``data_devices(mesh)[i]``, the first device of its
+  model group, with every kernel launched per shard on that device's own
+  rows (the JAX kernels' ``custom_partitioning`` rules split rows the same
+  way, with the parameters replicated; the JAX cores replicate over
+  ``model``, so frames do not depend on it);
+* training runs one process a mesh device (``parallel/distributed.py``,
+  ``cli/train_cae.py``): the data axis splits the batch, and the model
+  axis holds every parameter that ``infer_param_spec`` shards as the
+  rank's slice (``shard_model``), gathered in the forward where a layer
+  needs it whole (``distributed.gather_model``).  Convolutions with a
+  sharded kernel compute the rank's output channels and gather them
+  (``ops/convops.py``), GDN and the fused conv+GDN stage gather their
+  parameters and launch their kernels on the rank's rows as one process
+  does, and the bottleneck works on the rank's channels
+  (``models/entropy.py``).
 
 A mesh's devices may repeat (``["cpu"] * 8``, ``["cuda:0", "cuda:0"]``):
 the port's counterpart of the JAX tests' spoofed 8-device CPU mesh, which
-drives every sharding branch on one device.
-
-The ``model`` axis (channel tensor parallelism, which GSPMD partitions
-from ``infer_param_spec``'s specs) is not ported: ``infer_param_spec`` is,
-as the rule alone, and a mesh with ``model > 1`` raises (``ROADMAP.md``
-item 10b).
+drives every sharding branch on one device.  ``shard_state`` and
+``gather_state`` carry a state dict to a model index's shard and back
+through the JAX layout (``utils/weights.py:state_to_jax``), so that
+``infer_param_spec`` decides each leaf as ``shard_variables`` does there.
 """
 
 import os
@@ -30,14 +39,12 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-
-MODEL_AXIS_ERROR = ("the 'model' mesh axis (channel tensor parallelism) is "
-                    "not ported; it is ROADMAP item 10b: use model=1")
+from .distributed import ModelShard, all_gather_axis, named_shards
 
 
 class DeviceMesh(NamedTuple):
     """Devices in mesh order and the axis sizes, ``{"data": d, "model":
-    m}``: ``devices[i]`` holds data shard ``i``."""
+    m}``: ``devices[i * m + j]`` is data index ``i``, model index ``j``."""
     devices: Tuple[torch.device, ...]
     shape: Dict[str, int]
 
@@ -57,16 +64,12 @@ def visible_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def check_model_axis(model: int) -> None:
-    if int(model) != 1:
-        raise ValueError(f"model={model}: {MODEL_AXIS_ERROR}")
-
-
 def create_mesh(data: Optional[int] = None, model: int = 1,
                 devices: Optional[Sequence] = None) -> DeviceMesh:
-    """A (data, model) mesh over ``devices`` (default: every visible card);
-    ``data`` defaults to all of them.  ``model`` must be 1."""
-    check_model_axis(model)
+    """A (data, model) mesh over the first ``data * model`` of ``devices``
+    (default: every visible card); ``data`` defaults to as many as fit."""
+    if int(model) < 1:
+        raise ValueError(f"model={model}: the model axis needs a size >= 1")
     devices = list(devices) if devices is not None else visible_devices()
     n = len(devices)
     if data is None:
@@ -76,6 +79,12 @@ def create_mesh(data: Optional[int] = None, model: int = 1,
                          f"{data * model} devices, {n} given")
     return DeviceMesh(tuple(_device(d) for d in devices[:data * model]),
                       {"data": int(data), "model": int(model)})
+
+
+def data_devices(mesh: DeviceMesh) -> Tuple[torch.device, ...]:
+    """The first device of each model group, in data order: where a data
+    shard runs when the model is replicated over ``model``."""
+    return mesh.devices[::mesh.shape["model"]]
 
 
 def batch_spec(ndim: int) -> Tuple[Optional[str], ...]:
@@ -161,14 +170,15 @@ def gather_batch(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
 
 def replicate(mesh: DeviceMesh, module: torch.nn.Module
               ) -> List[torch.nn.Module]:
-    """One copy of ``module`` for each mesh device, in mesh order: the
-    module itself on its own device, a deep copy on every other; a device
-    that repeats gets the same copy."""
+    """One copy of ``module`` for each data shard's device
+    (``data_devices``), in data order: the module itself on its own
+    device, a deep copy on every other; a device that repeats gets the
+    same copy."""
     import copy
     own = next(module.parameters()).device
     by_device = {}
     out = []
-    for d in mesh.devices:
+    for d in data_devices(mesh):
         if d not in by_device:
             by_device[d] = (module if d == own
                             else copy.deepcopy(module).to(d))
@@ -178,7 +188,7 @@ def replicate(mesh: DeviceMesh, module: torch.nn.Module
 
 def shard_batch(mesh: DeviceMesh, x) -> List:
     """``x``'s leading axis over the mesh's ``data`` axis: one contiguous
-    shard a device, on it.  The batch must divide evenly (the JAX
+    shard a data index, on its device (``data_devices``).  The batch must divide evenly (the JAX
     package's ``shard_batch`` asks the same of a global array)."""
     nd = mesh.shape["data"]
     if x.shape[0] % nd:
@@ -186,4 +196,85 @@ def shard_batch(mesh: DeviceMesh, x) -> List:
                          f"data={nd}")
     if not torch.is_tensor(x):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    return split_batch(x, nd, mesh.devices)
+    return split_batch(x, nd, data_devices(mesh))
+
+
+# -- the model axis: parameters held as shards --------------------------------
+
+
+def shard_state(state: Dict[str, torch.Tensor], config: Dict[str, Any],
+                model_index: int, model_size: int) -> Dict[str, torch.Tensor]:
+    """Model index ``model_index``'s shard of a ``CAEModel`` state dict, as
+    ``shard_variables`` places it on that mesh device: through the JAX
+    layout (``state_to_jax``), each leaf cut along the axis
+    ``infer_param_spec`` names, and back (float32 tensors on the host)."""
+    from ..utils.weights import state_from_jax, state_to_jax
+
+    def cut(path, leaf):
+        if isinstance(leaf, dict):
+            return {k: cut(path + (k,), v) for k, v in leaf.items()}
+        spec = infer_param_spec(path, leaf, model_size)
+        for axis, name in enumerate(spec):
+            if name == "model":
+                per = leaf.shape[axis] // model_size
+                return np.ascontiguousarray(np.take(leaf, np.arange(
+                    model_index * per, (model_index + 1) * per), axis=axis))
+        return leaf
+
+    return state_from_jax(cut((), state_to_jax(state, config)), config)
+
+
+def shard_axes(state: Dict[str, torch.Tensor], config: Dict[str, Any],
+               model_size: int) -> Dict[str, Optional[int]]:
+    """{state key: its sharded axis in the port's layout, or None where it
+    is replicated} at ``model_size``."""
+    part = shard_state(state, config, 0, model_size)
+    return {k: next((a for a, (n, f) in enumerate(zip(part[k].shape,
+                                                      v.shape)) if n != f),
+                    None) for k, v in state.items()}
+
+
+def gather_state(shards: Sequence[Dict[str, torch.Tensor]],
+                 axes: Dict[str, Optional[int]]) -> Dict[str, torch.Tensor]:
+    """The full state dict from every model index's shard, in index order
+    (``axes``: ``shard_axes`` of the full state)."""
+    return {k: shards[0][k] if a is None
+            else torch.cat([s[k] for s in shards], dim=a)
+            for k, a in axes.items()}
+
+
+def shard_model(model: torch.nn.Module, group, model_index: int,
+                model_size: int) -> torch.nn.Module:
+    """Hold ``model``'s sharded parameters as this rank's slices: each
+    becomes a new ``nn.Parameter`` of 1/``model_size`` of the leaf (so an
+    optimizer built after it keeps its state on the shard), and its module
+    records the ``ModelShard`` its layers gather by.  Architectures the
+    model axis does not take raise (``ROADMAP.md`` item 10c).  A no-op at
+    ``model_size`` 1."""
+    from ..models.autoencoder import check_model_axis_architecture
+    if model_size <= 1:
+        return model
+    check_model_axis_architecture(model.config)
+    state = model.state_dict()
+    parts = shard_state(state, model.config, model_index, model_size)
+    for key, axis in shard_axes(state, model.config, model_size).items():
+        if axis is None:
+            continue
+        where, name = key.rsplit(".", 1)
+        module = model.get_submodule(where)
+        old = getattr(module, name)
+        module.register_parameter(name, torch.nn.Parameter(
+            parts[key].to(old.device, old.dtype),
+            requires_grad=old.requires_grad))
+        module.model_shards = dict(getattr(module, "model_shards", {}), **{
+            name: ModelShard(group, model_index, model_size, axis)})
+    return model
+
+
+def gather_model_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's full state dict, every shard gathered over its model
+    group: a collective, which every rank of the group calls."""
+    shards = named_shards(model)
+    return {k: v if k not in shards else all_gather_axis(
+        v, shards[k].group, shards[k].axis)
+        for k, v in model.state_dict().items()}

@@ -38,7 +38,9 @@ its devices: ``default_batch_tiles`` rounds the batch up to a multiple of
 the ``data`` axis so tiles shard evenly, the bit-plane packer stays off
 (its buffer is compacted over the whole batch), and the coded fetch's
 gates weigh a shard's batch (``per_shard_batch``), the unit its heads
-frame.  The ``model`` axis waits for ``ROADMAP.md`` item 10b.
+frame.  A mesh with a ``model`` axis serves each data shard on the first
+device of its model group (``parallel/mesh.py:data_devices``), the model
+replicated over the axis as the JAX cores replicate it.
 
 ``decompress_latents_to_pixels`` takes ``rec_level`` other than full
 scale through a multiscale decoder's color layers, as the JAX package does.

@@ -24,7 +24,8 @@ to the device's raw pixels.  ``GLOBAL_TIMER`` counts the bytes each way.
 
 With a ``mesh`` (``parallel/mesh.py``, the JAX core's ``mesh=``) a batch is
 padded to a multiple of the ``data`` axis by repeating its last tile and
-each contiguous shard runs on its mesh device, on a replica of the model
+each contiguous shard runs on its data index's device (``data_devices``:
+the model is replicated over the ``model`` axis, as in the JAX core), on a replica of the model
 there, every kernel launched per shard; every shard's device work is
 launched before any result is fetched, and the results are gathered on the
 mesh's first device.  The bit-plane packer stays single-device (its buffer
@@ -59,7 +60,7 @@ from ..coding.pixel_rans import (_CAP_BUCKET, RansFetchResult,
 from ..models.entropy import medians_fn, update_cdf_tables
 from ..models.factory import autoencoder_from_state_dict
 from ..ops.convops import core_precision, get_activations_dtype
-from ..parallel.mesh import (check_model_axis, gather_batch, replicate,
+from ..parallel.mesh import (data_devices, gather_batch, replicate,
                              split_batch)
 from ..training.checkpoint import msgpack_restore, msgpack_serialize
 from ..utils.device import resolve_device
@@ -111,12 +112,14 @@ class CAECodecCore:
     keeps (``precision``) and hands its model's layers.  The encoder and the
     decoder run in eval mode (``train=False``: batch norms on their running
     statistics, no dropout) whatever the model's ``training`` flag, as the
-    JAX cores apply them.  ``mesh``: a data mesh to shard batches over
-    (the model moves to its first device; ``device`` is then unused)."""
+    JAX cores apply them.  ``mesh``: a ``(data, model)`` mesh to shard
+    batches over its data axis, each shard on the first device of its
+    model group with the model replicated, as the JAX cores replicate
+    over ``model`` (the model moves to the mesh's first device;
+    ``device`` is then unused)."""
 
     def __init__(self, model, device=None, compute_dtype=None, mesh=None):
         if mesh is not None:
-            check_model_axis(mesh.shape["model"])
             device = mesh.devices[0]
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -155,7 +158,7 @@ class CAECodecCore:
     def _shard_cores(self) -> List["CAECodecCore"]:
         models = replicate(self.mesh, self.model)
         by_model = {}
-        for d, m in zip(self.mesh.devices, models):
+        for d, m in zip(data_devices(self.mesh), models):
             if id(m) not in by_model:
                 by_model[id(m)] = self._on_device(d, m)
         return [by_model[id(m)] for m in models]

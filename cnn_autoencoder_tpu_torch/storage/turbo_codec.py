@@ -26,8 +26,9 @@ on (``CAE_TPU_PACKED_FETCH``) but no transport is (``coding/pixel_rans.py``,
 
 With a ``mesh`` (``parallel/mesh.py``) a batch is padded to a multiple of
 the ``data`` axis by repeating its last tile, and each contiguous shard
-runs the model, K6's state pass and compactions, and K5 on its own mesh
-device (the JAX core's ``shard_map``); every shard's device work is
+runs the model, K6's state pass and compactions, and K5 on its data
+index's device (``data_devices``; the JAX core's ``shard_map`` over
+``data``, replicated over ``model``); every shard's device work is
 launched before any shard's result is fetched.  The frames are those of
 one device, and ``per_shard_batch`` is the framing unit of the rANS
 fetch's pooled heads.

@@ -266,9 +266,11 @@ def model_state(model) -> Dict[str, Any]:
     """A ``CAEModel``'s config and variables as one flat state dict: the
     config scalars and ``{"encoder" | "decoder" | "fact_ent": {"params":
     tree[, "batch_stats": tree]}}``, HWIO kernels as the JAX package keeps
-    them."""
+    them; parameters held as model-axis shards gathered first, so the
+    state is one process's (a collective for a sharded model)."""
+    from ..parallel.mesh import gather_model_state
     return {**model.config,
-            **state_to_jax(model.state_dict(), model.config)}
+            **state_to_jax(gather_model_state(model), model.config)}
 
 
 def _split_state(state: Dict[str, Any]):
@@ -315,11 +317,12 @@ def save_checkpoint(path, state) -> None:
     ``training/checkpoint.py:47``); a ``CAEModel`` stands for its
     ``model_state``.  The file is replaced atomically.  In a multi-process
     run only rank 0 writes (every rank holds the same state; two writers
-    of one path would race)."""
-    if not is_primary():
-        return
+    of one path would race); a model held as model-axis shards is gathered
+    first, so every rank of its model group calls this."""
     if isinstance(state, torch.nn.Module):
         state = model_state(state)
+    if not is_primary():
+        return
     config, arrays = _split_state(state)
     payload = {"config": json.dumps(config), "state": _state_tree(arrays)}
     data = msgpack_serialize(payload)

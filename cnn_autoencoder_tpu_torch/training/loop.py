@@ -41,6 +41,18 @@ on every rank and sliced; the stats are reduced over the ranks (means,
 minima, maxima, standard deviations of the global batch).  So a step of R
 ranks is the one-process step of the global batch, and every rank holds
 the same parameters after it.
+
+The model mesh axis (``model_group``, the ranks of one data index, the
+model's parameters held as shards over it by ``parallel/mesh.py:
+shard_model``): every rank of a model group feeds the same rows, its
+layers gather or split channels by the collectives of
+``parallel/distributed.py``, and its activations, losses and stats are
+those of its data group's one-process step.  So ``group`` is then the
+data group (the ranks of one model index): gradients (a sharded leaf's
+the rank's slice of it) are averaged and stats reduced over it alone,
+and ``rows`` comes from the rank's data index.  The bottleneck's
+auxiliary loss is summed over the model group (``criteria/loss.py``), and
+a slot's gradient norm over its shards (``training/optim.py``).
 """
 
 from typing import Dict, List, Optional, Sequence
@@ -51,7 +63,7 @@ import torch.distributed as dist
 
 from ..models.tasks import fold_batch_stats, make_forward_fn, module_runner
 from ..ops.batchnorm import BatchNorm
-from ..parallel.distributed import world_size
+from ..parallel.distributed import named_shards, world_size
 from ..utils.device import full_f32
 from .optim import apply_module_updates
 
@@ -67,18 +79,29 @@ def _check_dtype(compute_dtype):
 def _net_aux(model, trainable_modules: Sequence[str] = (),
              group=None) -> Dict:
     """What the loss composer needs from the model (JAX
-    ``training/loop.py:28-39``): the bottleneck's parameters, and
-    ``decoder_fn``, the decoder's reconstructions of a latent (PenaltyB),
-    through the frozen path when the decoder is not trainable; the
-    process group of a data-parallel step."""
+    ``training/loop.py:28-39``): the bottleneck's parameters (the rank's
+    shard under the model axis, with ``entropy_group`` the group it is
+    sharded over), and ``decoder_fn``, the decoder's reconstructions of a
+    latent (PenaltyB), through the frozen path when the decoder is not
+    trainable; the process group of a data-parallel step."""
     net = {"group": group}
     if hasattr(model, "fact_ent"):
         net["fact_ent_params"] = model.fact_ent.params()
         net["num_filters"] = model.fact_ent.num_filters
+        shard = model.fact_ent.shard
+        net["entropy_group"] = None if shard is None else shard.group
     if hasattr(model, "decoder"):
         run = module_runner(model, trainable_modules)
         net["decoder_fn"] = lambda code: run("decoder", code)[0]
     return net
+
+
+def _check_model_group(model, model_group) -> None:
+    """The model's shards must be held over ``model_group``."""
+    if any(s.group is not model_group
+           for s in named_shards(model).values()):
+        raise ValueError("the model's parameters are sharded over another "
+                         "group than model_group")
 
 
 def _set_batch_norm_group(model, group) -> None:
@@ -148,7 +171,7 @@ def make_train_step(model, criterion, optimizers,
                     enabled_modules: Optional[Sequence[str]] = None,
                     trainable_modules: Optional[Sequence[str]] = None,
                     compute_dtype: torch.dtype = torch.float32,
-                    remat: bool = False, group=None):
+                    remat: bool = False, group=None, model_group=None):
     """Build ``train_step(x, lrs, step, noise=None, generator=None,
     masks=None, t=None) -> (stats, grads)``.
 
@@ -167,8 +190,12 @@ def make_train_step(model, criterion, optimizers,
     (the JAX package's ``remat``): the same step in less memory.
     ``group``: a process group to train over, data-parallel (the module's
     docstring; ``x``, ``t``, ``noise`` and ``masks`` are then this rank's
-    share of the global batch); it is set on the model's batch norms."""
+    share of the global batch); it is set on the model's batch norms.
+    ``model_group``: the model mesh axis's group, over which the model's
+    parameters are held as shards (the module's docstring; ``group`` is
+    then the data group, ``None`` for one data index)."""
     _check_dtype(compute_dtype)
+    _check_model_group(model, model_group)
     _set_batch_norm_group(model, group)
     trainable = [m for m in (trainable_modules or []) if hasattr(model, m)]
     forward = make_forward_fn(model, enabled_modules, trainable, remat=remat)
@@ -218,12 +245,15 @@ def make_train_step(model, criterion, optimizers,
 
 def make_eval_step(model, criterion,
                    enabled_modules: Optional[Sequence[str]] = None,
-                   compute_dtype: torch.dtype = torch.float32, group=None):
+                   compute_dtype: torch.dtype = torch.float32, group=None,
+                   model_group=None):
     """Build ``eval_step(x, t=None) -> stats``: round-to-median
     quantization, batch norms and dropout in eval mode, no gradient, in
-    ``compute_dtype``; ``t`` the batch's targets.  ``group``: as the train
-    step's, ``x`` this rank's share and the stats the global batch's."""
+    ``compute_dtype``; ``t`` the batch's targets.  ``group`` and
+    ``model_group``: as the train step's, ``x`` this rank's share and the
+    stats the global batch's."""
     _check_dtype(compute_dtype)
+    _check_model_group(model, model_group)
     forward = make_forward_fn(model, enabled_modules, trainable_modules=[])
 
     @torch.no_grad()

@@ -20,6 +20,14 @@ the layout the JAX CLI writes under ``optimizer_<slot>``: flax's state dict
 of the slot's optax chain, the moments as trees of the module's parameters
 in the JAX layout (batch norms' ``scale`` and ``bias`` among them; their
 running statistics are not parameters and have no slot).
+
+Under the model mesh axis a slot's parameters may be held as shards
+(``parallel/mesh.py:shard_model``; ``shards`` names them): the moments
+and the accumulator are made from the parameters, so they live on the
+shards too; the global norm that clipping takes sums the shards' squares
+over their model group; ``optimizer_state_dict`` gathers the moments
+(a collective every rank of the group calls) and
+``load_optimizer_state_dict`` keeps the rank's slice of the saved ones.
 """
 
 import dataclasses
@@ -27,7 +35,9 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.distributed import ModelShard, all_gather_axis, named_shards
 from ..utils.weights import state_from_jax, state_to_jax
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -53,6 +63,7 @@ class ModuleOptimizer:
     mu: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     nu: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     acc: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    shards: Dict[str, ModelShard] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.algo not in ALGORITHMS:
@@ -67,7 +78,7 @@ class ModuleOptimizer:
                    ) -> Dict[str, torch.Tensor]:
         u = dict(grads)
         if self.clip_norm and self.clip_norm > 0:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in u.values()))
+            g_norm = torch.sqrt(self._global_sq(u))
             keep = g_norm < self.clip_norm
             u = {k: torch.where(keep, g, (g / g_norm) * self.clip_norm)
                  for k, g in u.items()}
@@ -89,6 +100,18 @@ class ModuleOptimizer:
         if wd and self.algo == "AdamW":
             u = {k: g + wd * self.params[k] for k, g in u.items()}
         return u
+
+    def _global_sq(self, u: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The squared global norm of the whole gradients: the shards'
+        squares summed over their model group."""
+        whole = sum(torch.sum(g * g) for k, g in u.items()
+                    if k not in self.shards)
+        parts = [torch.sum(g * g) for k, g in u.items() if k in self.shards]
+        if not parts:
+            return whole
+        part = torch.stack(parts).sum()
+        dist.all_reduce(part, group=next(iter(self.shards.values())).group)
+        return whole + part
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor], lr: float,
@@ -122,12 +145,14 @@ def setup_optimizers(model, trainable_modules: Sequence[str],
     for k in trainable_modules:
         if not hasattr(model, k):
             continue
-        named = dict(getattr(model, k).named_parameters())
+        module = getattr(model, k)
+        named = dict(module.named_parameters())
         main = {n: p for n, p in named.items() if not is_aux_name(n)}
         aux = {n: p for n, p in named.items() if is_aux_name(n)}
+        shards = named_shards(module)
         common = dict(algo=algos.get(k, "Adam"),
                       grad_accumulate=int(accums.get(k, 1) or 1),
-                      clip_norm=clip_norm)
+                      clip_norm=clip_norm, shards=shards)
         slots[k] = ModuleOptimizer(k, main,
                                    weight_decay=decays.get(k, 0.0) or 0.0,
                                    **common)
@@ -164,7 +189,11 @@ def _moment_tree(slot: ModuleOptimizer, moments: Dict[str, torch.Tensor],
     """A slot's moments as the JAX tree of its whole module, None at the
     parameters of the module's other slot."""
     names = [n for n, _ in getattr(model, slot.module).named_parameters()]
-    flat = {f"{slot.module}.{n}": moments.get(n) for n in names}
+    flat = {}
+    for n in names:
+        m, s = moments.get(n), slot.shards.get(n)
+        flat[f"{slot.module}.{n}"] = (m if m is None or s is None else
+                                      all_gather_axis(m, s.group, s.axis))
     return state_to_jax(flat, model.config)[slot.module]["params"]
 
 
@@ -199,4 +228,7 @@ def load_optimizer_state_dict(slot: ModuleOptimizer, model,
             flat = state_from_jax({slot.module: {"params": saved[key]}},
                                   model.config)
             for name, p in slot.params.items():
-                dst[name] = flat[f"{slot.module}.{name}"].to(p.device)
+                saved_m = flat[f"{slot.module}.{name}"]
+                if name in slot.shards:
+                    saved_m = slot.shards[name].narrow(saved_m).contiguous()
+                dst[name] = saved_m.to(p.device)

@@ -31,7 +31,10 @@ port uses PyTorch's layouts.  This inverts
 A grouped model (config ``groups``) gives each unit's convolutions as many
 groups as the unit has input channels, so the decoder's group counts come
 from the config's stage widths.  ``state_to_jax`` is the inverse, for
-checkpoints the JAX package reads.
+checkpoints the JAX package reads.  Both take a model-axis shard's state
+as well as a whole one (``parallel/mesh.py:shard_state`` cuts a leaf in
+the JAX layout and carries it back here, so a rank's shard is the one
+``shard_variables`` puts on its mesh device).
 """
 
 from typing import Any, Dict

@@ -34,9 +34,11 @@ from cnn_autoencoder_tpu_torch.models.factory import (
 from cnn_autoencoder_tpu_torch.parallel import distributed
 from cnn_autoencoder_tpu_torch.parallel.mesh import (batch_spec,
                                                      create_mesh,
+                                                     data_devices,
                                                      infer_param_spec,
                                                      serving_mesh,
-                                                     shard_batch)
+                                                     shard_batch,
+                                                     shard_model)
 from cnn_autoencoder_tpu_torch.pipeline.tiles import default_batch_tiles
 from cnn_autoencoder_tpu_torch.storage.cae_codec import CAECodecCore
 from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
@@ -69,19 +71,33 @@ def test_create_mesh_shapes_as_jax(data):
         assert batch_spec(ndim) == tuple(jax_mesh.batch_spec(ndim))
 
 
-def test_model_axis_raises():
-    """The model axis waits for ROADMAP item 10b: every way in raises."""
-    for make in (lambda: create_mesh(data=4, model=2, devices=CPU8),
-                 lambda: create_mesh(model=2, devices=CPU8)):
-        with pytest.raises(ValueError, match="10b"):
-            make()
-    mesh = create_mesh(data=4, devices=CPU8)
-    bad = mesh._replace(shape={"data": 4, "model": 2})
+def test_model_axis_raises(models):
+    """The model axis (ROADMAP item 10b) runs at every way in: meshes of
+    data x model, both cores given one (each data shard on the first
+    device of its model group, frames as one device's), and
+    ``shard_model``; only the architectures it leaves out raise, naming
+    item 10c."""
+    _, t_model = models
+    for mesh in (create_mesh(data=4, model=2, devices=CPU8),
+                 create_mesh(model=2, devices=CPU8)):
+        assert mesh.shape == {"data": 4, "model": 2}
+        assert len(mesh.devices) == 8 and len(data_devices(mesh)) == 4
+    tiles = _tiles(32, 3)
+    for make in (lambda **kw: CAECodecCore(t_model, **kw),
+                 lambda **kw: CAETurboCore(t_model, num_streams=64, **kw)):
+        core = make(mesh=mesh)
+        assert len(core.shards) == 4
+        assert core.encode_tiles(tiles) == make(device="cpu").encode_tiles(
+            tiles)
+    sharded = CAEModel(dict(t_model.config))
+    shard_model(sharded, None, 1, 2)
+    assert sharded.fact_ent.quantiles.shape[0] == \
+        t_model.fact_ent.quantiles.shape[0] // 2
     model = CAEModel(dict(channels_org=3, channels_net=8, channels_bn=8,
                           compression_level=2, K=4, r=3,
-                          act_layer_type="GDN"))
-    with pytest.raises(ValueError, match="10b"):
-        CAECodecCore(model, mesh=bad)
+                          act_layer_type="GDN", use_residual=True))
+    with pytest.raises(ValueError, match="10c"):
+        shard_model(model, None, 0, 2)
 
 
 @pytest.mark.parametrize("model_size", [1, 2, 4])

@@ -296,16 +296,71 @@ def test_secondary_process_writes_nothing(tmp_path, monkeypatch):
     assert path.endswith(".msgpack") and os.listdir(tmp_path) == []
 
 
-def test_batch_sizes_must_divide_over_ranks():
+def test_batch_sizes_must_divide_over_ranks(tmp_path, monkeypatch):
+    """The data axis's size (ranks over the model axis's) must divide both
+    batch sizes, and the ranks the model axis's size; a train CLI under
+    ``CAE_TPU_MODEL_PARALLEL=2`` over two ranks (data 1 x model 2)
+    equals one process: histories and parameters within 1e-5, the same
+    checkpoint keys and shapes, and only rank 0 wrote."""
     args = get_args("autoencoder", "training",
                     args_list=["-bs", "6", "-vbs", "4", "-dd", "x"])
     assert train_cae.data_parallel_size(args, 8) == 2
     assert train_cae.data_parallel_size(args, 1) == 1
     with pytest.raises(ValueError, match="divisible"):
         train_cae._check_rank_batches(args, 4)
-    with pytest.raises(ValueError, match="10b"):
-        os.environ["CAE_TPU_MODEL_PARALLEL"] = "2"
-        try:
-            train_cae.main(args, device="cpu")
-        finally:
-            del os.environ["CAE_TPU_MODEL_PARALLEL"]
+    assert train_cae._check_rank_batches(args, 4, 2) == 2
+    for ranks in (3, 8):  # 3 over model=2; data 4 over a batch of 6
+        with pytest.raises(ValueError, match="divisible"):
+            train_cae._check_rank_batches(args, ranks, 2)
+
+    data = tmp_path / "slides"
+    data.mkdir()
+    _make_slide(str(data / "train_0.zarr"), seed=0)
+    _make_slide(str(data / "val_0.zarr"), seed=9)
+    # batch norm waits for ROADMAP item 10c under the model axis
+    argv = ["-dd", str(data)] + [a for a in CLI_ARGS if a != "-bn"]
+    two_dir, one_dir = tmp_path / "two", tmp_path / "one"
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "tests",
+                                      "torch_model_axis_ranks.py"), "cli",
+         json.dumps(argv + ["-ld", str(two_dir)]), json.dumps(["cpu"] * 2),
+         "2"], env=_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                "CAE_TPU_MODEL_PARALLEL"):
+        monkeypatch.delenv(var, raising=False)
+    one_args = get_args("autoencoder", "training",
+                        args_list=argv + ["-ld", str(one_dir)])
+    loggers.setup_logger(one_args)
+    one = train_cae.main(one_args, device="cpu")
+
+    out = _run([proc], timeout=300)[0]
+    reports = json.loads(out.split("REPORTS ", 1)[1].splitlines()[0])
+    assert [(r["rank"], r["ranks"]) for r in reports] == [(0, 2), (1, 2)]
+    assert [r["completed"] for r in reports] == [one[0]["completed"]] * 2
+    assert reports[0]["launches"] == reports[1]["launches"]
+
+    a, b = _last(two_dir), _last(one_dir)
+    assert set(a) == set(b) and a["step"] == b["step"]
+    for key in ("train_loss", "valid_loss", "best_val"):
+        np.testing.assert_allclose(a[key], b[key], rtol=1e-5, err_msg=key)
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}/{k}")
+        else:
+            yield path, tree
+
+    for module in TRAINABLE:
+        pairs = dict(leaves(b[module]))
+        got = dict(leaves(a[module]))
+        assert got.keys() == pairs.keys()
+        for path, leaf in got.items():
+            _close(leaf, pairs[path], what=module + path)
+    logs = _logs(two_dir)
+    assert "Training mesh: data=1 x model=2" in logs
+    assert "Rank 0 of 2 on cpu over gloo" in logs and "Rank 1" not in logs
+    assert logs.count("Saved model in") == _logs(one_dir).count(
+        "Saved model in")
