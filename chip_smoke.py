@@ -333,10 +333,33 @@ Phases, in order; any failure exits non-zero:
    axis's gathers and partial sums timed in a fourth step, a rank's
    parameter and optimizer bytes; (c) phase 3's 16 tiles through both
    cores over a (2, 2) mesh, float32 and bf16: frames byte-equal to one
-   device's, launches a data shard as phase 13 (a) counts them.
-18. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
+   device's, launches a data shard as phase 13 (a) counts them.  (b)'s
+   ranks start once phase 8's slides and phase 10's R and B checkpoints
+   are written, and go on to phase 18 (a).
+18. The model axis for the other architectures, in phase 17 (b)'s four
+   ranks (data 2 x model 2): (a) the bare step, 3 Adam steps each against
+   one process, of R and B at the flagship's widths from phase 10's
+   checkpoints (float32 and bf16), the grouped model at 4 / 4 / 4 from
+   seed 0 (float32; its kernels shard by whole groups), and phase 11's
+   ViT (64 of 32^2) and JNet heads trained alone on the frozen flagship,
+   8 x 256^2 (4 rows a data index); then the eval forwards of phase 11
+   (d)'s ResNet-152 cut 3 and InceptionV3 on 2 latents (one a data
+   index), their norms' leaves and InceptionV3's running statistics held
+   as shards: losses within 1e-5 / 2e-2 relative (floored elements left
+   out, as phase 9), launches a rank exactly one process's and the
+   table's, step-1 gradients finite and non-zero (the attention's key
+   biases finite), B's running statistics after step 1 within 1e-4 of
+   one process's, logits within 1e-4 of the largest; ms a step, the
+   axis's gathers and partial sums timed in a fourth step, a rank's
+   parameter, buffer and optimizer bytes; (b) B in bf16 through the train
+   CLI under ``CAE_TPU_MODEL_PARALLEL=2`` (data 1 x model 2), 3 steps and
+   a validation: launches a rank, both ranks' losses equal, only rank 0
+   writing, ``last_`` with one process's keys and shapes (running
+   statistics included), served through ``CAETurboCore`` as phase 10 (b)
+   serves, and over a (2, 2) mesh with frames byte-equal to one device's.
+19. One JSON line ``{"kernels": [...]}`` (launches summed over the counted
    runs of phases 3, 5, 8 (a), 9, 10, 11, 12 (b), 13, 14, 15 (b), (c),
-   16 (b)-(e) and 17), then the last line ``{"ok": true, "device":
+   16 (b)-(e), 17 and 18), then the last line ``{"ok": true, "device":
    {...}}``.
 
 It needs a CUDA card and the repository around it; without either it exits
@@ -3786,16 +3809,17 @@ def pth_cli(torch, core, img, slide_path, work, pth):
 
 
 @contextlib.contextmanager
-def step_likelihoods(rec):
+def step_likelihoods(rec, always=False):
     """Keep each train step's likelihoods (float32, on the card) in
     ``rec["p_y"]`` while a CLI run builds its criterion and trains: the
     rate loss of the run's criterion records them when a gradient flows
-    (validation batches are not recorded)."""
+    (validation batches are not recorded), or at every call with
+    ``always`` (a head's step on a frozen codec)."""
     from cnn_autoencoder_tpu_torch.criteria import ratedist
     rate = ratedist.RATE_LOSS_LIST["Rate"]
 
     def recording(x, p_y):
-        if p_y.requires_grad:
+        if always or p_y.requires_grad:
             rec.setdefault("p_y", []).append(p_y.detach().float())
             rec["pixels"] = x.shape[0] * x.shape[1] * x.shape[2]
         return rate(x, p_y)
@@ -6836,7 +6860,8 @@ def axis_rank(work):
     mesh of gloo ranks on the one card (its group from
     ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``), phase
     5's batch and model, its data index's 8 rows and its model index's
-    parameter shards; prints its report."""
+    parameter shards; writes its report to ``work/axis_report<r>.json``,
+    then runs phase 18 (a)'s part (``option_rank``)."""
     import torch
     import torch.distributed as dist
     from cnn_autoencoder_tpu_torch.criteria.loss import setup_loss
@@ -6881,59 +6906,115 @@ def axis_rank(work):
                                and float(g.abs().max()) > 0
                                for gs in grads.values() for g in gs.values())
         launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
-        # one more step with the model axis's collectives timed by host
-        # clock, each between two synchronizes
-        spent = {"gather": [0.0, 0, 0], "sum": [0.0, 0, 0]}
-
-        def timed(kind, fn):
-            def run(t, *args):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(t, *args)
-                torch.cuda.synchronize()
-                rec = spent[kind]
-                rec[0] += time.perf_counter() - t0
-                rec[1] += 1
-                rec[2] += out.numel() * out.element_size()
-                return out
-            return run
-
-        saved = distributed.all_gather_axis, distributed._all_reduce_f32
-        distributed.all_gather_axis = timed("gather", saved[0])
-        distributed._all_reduce_f32 = timed("sum", saved[1])
-        try:
-            t0 = time.perf_counter()
-            step(x, lrs, TRAIN_STEPS + 1, generator=gen)
-            torch.cuda.synchronize()
-            instrumented = time.perf_counter() - t0
-        finally:
-            distributed.all_gather_axis, distributed._all_reduce_f32 = saved
-        opt_bytes = sum(t.numel() * t.element_size() for s in optimizers.values()
-                        for d in (s.mu, s.nu, s.acc) for t in d.values())
-        report = dict(
+        instrumented, collectives = timed_collectives(
+            torch, lambda: step(x, lrs, TRAIN_STEPS + 1, generator=gen))
+        write_json(os.path.join(work, f"axis_report{rank}.json"), dict(
             rank=rank, losses=losses, grads_ok=grads_ok, launches=launches,
             step_ms=1e3 * sum(times[1:]) / AXIS_TIMED,
-            instrumented_ms=1e3 * instrumented,
-            collectives={k: dict(ms=1e3 * v[0], calls=v[1], bytes=v[2])
-                         for k, v in spent.items()},
+            instrumented_ms=instrumented, collectives=collectives,
             param_bytes=sum(p.numel() * p.element_size()
                             for p in model.parameters()),
-            full_param_bytes=full_bytes, opt_bytes=opt_bytes)
+            full_param_bytes=full_bytes, opt_bytes=opt_bytes(optimizers)))
+        del model, step, optimizers
+        torch.cuda.empty_cache()
+        option_rank(torch, work, group, model_group, rank)
     finally:
         dist.destroy_process_group()
-    print("AXIS_REPORT " + json.dumps(report), flush=True)
+
+
+def timed_collectives(torch, fn):
+    """``fn()`` (one more train step) with the model axis's collectives
+    (``distributed``'s gathers and partial sums) timed by host clock, each
+    between two synchronizes: (ms of the step, {"gather" | "sum": {ms,
+    calls, bytes out}})."""
+    from cnn_autoencoder_tpu_torch.parallel import distributed
+    spent = {"gather": [0.0, 0, 0], "sum": [0.0, 0, 0]}
+
+    def timed(kind, call):
+        def run(t, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(t, *args)
+            torch.cuda.synchronize()
+            rec = spent[kind]
+            rec[0] += time.perf_counter() - t0
+            rec[1] += 1
+            rec[2] += out.numel() * out.element_size()
+            return out
+        return run
+
+    saved = distributed.all_gather_axis, distributed._all_reduce_f32
+    distributed.all_gather_axis = timed("gather", saved[0])
+    distributed._all_reduce_f32 = timed("sum", saved[1])
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        distributed.all_gather_axis, distributed._all_reduce_f32 = saved
+    return ms, {k: dict(ms=1e3 * v[0], calls=v[1], bytes=v[2])
+                for k, v in spent.items()}
+
+
+def opt_bytes(optimizers):
+    """The optimizers' state (moments and accumulators) in bytes."""
+    return sum(t.numel() * t.element_size() for s in optimizers.values()
+               for d in (s.mu, s.nu, s.acc) for t in d.values())
+
+
+def write_json(path, obj):
+    """``obj`` as JSON at ``path``, whole or not at all (a reader polls
+    for it)."""
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def rank_log(work, r):
+    """The end of rank ``r``'s output."""
+    try:
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            return f.read()[-3000:]
+    except OSError:
+        return "(no log)"
+
+
+def wait_reports(procs, work, name, timeout):
+    """The ranks' ``<name><r>.json`` reports, read as each rank writes
+    its own; fails when a rank exits without it or the time runs out."""
+    paths = [os.path.join(work, f"{name}{r}.json") for r in range(len(procs))]
+    t0 = time.perf_counter()
+    while not all(os.path.exists(p) for p in paths):
+        for r, p in enumerate(procs):
+            check(p.poll() is None or os.path.exists(paths[r]),
+                  f"rank {r} exited {p.returncode} without its {name} "
+                  f"report: {rank_log(work, r)}")
+        check(time.perf_counter() - t0 < timeout, f"the ranks' {name} "
+              f"reports missing after {timeout} s")
+        time.sleep(0.1)
+    out = []
+    for p in paths:
+        with open(p) as f:
+            out.append(json.load(f))
+    return out
 
 
 def axis_ranks_start(work):
-    """(b)'s four ranks as subprocesses through a ``file://`` rendezvous."""
+    """(b)'s four ranks as subprocesses through a ``file://`` rendezvous,
+    each writing its output to ``work/rank<r>.log``."""
     n = AXIS_DATA * AXIS_MODEL
     env = dict(os.environ, COORDINATOR_ADDRESS="file://" + os.path.join(
         work, "axis_rendezvous"), NUM_PROCESSES=str(n))
-    return [subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "chip_smoke.axis_rank(sys.argv[1])", work], cwd=ROOT,
-        env=dict(env, PROCESS_ID=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(n)]
+    procs = []
+    for r in range(n):
+        with open(os.path.join(work, f"rank{r}.log"), "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.axis_rank(sys.argv[1])", work], cwd=ROOT,
+                env=dict(env, PROCESS_ID=str(r)), stdout=out,
+                stderr=subprocess.STDOUT))
+    return procs
 
 
 def axis_reference(torch):
@@ -6953,21 +7034,11 @@ def axis_reference(torch):
     return losses, 1e3 * sum(times[1:]) / AXIS_TIMED, param, 3 * param
 
 
-def axis_ranks_check(torch, procs, ref, totals):
-    """(b)'s checks on the ranks of ``axis_ranks_start``."""
+def axis_ranks_check(torch, procs, work, ref, totals):
+    """(b)'s checks on the reports of ``axis_ranks_start``'s ranks (which
+    go on to phase 18)."""
     ref_losses, ref_ms, ref_param, ref_opt = ref
-    reports = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=300)
-            check(p.returncode == 0, f"(b) rank exited {p.returncode}: "
-                  f"{out[-2000:]} {err[-3000:]}")
-            reports.append(json.loads(out.split("AXIS_REPORT ", 1)[1]
-                                      .splitlines()[0]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+    reports = wait_reports(procs, work, "axis_report", 300)
     want = {k: n * TRAIN_STEPS for k, n in STEP_LAUNCHES["float32"].items()}
     lines = []
     for r in sorted(reports, key=lambda r: r["rank"]):
@@ -7106,10 +7177,455 @@ def axis_cli(torch, work, mode, totals):
             f"{TILES} tiles at {rec['psnr']:.3f} dB, {rec['bpp']:.4f} bpp")
 
 
+# -- phase 18 ----------------------------------------------------------------
+
+# (a) the bare step of each architecture the flagship's axis left out, in
+# phase 17 (b)'s four ranks one after another: (label, architecture, mode)
+OPTION_RUNS = (("R float32", "R", "float32"), ("R bf16", "R", "bf16"),
+               ("B float32", "B", "float32"), ("B bf16", "B", "bf16"),
+               ("grouped 4/4/4", "G444", "float32"),
+               ("ViT", "ViT", "float32"), ("JNet", "JNet", "float32"))
+# (trainable modules, criterion) by architecture: the heads train alone on
+# the frozen flagship codec, as in phase 11
+OPTION_TRAINING = {
+    "R": (["encoder", "decoder", "fact_ent"], "RateMSE"),
+    "B": (["encoder", "decoder", "fact_ent"], "RateMSE"),
+    "G444": (["encoder", "decoder", "fact_ent"], "RateMSE"),
+    "ViT": (["class_model"], "RateMSECE"),
+    "JNet": (["seg_model"], "RateMSEBCE")}
+# phase 11's heads on the flagship, from seed 0
+OPTION_HEADS = {
+    "ViT": dict(class_model_type="ViT", cut_position=6,
+                num_classes=VIT_CLASSES, patch_size=32),
+    "JNet": dict(seg_model_type="JNet", seg_channels_net=128,
+                 seg_channels_bn=48, seg_channels_expansion=1,
+                 num_classes=1)}
+# the grouped model at 4 / 4 / 4, whose kernels shard by whole groups
+GROUPED_444 = dict(GROUPED, channels_org=4, channels_net=4, channels_bn=4)
+# 256^2 patches a step (4 a data index): gloo moves every gathered
+# activation through the host; ViT takes phase 11's 64 of 32^2
+OPTION_BATCH = 8
+# launches a step by architecture and mode: R's and B's as phase 10's, the
+# grouped model's four GDN layers, a head's frozen codec serving (K1 3, K4 1)
+OPTION_LAUNCHES = {**ARCH_STEP_LAUNCHES,
+                   ("G444", "float32"): {"gdn_fwd": 4},
+                   ("ViT", "float32"): VAL_LAUNCHES["float32"],
+                   ("JNet", "float32"): VAL_LAUNCHES["float32"]}
+# eval forwards of phase 11 (d)'s heads on a batch of 2 latents (1 a data
+# index): ResNet-152 cut 3 and InceptionV3 with its cut from the patch,
+# whose batch norms run from running statistics held as shards
+EVAL_HEADS = ("ResNet", "InceptionV3")
+EVAL_LATENTS = 2
+EVAL_LIMIT = 1e-4   # of the largest logit: float32 sums in another order
+
+
+def option_model(torch, work, arch):
+    """Phase 18's model of ``arch`` on the card in train mode: R and B
+    from phase 10's checkpoints in ``work``, the grouped model from seed
+    0, ViT and JNet (from seed 0) on the flagship."""
+    from cnn_autoencoder_tpu_torch.models.factory import (
+        autoencoder_from_state_dict, build_model)
+    from cnn_autoencoder_tpu_torch.training.checkpoint import load_checkpoint
+    if arch in ("R", "B"):
+        return autoencoder_from_state_dict(
+            os.path.join(work, f"{arch}.msgpack"), device="cuda").train()
+    if arch == "G444":
+        return build_model(GROUPED_444, torch.Generator().manual_seed(0),
+                           device="cuda")
+    state = load_checkpoint(CHECKPOINT)
+    state.update(OPTION_HEADS[arch])
+    return autoencoder_from_state_dict(state, device="cuda").train()
+
+
+def option_data(torch, arch):
+    """(x, targets or None) of ``arch``'s global batch on the card: phase
+    5's patches (with a fourth channel, their mean, for the grouped
+    model; a label map for JNet), or phase 11's 32^2 images and labels
+    for ViT."""
+    if arch == "ViT":
+        rng = np.random.RandomState(1)
+        x = rng.rand(VIT_BATCH, 32, 32, 3).astype(np.float32)
+        t = rng.randint(0, VIT_CLASSES, VIT_BATCH).astype(np.int64)
+        return torch.from_numpy(x).cuda(), torch.from_numpy(t).cuda()
+    x = synthetic_batch(torch)[:OPTION_BATCH]
+    if arch == "G444":
+        return torch.cat([x, x.mean(-1, keepdim=True)], -1), None
+    if arch == "JNet":
+        return x, (x.mean(-1, keepdim=True) > 0.5).float()
+    return x, None
+
+
+def state_bytes(model):
+    """(parameter bytes, buffer bytes) of ``model`` as it is held."""
+    return (sum(p.numel() * p.element_size() for p in model.parameters()),
+            sum(b.numel() * b.element_size() for b in model.buffers()))
+
+
+def option_steps(torch, model, arch, mode, x, t, group=None,
+                 model_group=None):
+    """``TRAIN_STEPS`` counted bare steps of ``arch`` in ``mode`` on
+    ``model`` (Adam at phase 5's rate, noise and masks from a card
+    generator of seed 0), data-parallel over ``group`` with its shards over
+    ``model_group``, then with ``model_group`` one more with the model
+    axis's collectives timed.  Returns a JSON-able record and each counted
+    step's likelihoods (numpy)."""
+    from cnn_autoencoder_tpu_torch.criteria.loss import setup_loss
+    from cnn_autoencoder_tpu_torch.ops.batchnorm import BatchNorm
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.parallel.distributed import full_param
+    from cnn_autoencoder_tpu_torch.training.loop import make_train_step
+    from cnn_autoencoder_tpu_torch.training.optim import setup_optimizers
+    trainable, criterion = OPTION_TRAINING[arch]
+    dtype = torch.float32 if mode == "float32" else torch.bfloat16
+    rec, losses, times = {}, [], []
+    with step_likelihoods(rec, always=True):
+        optimizers = setup_optimizers(model, trainable)
+        step = make_train_step(
+            model, setup_loss(criterion, distortion_lambda=0.01),
+            optimizers, trainable_modules=trainable, compute_dtype=dtype,
+            group=group, model_group=model_group)
+        lrs = {k: TRAIN_LR for k in optimizers}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for i in range(1, TRAIN_STEPS + 1):
+            t0 = time.perf_counter()
+            stats, grads = step(x, lrs, i, generator=gen, t=t)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(stats["loss"]))
+            if i == 1:
+                grads_ok = all(
+                    bool(torch.isfinite(g).all()) and (
+                        name.endswith(ZERO_GRAD) or float(g.abs().max()) > 0)
+                    for gs in grads.values() for name, g in gs.items())
+                norms = {f"{n}.{k}": full_param(m, k).float().cpu().tolist()
+                         for n, m in model.named_modules()
+                         if isinstance(m, BatchNorm) for k in ("mean", "var")}
+        launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+    params, buffers = state_bytes(model)
+    out = dict(losses=losses, grads_ok=grads_ok, norms=norms,
+               launches=launches, step_ms=1e3 * float(np.mean(times[1:])),
+               param_bytes=params, buffer_bytes=buffers,
+               opt_bytes=opt_bytes(optimizers))
+    if model_group is not None:
+        out["instrumented_ms"], out["collectives"] = timed_collectives(
+            torch, lambda: step(x, lrs, TRAIN_STEPS + 1, generator=gen, t=t))
+    return out, [p.float().cpu().numpy() for p in rec["p_y"][:TRAIN_STEPS]]
+
+
+def head_alone(torch, kind):
+    """Phase 11 (d)'s head ``kind`` from seed 0 (its norms and running
+    statistics moved off 1 and 0) as the model ``shard_model`` shards:
+    its leaves under ``class_model``; on the card, in eval mode."""
+    from cnn_autoencoder_tpu_torch.models.classifiers import CLASS_MODELS
+    heads = torch.nn.Module()
+    heads.config = {}
+    heads.class_model = CLASS_MODELS[kind](
+        channels_bn=48, cut_position=3 if kind == "ResNet" else None,
+        patch_size=TRAIN_PATCH, compression_level=3,
+        num_classes=VIT_CLASSES)
+    gen = torch.Generator().manual_seed(0)
+    for m in heads.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    with torch.no_grad():
+        for value in heads.state_dict().values():
+            if value.dim() == 1:
+                value.add_(torch.rand(value.shape, generator=gen) * 0.2)
+    return heads.cuda().eval()
+
+
+def eval_latents(torch):
+    """The eval heads' batch: 2 latents of the flagship's 256^2 shape."""
+    gen = torch.Generator().manual_seed(2)
+    return torch.randn(EVAL_LATENTS, TRAIN_PATCH // 8, TRAIN_PATCH // 8, 48,
+                       generator=gen).cuda()
+
+
+def eval_head(torch, kind, lat, model_group=None, index=0):
+    """``kind``'s eval forward on ``lat``, its leaves sharded over
+    ``model_group``: (logits, aux logits or None) as lists, and ms (host
+    clock)."""
+    from cnn_autoencoder_tpu_torch.parallel.mesh import shard_model
+    heads = shard_model(head_alone(torch, kind), model_group, index,
+                        AXIS_MODEL if model_group is not None else 1)
+    with torch.no_grad():
+        heads.class_model(lat)      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux = heads.class_model(lat)
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return (out.cpu().tolist(), None if aux is None else aux.cpu().tolist(),
+            ms, state_bytes(heads))
+
+
+def option_rank(torch, work, group, model_group, rank):
+    """Phase 18 (a) in one of phase 17 (b)'s ranks: each run of
+    ``OPTION_RUNS`` on its data index's rows with its model index's
+    shards, then the eval heads on its data index's latent; writes its
+    report to ``work/options_report<r>.json`` and, at model index 0, each
+    run's likelihoods to ``work/options_py<r>.npz``."""
+    from cnn_autoencoder_tpu_torch.parallel import distributed
+    from cnn_autoencoder_tpu_torch.parallel.mesh import shard_model
+    index = rank % AXIS_MODEL
+    report, p_y = {}, {}
+    for label, arch, mode in OPTION_RUNS:
+        model = option_model(torch, work, arch)
+        full = state_bytes(model)
+        shard_model(model, model_group, index, AXIS_MODEL)
+        x, t = option_data(torch, arch)
+        rows = distributed.local_batch_slice(x.shape[0], AXIS_MODEL)
+        rec, likelihoods = option_steps(
+            torch, model, arch, mode, x[rows], None if t is None else t[rows],
+            group, model_group)
+        report[label] = dict(rec, full_bytes=full)
+        p_y.update({f"{label}/{i}": a for i, a in enumerate(likelihoods)})
+        del model
+        torch.cuda.empty_cache()
+    lat = eval_latents(torch)[distributed.local_batch_slice(EVAL_LATENTS,
+                                                            AXIS_MODEL)]
+    for kind in EVAL_HEADS:
+        report[kind] = eval_head(torch, kind, lat, model_group, index)
+        torch.cuda.empty_cache()
+    if index == 0:
+        np.savez(os.path.join(work, f"options_py{rank}.npz"), **p_y)
+    write_json(os.path.join(work, f"options_report{rank}.json"), report)
+
+
+def options_reference(torch, work):
+    """(a)'s one process: each run of ``OPTION_RUNS`` on the global batch,
+    and the eval heads on both latents."""
+    ref = {}
+    for label, arch, mode in OPTION_RUNS:
+        model = option_model(torch, work, arch)
+        x, t = option_data(torch, arch)
+        ref[label] = option_steps(torch, model, arch, mode, x, t) + (
+            x.shape[0] * x.shape[1] * x.shape[2],)
+        del model
+        torch.cuda.empty_cache()
+    lat = eval_latents(torch)
+    for kind in EVAL_HEADS:
+        ref[kind] = eval_head(torch, kind, lat)
+        torch.cuda.empty_cache()
+    return ref
+
+
+def options_check(torch, work, reports, ref, totals):
+    """(a)'s checks of the ranks' reports against one process's: losses
+    (without the elements at the likelihood floor in either run, as phase
+    9 compares), launches, step-1 gradients, B's running statistics, the
+    shards' bytes and the eval heads' logits."""
+    lines = []
+    for label, arch, mode in OPTION_RUNS:
+        one, ref_p_y, pixels = ref[label]
+        rtol = 1e-5 if mode == "float32" else 2e-2
+        want = {k: n * TRAIN_STEPS
+                for k, n in OPTION_LAUNCHES[(arch, mode)].items()}
+        expect_launches(f"(a) {label} one process", one["launches"], want)
+        plus_into(totals, one["launches"])
+        check(one["grads_ok"], f"(a) {label} one process: a step-1 "
+              "gradient is zero or not finite")
+        # the global batch's likelihoods from the two data indices' ranks
+        parts = [np.load(os.path.join(work, f"options_py{r}.npz"))
+                 for r in range(0, AXIS_DATA * AXIS_MODEL, AXIS_MODEL)]
+        p_y = [torch.from_numpy(np.concatenate([p[f"{label}/{i}"]
+                                                for p in parts]))
+               for i in range(TRAIN_STEPS)]
+        worst, stats_worst, floored = 0.0, 0.0, 0
+        for r in reports:
+            rank = r["rank"]
+            got = r["options"][label]
+            tag = f"(a) {label} rank {rank}"
+            expect_launches(tag, got["launches"], one["launches"])
+            plus_into(totals, got["launches"])
+            a, b, n = off_floor_losses(
+                torch, got["losses"], {"p_y": p_y, "pixels": pixels},
+                one["losses"], {"p_y": [torch.from_numpy(q) for q in ref_p_y],
+                                "pixels": pixels})
+            rel = max(abs(u - v) / abs(v) for u, v in zip(a, b))
+            worst, floored = max(worst, rel), max(floored, n)
+            check(got["grads_ok"] and rel <= rtol, f"{tag}: step-1 "
+                  f"gradients finite and non-zero {got['grads_ok']}, losses "
+                  f"{got['losses']} against one process's {one['losses']} "
+                  f"({rel:.3e} > {rtol} without {n} floored elements)")
+            check(got["param_bytes"] < got["full_bytes"][0],
+                  f"{tag}: parameters of {got['param_bytes']} bytes, not "
+                  "sharded")
+            for k, v in one["norms"].items():
+                ref_v = np.asarray(v)
+                stats_worst = max(stats_worst, float(
+                    np.abs(np.asarray(got["norms"][k]) - ref_v).max()
+                    / max(float(np.abs(ref_v).max()), 1e-30)))
+        check(stats_worst <= 1e-4, f"(a) {label}: step 1's running "
+              f"statistics {stats_worst:.3e} (relative) from one process's")
+        r0 = reports[0]["options"][label]
+        g, s = r0["collectives"]["gather"], r0["collectives"]["sum"]
+        stats_note = (f", running statistics after step 1 within "
+                      f"{stats_worst:.3e} of one process's"
+                      if one["norms"] else "")
+        lines.append(
+            f"{label}: losses within {worst:.3e} (limit {rtol}; {floored} "
+            f"floored elements left out){stats_note}; launches a rank "
+            f"{one['launches']}; {r0['step_ms']:.3f} ms a step on rank 0 "
+            f"against one process's {one['step_ms']:.3f}; a step with its "
+            f"collectives timed {r0['instrumented_ms']:.3f} ms, gathers "
+            f"{g['ms']:.3f} ms ({g['calls']} calls, {g['bytes']} bytes out), "
+            f"partial sums {s['ms']:.3f} ms ({s['calls']} calls, "
+            f"{s['bytes']} bytes); a rank's parameters / buffers / "
+            f"optimizer state {r0['param_bytes']} / {r0['buffer_bytes']} / "
+            f"{r0['opt_bytes']} of one process's {one['param_bytes']} / "
+            f"{one['buffer_bytes']} / {one['opt_bytes']} bytes")
+    for kind in EVAL_HEADS:
+        logits, aux, ms, (params, _) = ref[kind]
+        ref_all = np.asarray(logits)
+        scale = float(np.abs(ref_all).max())
+        per = EVAL_LATENTS // AXIS_DATA
+        worst = 0.0
+        for r in reports:
+            got = r["options"][kind]
+            d = r["rank"] // AXIS_MODEL
+            worst = max(worst, float(np.abs(
+                np.asarray(got[0]) - ref_all[d * per:(d + 1) * per]).max())
+                / scale)
+            if aux is not None:
+                ref_aux = np.asarray(aux)[d * per:(d + 1) * per]
+                worst = max(worst, float(np.abs(np.asarray(got[1]) - ref_aux)
+                                         .max()) / scale)
+        check(worst <= EVAL_LIMIT, f"(a) {kind} eval: logits {worst:.3e} of "
+              f"the largest from one process's (limit {EVAL_LIMIT})")
+        r0 = reports[0]["options"][kind]
+        lines.append(f"{kind} eval on {EVAL_LATENTS} latents: logits within "
+                     f"{worst:.3e} of the largest; {r0[2]:.3f} ms on rank 0 "
+                     f"(its data index's latent) against one process's "
+                     f"{ms:.3f} (both); a rank's parameters {r0[3][0]} of "
+                     f"{params} bytes")
+    log(f"phase 18 (a) the bare step over a ({AXIS_DATA}, {AXIS_MODEL}) mesh "
+        f"of gloo ranks on the one card [{CARD}], {TRAIN_STEPS} steps each "
+        f"against one process ({OPTION_BATCH} x {TRAIN_PATCH}^2, ViT "
+        f"{VIT_BATCH} x 32^2; host clock, steps 2-3, the ranks sharing the "
+        "card): " + "; ".join(lines))
+
+
+def option_cli(torch, work, totals):
+    """(b) B in bf16 through the train CLI under
+    ``CAE_TPU_MODEL_PARALLEL=2`` (data 1 x model 2, gloo on the one card),
+    3 steps and a validation: launches a rank, both ranks' losses equal,
+    only rank 0 writing, ``last_`` with one process's keys and shapes
+    (``B.msgpack``'s, running statistics included), served through
+    ``CAETurboCore`` with phase 10 (b)'s checks and over a (2, 2) mesh with
+    frames byte-equal to one device's."""
+    from cnn_autoencoder_tpu_torch.models.factory import \
+        autoencoder_from_state_dict
+    from cnn_autoencoder_tpu_torch.ops.kernels import (kernel_wrappers,
+                                                       reset_launch_counts)
+    from cnn_autoencoder_tpu_torch.parallel.mesh import create_mesh
+    from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
+    from cnn_autoencoder_tpu_torch.training.checkpoint import load_checkpoint
+    chk = os.path.join(work, "B.msgpack")
+    os.environ["CAE_TPU_MODEL_PARALLEL"] = str(AXIS_MODEL)
+    try:
+        log_dir, two, wall = mesh_cli_run(
+            torch, work, "B", "bf16", chk, ["cuda:0"] * AXIS_MODEL,
+            "options_B_bf16")
+    finally:
+        del os.environ["CAE_TPU_MODEL_PARALLEL"]
+    check([(r["rank"], r["ranks"]) for r in two]
+          == [(i, AXIS_MODEL) for i in range(AXIS_MODEL)],
+          f"(b) reports {[(r['rank'], r['ranks']) for r in two]}")
+    want = arch_expected("B", "bf16", ARCH_STEPS,
+                         ARCH_VALIDATIONS * VAL_BATCHES)
+    losses = [[s["loss"] for s in r["on_step"]] for r in two]
+    for r in two:
+        tag = f"(b) B bf16 rank {r['rank']} of {r['ranks']}"
+        expect_launches(tag, r["launches"], want)
+        plus_into(totals, r["launches"])
+        check(len(r["on_step"]) == ARCH_STEPS and r["on_step"][0]["grads_ok"]
+              and all(np.isfinite(losses[r["rank"]])),
+              f"{tag}: {len(r['on_step'])} steps, step-1 gradients finite "
+              f"and non-zero {r['on_step'][0]['grads_ok']}, losses "
+              f"{losses[r['rank']]}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    check(rel <= 1e-6, f"(b) the two ranks' losses {losses} ({rel:.3e})")
+    with open(next(os.path.join(log_dir, f) for f in os.listdir(log_dir)
+                   if f.endswith(".log"))) as f:
+        logs = f.read()
+    paths = cli_checkpoints(log_dir)
+    check(set(paths) == {"last", "best"}
+          and f"Training mesh: data=1 x model={AXIS_MODEL}" in logs
+          and "Rank 0 of 2" in logs and "Rank 1" not in logs,
+          f"(b) the files of the model-axis run: {sorted(os.listdir(log_dir))}")
+    a, b = (dict(tree_leaves({m: load_checkpoint(p)[m] for m in
+                              ("encoder", "decoder", "fact_ent")}))
+            for p in (paths["last"], chk))
+    stats = [k for k in b if "/batch_stats/" in k]
+    check(a.keys() == b.keys() and len(stats) == 12
+          and all(np.shape(a[k]) == np.shape(b[k]) for k in b),
+          "(b) rank 0's last_ has other keys or shapes than one process's")
+    imgs = np.stack([image(512, 512, seed) for seed in range(TILES)])
+    plus_into(totals, arch_serve(torch, "B", paths["last"], imgs))
+    served = autoencoder_from_state_dict(paths["last"], device="cuda")
+    one = CAETurboCore(served, num_streams=1024, device="cuda")
+    mesh = CAETurboCore(served, num_streams=1024, mesh=create_mesh(
+        data=AXIS_DATA, model=AXIS_MODEL,
+        devices=["cuda:0"] * (AXIS_DATA * AXIS_MODEL)))
+    frames = one.encode_tiles(imgs)
+    mesh.decode_tiles(mesh.encode_tiles(imgs))     # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    mesh_frames = mesh.encode_tiles(imgs)
+    rec = mesh.decode_tiles(mesh_frames)
+    torch.cuda.synchronize()
+    launches = {fn.kernel_name: fn.launches for fn in kernel_wrappers()}
+    plus_into(totals, launches)
+    check(mesh_frames == frames and np.array_equal(rec,
+                                                   one.decode_tiles(frames)),
+          "(b) the (2, 2) mesh's frames or decodes differ from one device's")
+    t = [s["t"] for s in two[0]["on_step"]]
+    log(f"phase 18 (b) B bf16 through the train CLI under "
+        f"CAE_TPU_MODEL_PARALLEL={AXIS_MODEL} [{CARD}], data 1 x model "
+        f"{AXIS_MODEL} over gloo, {CLI_BATCH} x {CLI_PATCH}^2, {ARCH_STEPS} "
+        f"steps and 1 validation: losses {losses[0]} on both ranks "
+        f"(within {rel:.3e}), launches a rank {two[0]['launches']}; "
+        f"{1e3 * (t[-1] - t[0]) / (len(t) - 1):.3f} ms a step (steps 2-3, "
+        f"host clock), main() {wall:.1f} s; only rank 0 wrote; last_ with "
+        f"one process's {len(b)} keys and shapes ({len(stats)} running "
+        f"statistics), served as phase 10 (b) checks; over a "
+        f"({AXIS_DATA}, {AXIS_MODEL}) mesh frames byte-equal to one "
+        f"device's, launches {launches}")
+
+
+def phase_axis_options(torch, work, procs):
+    """Phase 18: residual units, batch norm, grouped convolutions and the
+    heads under the model axis on the one card, in phase 17 (b)'s ranks
+    (started with phase 17, their report read here) against one process,
+    then B through the train CLI under the axis; returns its launches."""
+    t0 = time.perf_counter()
+    totals = {}
+    ref = options_reference(torch, work)
+    t1 = time.perf_counter()
+    reports = [dict(rank=r, options=o) for r, o in enumerate(
+        wait_reports(procs, work, "options_report", 600))]
+    for r, p in enumerate(procs):
+        p.wait(timeout=60)
+        check(p.returncode == 0, f"rank {r} exited {p.returncode}: "
+              f"{rank_log(work, r)}")
+    t2 = time.perf_counter()
+    options_check(torch, work, reports, ref, totals)
+    option_cli(torch, work, totals)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s (one process "
+        f"{t1 - t0:.1f} s, then the ranks' end {t2 - t1:.1f} s, (b) and the "
+        f"checks {time.perf_counter() - t2:.1f} s); launches {totals}")
+    return totals
+
+
 def phase_model_axis(torch, model, core, core16):
-    """Phase 17: the model mesh axis on the one card; returns its launches
-    for the ``kernels`` line.  (b)'s four ranks start while (c) and the
-    slides run; (a)'s runs follow them."""
+    """Phases 17 and 18: the model mesh axis on the one card; returns
+    their launches for the ``kernels`` line.  (b)'s four ranks start
+    while (c) runs, and go on to phase 18 (a) while (a)'s runs follow
+    them."""
     import shutil
     t0 = time.perf_counter()
     work = os.path.join(ROOT, "build", "phase17")
@@ -7118,12 +7634,16 @@ def phase_model_axis(torch, model, core, core16):
     totals, procs = {}, []
     try:
         ref = axis_reference(torch)
+        # phase 18's ranks are (b)'s: they read R's and B's checkpoints
+        val_img = write_cli_slides(work)
+        for kind in ("R", "B"):
+            arch_checkpoint(torch, kind, os.path.join(work, f"{kind}.msgpack"),
+                            val_img)
         procs = axis_ranks_start(work)
         t1 = time.perf_counter()
         axis_serving(torch, model, core, core16, totals)
-        write_cli_slides(work)
         t2 = time.perf_counter()
-        axis_ranks_check(torch, procs, ref, totals)
+        axis_ranks_check(torch, procs, work, ref, totals)
         t3 = time.perf_counter()
         lines = [axis_cli(torch, work, mode, totals)
                  for mode in ("float32", "bf16")]
@@ -7133,15 +7653,17 @@ def phase_model_axis(torch, model, core, core16):
             "validation; every rank's launches one process's, only rank 0 "
             "wrote, last_ with one process's keys and shapes: "
             + "; ".join(lines))
+        log(f"phase 17: {time.perf_counter() - t0:.1f} s ((b)'s one process, "
+            f"the slides and R's and B's checkpoints {t1 - t0:.1f} s, (c) "
+            f"{t2 - t1:.1f} s beside (b)'s ranks, their end {t3 - t2:.1f} s, "
+            f"(a) {time.perf_counter() - t3:.1f} s beside phase 18's ranks); "
+            f"launches {totals}")
+        plus_into(totals, phase_axis_options(torch, work, procs))
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
         shutil.rmtree(work, ignore_errors=True)
-    log(f"phase 17: {time.perf_counter() - t0:.1f} s ((b)'s one process "
-        f"{t1 - t0:.1f} s, (c) and the slides {t2 - t1:.1f} s beside (b)'s "
-        f"ranks, their end {t3 - t2:.1f} s, (a) {time.perf_counter() - t3:.1f}"
-        f" s); launches {totals}")
     return totals
 
 

@@ -50,10 +50,12 @@ m`` (``distributed.mesh_groups``).  Every rank reads the same global
 batches, keeps its data index's contiguous share (``local_batch_slice``;
 a ragged batch is cut to a multiple of the data axis, with one log line)
 and steps data-parallel over its data group (``training/loop.py``); under
-``m > 1`` its model holds the sharded parameters as its model index's
-slices (``parallel/mesh.py:shard_model``), and ``last_`` / ``best_`` hold
-them gathered, with the same keys, shapes and layout as one process's (a
-resume reads them whole and shards them).  Only rank 0 writes the log,
+``m > 1`` its model, whatever its architecture and head and whichever
+modules train, holds the sharded parameters and batch norms' running
+statistics as its model index's slices (``parallel/mesh.py:
+shard_model``), and ``last_`` / ``best_`` hold them gathered, with the
+same keys, shapes and layout as one process's (a resume reads them whole
+and shards them).  Only rank 0 writes the log,
 ``last_`` / ``best_`` and the stats.  ``CAE_TPU_TRAIN_MESH=0`` trains on
 the first device alone, whatever the model axis.
 """

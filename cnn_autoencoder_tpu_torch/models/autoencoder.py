@@ -26,14 +26,16 @@ stages, every residual unit (the JAX package has no fused branch there),
 and the bf16 mode under ``CAE_TPU_GDN_FAST=0``, run the convolution and
 the GDN kernel.  The fused kernel takes any number of channels.
 
-Under the model mesh axis (``parallel/mesh.py:shard_model``) the plain
-units run as they are: each convolution with a sharded kernel is
-column-parallel (``ops/convops.py``), each GDN gathers its parameters
-(``ops/gdn.py``), and the fused stage takes the gathered conv kernel,
-``gamma`` and ``beta`` (``kernel_hwio``, ``effective_params``) and
-launches K4 on the rank's rows as one process does.  What the axis does
-not take yet raises (``check_model_axis_architecture``, ``ROADMAP.md``
-item 10c).
+Under the model mesh axis (``parallel/mesh.py:shard_model``) every unit
+runs as it is: each convolution with a sharded kernel is column-parallel
+(``ops/convops.py``; a grouped one on its rank's whole groups), each GDN
+gathers its parameters (``ops/gdn.py``), each batch norm its ``scale``
+and ``bias`` and records its rank's slice of the running statistics
+(``ops/batchnorm.py``), dropout takes the global draw's full-channel
+masks, the same on every rank of a model group, and the fused stage takes
+the gathered conv kernel, ``gamma`` and ``beta`` (``kernel_hwio``,
+``effective_params``) and launches K4 on the rank's rows as one process
+does.
 
 Training and serving run the same modules.  Each ``forward`` takes, as the
 JAX package's ``__call__`` does, an explicit ``train`` (default False) that
@@ -61,23 +63,6 @@ from ..ops.gdn import GDN
 from ..ops.kernels.conv_gdn_kernel import conv_gdn_mode, fused_conv_gdn
 
 ACT_TYPES = (None, "Identity", "LeakyReLU", "ReLU", "GDN")
-
-# the architecture options the model mesh axis does not take yet
-MODEL_AXIS_LEFT_OUT = (("use_residual", "residual units"),
-                       ("batch_norm", "batch norm"),
-                       ("groups", "grouped convolutions"),
-                       ("class_model_type", "a classifier head"),
-                       ("seg_model_type", "a segmentation head"))
-
-
-def check_model_axis_architecture(config) -> None:
-    """Raise for a model config whose architecture the model mesh axis
-    does not take yet (``ROADMAP.md`` item 10c)."""
-    left = [what for key, what in MODEL_AXIS_LEFT_OUT if config.get(key)]
-    if left:
-        raise ValueError(
-            "the model mesh axis does not take " + ", ".join(left)
-            + " yet (ROADMAP.md item 10c): train it with model=1")
 
 
 def _act_fn(act: Optional[str], x: torch.Tensor) -> torch.Tensor:

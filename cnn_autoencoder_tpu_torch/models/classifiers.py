@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.batchnorm import BatchNorm
+from ..parallel.distributed import full_param
 from ..utils.device import full_f32, resolve_device
 from .layers import (Conv, Dense, GroupNorm, LayerNorm, avg_pool, dropout,
                      lecun_normal_, max_pool, widen)
@@ -87,7 +88,7 @@ class MultiHeadDotProductAttention(nn.Module):
             w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
             o = torch.einsum("bhqk,bkhd->bqhd", w, v)
             return torch.einsum("blhk,hkd->bld", o, self.out.kernel) \
-                + self.out.bias
+                + full_param(self.out, "bias")
 
 
 class MLPBlock(nn.Module):

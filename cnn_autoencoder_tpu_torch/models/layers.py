@@ -31,6 +31,14 @@ variables one to one by these rules.
 * Initial values are flax's: kernels LeCun normal (truncated at two
   standard deviations), biases 0, scales 1, drawn from the caller's
   generator.
+
+Under the model mesh axis (``parallel/mesh.py:shard_model``) a
+convolution's kernel and bias may be held as the rank's output channels:
+``Conv`` and ``ConvTranspose2x2`` are then column-parallel
+(``distributed.column_parallel``: the rank's channels, gathered).  A
+``Dense`` kernel is never sharded, its bias may be, and the norms'
+``scale`` and ``bias`` may be: those are gathered before use
+(``distributed.full_param``).
 """
 
 import math
@@ -40,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.distributed import column_parallel, full_param
 from ..utils.device import full_f32
 
 # flax's truncated normal keeps the variance of the untruncated one
@@ -95,6 +104,9 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return column_parallel(self, x, self._forward)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         (ph0, ph1), (pw0, pw1) = (
             _pads(x.shape[1], self.kernel[0], self.strides[0],
                   self.padding[0]),
@@ -132,6 +144,9 @@ class ConvTranspose2x2(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return column_parallel(self, x, self._forward)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         n, h, w, c = x.shape
         cout = self.weight.shape[0]
         # (in, a, b, out) with tap (1 - a, 1 - b) at output phase (a, b)
@@ -158,7 +173,7 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with full_f32():
-            return super().forward(x)
+            return F.linear(x, self.weight, full_param(self, "bias"))
 
 
 class _Norm(nn.Module):
@@ -185,8 +200,8 @@ class LayerNorm(_Norm):
         super().__init__(channels, epsilon)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, x.shape[-1:], self.scale, self.bias,
-                            self.epsilon)
+        return F.layer_norm(x, x.shape[-1:], full_param(self, "scale"),
+                            full_param(self, "bias"), self.epsilon)
 
 
 class GroupNorm(_Norm):
@@ -197,8 +212,9 @@ class GroupNorm(_Norm):
         super().__init__(channels, epsilon)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.permute(0, 3, 1, 2), x.shape[-1], self.scale,
-                         self.bias, self.epsilon)
+        y = F.group_norm(x.permute(0, 3, 1, 2), x.shape[-1],
+                         full_param(self, "scale"), full_param(self, "bias"),
+                         self.epsilon)
         return y.permute(0, 2, 3, 1)
 
 

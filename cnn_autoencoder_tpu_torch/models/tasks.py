@@ -9,9 +9,11 @@ collection ``apply`` returns mutated).  A module that is enabled but not
 trainable runs with its parameters detached (``torch.func.functional_call``),
 the counterpart of the JAX package's ``stop_gradient`` on its variables: its
 own parameters get no gradient, while gradients flow through it to
-trainable modules upstream.  As in the JAX package, such a module cannot
-run its batch norms in train mode (JAX raises ``ModifyScopeVariableError``;
-the port raises ``ValueError``).  Disabled modules are identity stubs.
+trainable modules upstream; under the model mesh axis its layers gather
+their detached shards without a backward (a frozen flagship codec still
+launches its kernels on the gathered parameters).  As in the JAX package,
+such a module cannot run its batch norms in train mode (JAX raises
+``ModifyScopeVariableError``; the port raises ``ValueError``).  Disabled modules are identity stubs.
 The classifier (``t_pred``, ``t_aux_pred``) and the segmenter (``s_pred``,
 ``s_aux_pred``) run on the quantized latent ``y_q``, the segmenter with
 the decoder's bridges ``fx_brg`` too (JAX ``models/tasks.py:90-104``), in
@@ -50,14 +52,17 @@ def draw_masks(model, enabled: Sequence[str], batch: int,
                ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The dropout keep-masks of one train-mode forward, ``{module: {unit:
     mask}}``, drawn from ``generator`` module by module (encoder, then
-    decoder)."""
+    decoder).  Each mask spans every channel of its unit, so under the
+    model mesh axis every rank of a model group draws the same ones."""
     return {name: getattr(model, name).draw_masks(batch, generator, device)
             for name in ("encoder", "decoder") if name in enabled}
 
 
 def fold_batch_stats(model, new_state: Dict[str, Dict[str, torch.Tensor]]
                      ) -> None:
-    """Write ``new_state`` (``forward``'s) into the batch norms' buffers."""
+    """Write ``new_state`` (``forward``'s) into the batch norms' buffers
+    (under the model mesh axis, the rank's slices: a batch norm records
+    its buffers' slice of the new running values)."""
     with torch.no_grad():
         for name, stats in new_state.items():
             buffers = dict(getattr(model, name).named_buffers())

@@ -29,6 +29,15 @@ then the global batch's, as under a JAX mesh, from sums and sums of squares
 all-reduced over the group's ranks with a differentiable all-reduce, so
 the backward sums across ranks too; every rank folds the same running
 statistics.
+
+Under the model mesh axis (``parallel/mesh.py:shard_model``) ``scale``,
+``bias``, ``mean`` and ``var`` may be held as the rank's channel slices.
+The layer's input is whole (the convolution before it gathers its
+channels), so it gathers ``scale`` and ``bias`` (and in eval mode the
+running statistics) and normalizes every channel as one process does;
+``group`` is then the data group, so the batch's statistics are the
+global batch's and the same on every rank of a model group, and the new
+running values the layer records are the rank's slice of them.
 """
 
 from typing import Dict, Optional
@@ -36,7 +45,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ..parallel.distributed import all_sum
+from ..parallel.distributed import all_sum, full_param, param_shard
 
 MOMENTUM, EPSILON = 0.9, 1e-5
 
@@ -90,13 +99,17 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 batch_stats: Optional[Dict] = None) -> torch.Tensor:
+        scale, bias = full_param(self, "scale"), full_param(self, "bias")
         if not train:
-            return normalize(x, self.mean, self.var, self.scale, self.bias,
+            return normalize(x, full_param(self, "mean"),
+                             full_param(self, "var"), scale, bias,
                              self.epsilon)
         mean, var = batch_statistics(x, self.group)
         if batch_stats is not None:
-            m = self.momentum
+            m, shard = self.momentum, param_shard(self, "mean")
+            own = ((mean, var) if shard is None
+                   else (shard.narrow(mean), shard.narrow(var)))
             batch_stats[self] = (
-                (m * self.mean + (1 - m) * mean).detach(),
-                (m * self.var + (1 - m) * var).detach())
-        return normalize(x, mean, var, self.scale, self.bias, self.epsilon)
+                (m * self.mean + (1 - m) * own[0]).detach(),
+                (m * self.var + (1 - m) * own[1]).detach())
+        return normalize(x, mean, var, scale, bias, self.epsilon)

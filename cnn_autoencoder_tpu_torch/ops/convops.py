@@ -49,8 +49,13 @@ model group, enters through ``distributed.copy_to_model`` (its cotangent
 from one rank is a partial sum, all-reduced in the backward), every form
 above computes the rank's output channels with its kernel slice, and
 ``distributed.gather_model`` concatenates them (its backward takes the
-rank's own channels of the cotangent).  ``kernel_hwio`` gives the
-gathered kernel, for the fused conv+GDN stage.
+rank's own channels of the cotangent).  A grouped layer's rank holds the
+kernel of whole groups where the groups divide over the model axis (a
+``Conv2dReflect``'s output channels, a ``ConvTranspose2dTorch``'s input
+rows of those groups): it runs those groups on their input channels
+alone.  Where they do not, it gathers the kernel and computes the whole
+layer, as GSPMD is free to.  ``kernel_hwio`` gives the gathered kernel,
+for the fused conv+GDN stage.
 
 Transposed convolutions add in a fixed order on every device, so a decode
 is bit-reproducible on the card (cuDNN's default algorithms for them add
@@ -78,8 +83,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.distributed import (copy_to_model, full_param,
-                                    gather_model, param_shard)
+from ..parallel.distributed import (column_parallel, copy_to_model,
+                                    full_param, gather_model, param_shard)
 from ..utils.device import full_f32
 from . import switches
 
@@ -352,11 +357,20 @@ def _column_parallel(layer: nn.Module, x: torch.Tensor,
                      compute_dtype) -> torch.Tensor:
     """``layer._forward`` on NHWC ``x``; with its kernel held as a
     model-axis shard, the rank's output channels gathered over the model
-    group (module docstring)."""
+    group (module docstring).  A grouped layer's rank computes its own
+    groups on their input channels where its output channels cover whole
+    groups, and the whole layer from the gathered kernel where they do
+    not."""
     shard = param_shard(layer, "weight")
-    if shard is None:
-        return layer._forward(x, compute_dtype)
-    y = layer._forward(copy_to_model(x, shard.group), compute_dtype)
+    if shard is None or layer.groups == 1:
+        return column_parallel(layer, x, lambda t: layer._forward(
+            t, compute_dtype, layer.weight, layer.bias, layer.groups))
+    if layer.groups % shard.size:
+        return layer._forward(x, compute_dtype, full_param(layer, "weight"),
+                              full_param(layer, "bias"), layer.groups)
+    own = shard.narrow(copy_to_model(x, shard.group), 3)
+    y = layer._forward(own, compute_dtype, layer.weight, layer.bias,
+                       layer.groups // shard.size)
     return gather_model(y, shard.group, 3)
 
 
@@ -394,54 +408,58 @@ class Conv2dReflect(nn.Module):
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         return _column_parallel(self, x, compute_dtype)
 
-    def _forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor, compute_dtype, weight, bias,
+                 groups: int) -> torch.Tensor:
+        """NHWC ``x`` through ``weight`` and ``bias`` in ``groups`` groups
+        (the layer's own, or a model-axis rank's part of them)."""
         x = x.permute(0, 3, 1, 2)
         if x.dtype == BF16:
-            return self._bf16(x).permute(0, 2, 3, 1)
+            return self._bf16(x, weight, bias, groups).permute(0, 2, 3, 1)
         precision = layer_precision(compute_dtype)
         if _mixed(x, precision):
-            y = _ConvMixed.apply(self._padded(x), self.weight, self.bias,
-                                 self.stride, self.groups, False)
+            y = _ConvMixed.apply(self._padded(x), weight, bias,
+                                 self.stride, groups, False)
         elif _float32_product(precision) != "float32":
             y = _low_precision(
                 functools.partial(F.conv2d, stride=self.stride,
-                                  groups=self.groups),
-                self._padded(x), self.weight, precision,
-                (self.stride, 0, False, 0, self.groups))
-            if self.bias is not None:
-                y = y + self.bias.float()[:, None, None]
+                                  groups=groups),
+                self._padded(x), weight, precision,
+                (self.stride, 0, False, 0, groups))
+            if bias is not None:
+                y = y + bias.float()[:, None, None]
         else:
-            weight, bias = _conv_operands(x, self.weight, self.bias)
+            weight, bias = _conv_operands(x, weight, bias)
             with full_f32():
                 y = F.conv2d(self._padded(x), weight, bias,
-                             stride=self.stride, groups=self.groups)
+                             stride=self.stride, groups=groups)
         return y.permute(0, 2, 3, 1)
 
-    def _bf16(self, x: torch.Tensor) -> torch.Tensor:
+    def _bf16(self, x: torch.Tensor, weight, bias, groups: int
+              ) -> torch.Tensor:
         """bf16 NCHW rows, the JAX default route (module docstring)."""
-        k, (h, w) = self.weight.shape[-1], x.shape[2:]
+        k, (h, w) = weight.shape[-1], x.shape[2:]
         s2 = (k == 3 and self.stride == 2 and h % 2 == 0 and w % 2 == 0
               and min(h, w) >= 2)
         native = switches.native_conv_out()
         if s2 and switches.polyphase_conv():
-            return self._polyphase(x, native)
+            return self._polyphase(x, native, weight, bias, groups)
         if not native:
             # float32 sums with the bias, one rounding
-            return _ConvMixed.apply(self._padded(x).float(), self.weight,
-                                    self.bias, self.stride, self.groups,
+            return _ConvMixed.apply(self._padded(x).float(), weight,
+                                    bias, self.stride, groups,
                                     False).to(BF16)
-        weight = self.weight.to(BF16)
+        weight = weight.to(BF16)
         with full_f32():
             if s2 and switches.border_conv():
                 y = border_form(x, weight, functools.partial(
-                    F.conv2d, groups=self.groups))
+                    F.conv2d, groups=groups))
             else:
                 y = F.conv2d(self._padded(x), weight, stride=self.stride,
-                             groups=self.groups)
-        return y if self.bias is None else y + self.bias.to(BF16)[:, None,
-                                                                   None]
+                             groups=groups)
+        return y if bias is None else y + bias.to(BF16)[:, None, None]
 
-    def _polyphase(self, x: torch.Tensor, native: bool) -> torch.Tensor:
+    def _polyphase(self, x: torch.Tensor, native: bool, weight, bias,
+                   groups: int) -> torch.Tensor:
         """``CAE_TPU_POLYPHASE_CONV=1`` on bf16 NCHW rows, the 3x3 stride-2
         reflect conv as four stride-1 convs (``polyphase_form``), each
         differentiated by ``conv_mixed``'s rule.  With ``native`` each
@@ -449,14 +467,13 @@ class Conv2dReflect(nn.Module):
         round in bf16; else the convs give float32, summed with the bias
         and rounded once."""
         if native:
-            y = polyphase_form(x, self.weight, lambda a, w: F.conv2d(
-                a, w.to(BF16), groups=self.groups))
-            return y if self.bias is None else y + self.bias.to(BF16)[
-                :, None, None]
-        y = polyphase_form(x, self.weight, lambda a, w: _ConvMixed.apply(
-            a.float(), w, None, 1, self.groups, False))
-        if self.bias is not None:
-            y = y + self.bias.float()[:, None, None]
+            y = polyphase_form(x, weight, lambda a, w: F.conv2d(
+                a, w.to(BF16), groups=groups))
+            return y if bias is None else y + bias.to(BF16)[:, None, None]
+        y = polyphase_form(x, weight, lambda a, w: _ConvMixed.apply(
+            a.float(), w, None, 1, groups, False))
+        if bias is not None:
+            y = y + bias.float()[:, None, None]
         return y.to(BF16)
 
 
@@ -667,34 +684,37 @@ class ConvTranspose2dTorch(nn.Module):
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         return _column_parallel(self, x, compute_dtype)
 
-    def _forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-        polyphase = (self.weight.shape[-1], self.stride, self.padding,
-                     self.output_padding, self.groups) == (3, 2, 1, 1, 1)
+    def _forward(self, x: torch.Tensor, compute_dtype, weight, bias,
+                 groups: int) -> torch.Tensor:
+        """NHWC ``x`` through ``weight`` and ``bias`` in ``groups`` groups
+        (the layer's own, or a model-axis rank's part of them)."""
+        polyphase = (weight.shape[-1], self.stride, self.padding,
+                     self.output_padding, groups) == (3, 2, 1, 1, 1)
         if x.dtype == BF16:
             if switches.native_conv_out() and not (
                     polyphase and switches.polyphase_deconv()):
                 # the sums stored as bf16, then the bias added in bf16
-                y = self._transposed(x, self.weight.to(BF16), None,
+                y = self._transposed(x, weight.to(BF16), None, groups,
                                      polyphase, False)
-                return y if self.bias is None else y + self.bias.to(BF16)
+                return y if bias is None else y + bias.to(BF16)
             # float32 sums with the float32 bias, one rounding
-            return self._transposed(x.float(), self.weight, self.bias,
+            return self._transposed(x.float(), weight, bias, groups,
                                     polyphase, True).to(BF16)
         precision = layer_precision(compute_dtype)
         mixed = _mixed(x, precision)
         if not mixed and _float32_product(precision) != "float32":
             y = _low_precision(
                 lambda a, w: self._transposed(a.permute(0, 2, 3, 1), w, None,
-                                              polyphase, False)
+                                              groups, polyphase, False)
                 .permute(0, 3, 1, 2),
-                x.permute(0, 3, 1, 2), self.weight, precision,
+                x.permute(0, 3, 1, 2), weight, precision,
                 (self.stride, self.padding, True, self.output_padding,
-                 self.groups)).permute(0, 2, 3, 1)
-            return y if self.bias is None else y + self.bias.float()
-        weight, bias = _conv_operands(x, self.weight, self.bias)
-        return self._transposed(x, weight, bias, polyphase, mixed)
+                 groups)).permute(0, 2, 3, 1)
+            return y if bias is None else y + bias.float()
+        weight, bias = _conv_operands(x, weight, bias)
+        return self._transposed(x, weight, bias, groups, polyphase, mixed)
 
-    def _transposed(self, x, weight, bias, polyphase, mixed):
+    def _transposed(self, x, weight, bias, groups, polyphase, mixed):
         """NHWC in and out; the polyphase form or the dilated one, through
         ``_ConvMixed`` where ``mixed``."""
         if polyphase:
@@ -703,6 +723,6 @@ class ConvTranspose2dTorch(nn.Module):
                                         2, 1, True).permute(0, 2, 3, 1)
             return _Deconv2xPolyphase.apply(x, weight, bias)
         y = _deconv_dilated(x.permute(0, 3, 1, 2), weight, bias, self.stride,
-                            self.padding, self.output_padding, self.groups,
+                            self.padding, self.output_padding, groups,
                             mixed)
         return y.permute(0, 2, 3, 1)

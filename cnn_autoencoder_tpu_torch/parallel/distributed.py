@@ -166,9 +166,9 @@ def all_sum(t: torch.Tensor, group) -> torch.Tensor:
 
 
 class ModelShard(NamedTuple):
-    """A parameter held as a shard over a model group: the group, the
-    rank's index in it, its size, and the sharded axis in the port's
-    layout (``parallel/mesh.py:shard_model``)."""
+    """A parameter or buffer held as a shard over a model group: the
+    group, the rank's index in it, its size, and the sharded axis in the
+    port's layout (``parallel/mesh.py:shard_model``)."""
     group: object
     index: int
     size: int
@@ -184,12 +184,13 @@ class ModelShard(NamedTuple):
 
 
 def param_shard(module: torch.nn.Module, name: str) -> Optional[ModelShard]:
-    """The shard ``module``'s parameter ``name`` is held as, or None."""
+    """The shard ``module``'s parameter or buffer ``name`` is held as, or
+    None."""
     return (getattr(module, "model_shards", None) or {}).get(name)
 
 
 def named_shards(module: torch.nn.Module) -> Dict[str, ModelShard]:
-    """{qualified parameter name: its shard} of ``module``'s parameters
+    """{qualified name: its shard} of ``module``'s parameters and buffers
     held as model-axis shards."""
     return {f"{where}.{name}" if where else name: s
             for where, m in module.named_modules()
@@ -197,10 +198,29 @@ def named_shards(module: torch.nn.Module) -> Dict[str, ModelShard]:
 
 
 def full_param(module: torch.nn.Module, name: str):
-    """``module``'s parameter ``name`` whole: gathered over its model group
-    (differentiably) where it is held as a shard, else as it is."""
+    """``module``'s parameter or buffer ``name`` whole: gathered over its
+    model group where it is held as a shard (differentiably where a
+    gradient is wanted), else as it is."""
     t, s = getattr(module, name), param_shard(module, name)
-    return t if s is None or t is None else gather_model(t, s.group, s.axis)
+    if s is None or t is None:
+        return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return gather_model(t, s.group, s.axis)
+    return all_gather_axis(t, s.group, s.axis)
+
+
+def column_parallel(module: torch.nn.Module, x: torch.Tensor, forward
+                    ) -> torch.Tensor:
+    """``forward(x)`` of a layer whose output channels are the last axis:
+    where ``module.weight`` is held as a model-axis shard (its output
+    channels, the bias with them), ``x`` (the same on every rank of the
+    group) enters through ``copy_to_model``, ``forward`` computes the
+    rank's channels, and ``gather_model`` concatenates them."""
+    s = param_shard(module, "weight")
+    if s is None:
+        return forward(x)
+    return gather_model(forward(copy_to_model(x, s.group)), s.group,
+                        x.dim() - 1)
 
 
 def all_gather_axis(t: torch.Tensor, group, axis: int) -> torch.Tensor:

@@ -15,13 +15,16 @@ GSPMD; the port runs it by hand:
   ``model``, so frames do not depend on it);
 * training runs one process a mesh device (``parallel/distributed.py``,
   ``cli/train_cae.py``): the data axis splits the batch, and the model
-  axis holds every parameter that ``infer_param_spec`` shards as the
-  rank's slice (``shard_model``), gathered in the forward where a layer
-  needs it whole (``distributed.gather_model``).  Convolutions with a
-  sharded kernel compute the rank's output channels and gather them
-  (``ops/convops.py``), GDN and the fused conv+GDN stage gather their
-  parameters and launch their kernels on the rank's rows as one process
-  does, and the bottleneck works on the rank's channels
+  axis holds every leaf that ``infer_param_spec`` shards as the rank's
+  slice (``shard_model``: the codec's, the heads' and the batch norms'
+  running statistics, of every architecture), gathered in the forward
+  where a layer needs it whole (``distributed.gather_model``).
+  Convolutions with a sharded kernel compute the rank's output channels
+  and gather them (``ops/convops.py``, ``models/layers.py``), GDN and the
+  fused conv+GDN stage gather their parameters and launch their kernels
+  on the rank's rows as one process does, the norms and dense layers
+  gather what they hold as shards (``ops/batchnorm.py``,
+  ``models/layers.py``), and the bottleneck works on the rank's channels
   (``models/entropy.py``).
 
 A mesh's devices may repeat (``["cpu"] * 8``, ``["cuda:0", "cuda:0"]``):
@@ -204,11 +207,18 @@ def shard_batch(mesh: DeviceMesh, x) -> List:
 
 def shard_state(state: Dict[str, torch.Tensor], config: Dict[str, Any],
                 model_index: int, model_size: int) -> Dict[str, torch.Tensor]:
-    """Model index ``model_index``'s shard of a ``CAEModel`` state dict, as
+    """Model index ``model_index``'s shard of a ``CAEModel`` state dict
+    (the heads' and the ``batch_stats`` leaves included), as
     ``shard_variables`` places it on that mesh device: through the JAX
     layout (``state_to_jax``), each leaf cut along the axis
-    ``infer_param_spec`` names, and back (float32 tensors on the host)."""
-    from ..utils.weights import state_from_jax, state_to_jax
+    ``infer_param_spec`` names, and back (float32 tensors on the host).
+    A grouped transposed convolution's cut kernel holds whole groups (its
+    output channels divide over ``model_size`` as its groups do), so it
+    comes back as the rows of those groups' inputs in the port's layout,
+    a transposed convolution of 1/``model_size`` of the groups."""
+    from ..utils.weights import deconv_groups, state_from_jax, state_to_jax
+    groups = deconv_groups(config)
+    shard_groups = {}
 
     def cut(path, leaf):
         if isinstance(leaf, dict):
@@ -216,12 +226,24 @@ def shard_state(state: Dict[str, torch.Tensor], config: Dict[str, Any],
         spec = infer_param_spec(path, leaf, model_size)
         for axis, name in enumerate(spec):
             if name == "model":
+                g = (groups.get(path[2]) if path[0] == "decoder"
+                     and path[-1] == "kernel" and len(path) == 5
+                     and path[3].startswith(("deconv", "res_deconv"))
+                     else None)
+                if g:
+                    if g % model_size:
+                        raise ValueError(
+                            f"{'/'.join(path)}: a shard of {g} groups over "
+                            f"model={model_size} would not hold whole "
+                            "groups")
+                    shard_groups[f"{path[2]}/{path[3]}"] = g // model_size
                 per = leaf.shape[axis] // model_size
                 return np.ascontiguousarray(np.take(leaf, np.arange(
                     model_index * per, (model_index + 1) * per), axis=axis))
         return leaf
 
-    return state_from_jax(cut((), state_to_jax(state, config)), config)
+    tree = cut((), state_to_jax(state, config))
+    return state_from_jax(tree, config, shard_groups)
 
 
 def shard_axes(state: Dict[str, torch.Tensor], config: Dict[str, Any],
@@ -245,16 +267,15 @@ def gather_state(shards: Sequence[Dict[str, torch.Tensor]],
 
 def shard_model(model: torch.nn.Module, group, model_index: int,
                 model_size: int) -> torch.nn.Module:
-    """Hold ``model``'s sharded parameters as this rank's slices: each
+    """Hold ``model``'s sharded leaves as this rank's slices, the heads'
+    and the batch norms' running statistics among them: a parameter
     becomes a new ``nn.Parameter`` of 1/``model_size`` of the leaf (so an
-    optimizer built after it keeps its state on the shard), and its module
-    records the ``ModelShard`` its layers gather by.  Architectures the
-    model axis does not take raise (``ROADMAP.md`` item 10c).  A no-op at
-    ``model_size`` 1."""
-    from ..models.autoencoder import check_model_axis_architecture
+    optimizer built after it keeps its state on the shard), a buffer a
+    buffer of the slice (so no optimizer sees it), and its module records
+    the ``ModelShard`` its layers gather by.  A no-op at ``model_size``
+    1."""
     if model_size <= 1:
         return model
-    check_model_axis_architecture(model.config)
     state = model.state_dict()
     parts = shard_state(state, model.config, model_index, model_size)
     for key, axis in shard_axes(state, model.config, model_size).items():
@@ -263,9 +284,12 @@ def shard_model(model: torch.nn.Module, group, model_index: int,
         where, name = key.rsplit(".", 1)
         module = model.get_submodule(where)
         old = getattr(module, name)
-        module.register_parameter(name, torch.nn.Parameter(
-            parts[key].to(old.device, old.dtype),
-            requires_grad=old.requires_grad))
+        part = parts[key].to(old.device, old.dtype)
+        if name in module._buffers:
+            module.register_buffer(name, part)
+        else:
+            module.register_parameter(name, torch.nn.Parameter(
+                part, requires_grad=old.requires_grad))
         module.model_shards = dict(getattr(module, "model_shards", {}), **{
             name: ModelShard(group, model_index, model_size, axis)})
     return model

@@ -37,7 +37,7 @@ the JAX layout and carries it back here, so a rank's shard is the one
 ``shard_variables`` puts on its mesh device).
 """
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -62,7 +62,7 @@ def _kind(where: str) -> str:
     raise ValueError(f"layer {where} is not a layer of the CAE")
 
 
-def _deconv_groups(config: Dict[str, Any]) -> Dict[str, int]:
+def deconv_groups(config: Dict[str, Any]) -> Dict[str, int]:
     """{decoder unit: group count of its transposed convolutions} of a
     grouped model (each unit's input width); empty otherwise."""
     if not config.get("groups"):
@@ -103,7 +103,8 @@ def _layer(prefix: str, layer: str, params: Dict[str, Any],
     return out
 
 
-def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
+def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any],
+                   shard_groups: Optional[Dict[str, int]] = None
                    ) -> Dict[str, torch.Tensor]:
     """``{"encoder"|"decoder"|"fact_ent"|"class_model"|"seg_model":
     {"params": tree[, "batch_stats": tree]}}`` (numpy arrays, as a
@@ -111,10 +112,13 @@ def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
     top-level entries (config scalars,
     optimizer state) are ignored, and so are None leaves (the holes of an
     optimizer slot's moment trees, where a parameter belongs to the other
-    slot of its module)."""
+    slot of its module).  ``shard_groups`` (``{"up_i/<layer>": groups}``)
+    gives the group count of a decoder's transposed convolution whose
+    kernel is a model-axis shard (``parallel/mesh.py:shard_state``)."""
     arrays: Dict[str, np.ndarray] = {}
     levels = int(config.get("compression_level", 4))
-    groups = _deconv_groups(config)
+    groups = deconv_groups(config)
+    shard_groups = shard_groups or {}
     for module in ("encoder", "decoder"):
         tree = variables.get(module)
         if tree is None:
@@ -134,7 +138,8 @@ def state_from_jax(variables: Dict[str, Any], config: Dict[str, Any]
                 continue
             for layer, params in layers.items():
                 arrays.update(_layer(f"{module}.{unit}", layer, params,
-                                     groups.get(unit, 1)))
+                                     shard_groups.get(f"{unit}/{layer}",
+                                                      groups.get(unit, 1))))
         for unit, layers in tree.get("batch_stats", {}).items():
             for layer, stats in layers.items():
                 if _kind(layer) != "norm" or set(stats) - set(_STATS):
@@ -223,7 +228,7 @@ def state_to_jax(weights: Dict[str, torch.Tensor], config: Dict[str, Any]
     of ``state_from_jax``; ``config`` gives a grouped model's layout).  A
     None value stays a None leaf at its parameter's place."""
     tree: Dict[str, Any] = {}
-    groups = _deconv_groups(config)
+    groups = deconv_groups(config)
     heads: Dict[str, Dict[str, Any]] = {}
     for key, value in weights.items():
         module, *path = key.split(".")

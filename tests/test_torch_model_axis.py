@@ -13,8 +13,11 @@ against one process and against the JAX package on the 8 CPU devices
   parameters; it returns no gradients);
 * both serving cores over a ``(2, 2)`` mesh of one device: frames
   byte-equal to the data-only mesh's and to JAX's cores under ``(2, 2)``;
-* the architectures the axis does not take yet raise, naming ROADMAP
-  item 10c.
+* the architectures the flagship's axis left out (residual units, batch
+  norm, grouped convolutions, the heads): their shards and their eval
+  forwards over 2 gloo ranks against one process's; grouped layers held
+  as shards, whole groups a rank or not, against one process and JAX
+  (``tests/test_torch_model_axis_options.py`` trains them).
 
 Every tolerance is 1e-5 of the reference tensor's largest magnitude.  The
 steps use SGD (``tests/torch_parallel_ranks.py`` says why)."""
@@ -32,6 +35,7 @@ import torch
 from cnn_autoencoder_tpu.criteria.loss import setup_loss as jax_setup_loss
 from cnn_autoencoder_tpu.models.factory import \
     autoencoder_from_state_dict as jax_from_state_dict
+from cnn_autoencoder_tpu.ops import convops as jax_convops
 from cnn_autoencoder_tpu.parallel import mesh as jax_mesh
 from cnn_autoencoder_tpu.storage.cae_codec import \
     CAECodecCore as JaxCodecCore
@@ -52,13 +56,17 @@ from cnn_autoencoder_tpu_torch.storage.cae_codec import CAECodecCore
 from cnn_autoencoder_tpu_torch.storage.turbo_codec import CAETurboCore
 from cnn_autoencoder_tpu_torch.training.checkpoint import save_checkpoint
 from cnn_autoencoder_tpu_torch.training.optim import setup_optimizers
-from cnn_autoencoder_tpu_torch.utils.weights import (state_from_jax,
+from cnn_autoencoder_tpu_torch.utils.weights import (_deconv,
+                                                     state_from_jax,
                                                      state_to_jax)
 
 from tests.test_torch_parallel import _tiles
 from tests.test_torch_parallel_train import _close, _env, _run
-from tests.torch_model_axis_ranks import (ALGO, CONFIG, CRITERION, LR,
-                                          TRAINABLE, bare_steps)
+from tests.torch_model_axis_ranks import (ALGO, CONFIG, CRITERION,
+                                          FORWARD_OPTIONS, GROUPED_LAYERS,
+                                          LR, TRAINABLE, bare_steps,
+                                          grouped_layer, option_config,
+                                          option_forward, option_input)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = os.path.join(REPO, "tests", "torch_model_axis_ranks.py")
@@ -320,21 +328,102 @@ def test_cores_over_model_mesh(seeded, core):
     np.testing.assert_array_equal(rec, np.asarray(jcore.decode_tiles(frames)))
 
 
-# -- what the axis leaves out --------------------------------------------------
+# -- the architectures the flagship's axis left out ----------------------------
 
 
-@pytest.mark.parametrize("option", [
-    {"use_residual": True}, {"batch_norm": True}, {"groups": True},
-    {"seg_model_type": "JNet"},
-    {"class_model_type": "ViT", "patch_size": 16, "cut_position": 11}])
-def test_left_out_architectures_raise(option):
-    """(f) Residual units, batch norm, grouped convolutions and the heads
-    raise under model=2, naming ROADMAP item 10c."""
-    config = dict(CONFIG, channels_net=8, **option)
-    if option.get("groups"):
-        config.update(channels_org=3, channels_net=3, channels_bn=3)
+def _jax_grouped_layer(kind, case):
+    """The JAX package's grouped layer of ``GROUPED_LAYERS[case]`` on a
+    seeded input: ({weight, bias (the port's layout), x, g}, y, dx)."""
+    cin, cout, groups, stride = GROUPED_LAYERS[case]
+    rng = np.random.RandomState(10 * case + len(kind))
+    x = rng.randn(2, 9, 7, cin).astype(np.float32)
+    if kind == "deconv":
+        layer = jax_convops.ConvTranspose2dTorch(cout, 3, stride, 1,
+                                                 stride - 1, True, groups)
+        side = (9 * stride, 7 * stride)
+    else:
+        layer = jax_convops.Conv2dReflect(cout, 3, stride, True, groups)
+        side = (-(-9 // stride), -(-7 // stride))
+    g = rng.randn(2, *side, cout).astype(np.float32)
+    v = layer.init(jax.random.PRNGKey(case), jnp.asarray(x))
+    kernel = np.asarray(v["params"]["kernel"])
+    weight = (_deconv(kernel, groups) if kind == "deconv"
+              else np.transpose(kernel, (3, 2, 0, 1)))
+    y, vjp = jax.vjp(lambda a: layer.apply(v, a), jnp.asarray(x))
+    arrays = {"weight": np.ascontiguousarray(weight),
+              "bias": np.asarray(v["params"]["bias"]), "x": x, "g": g}
+    return arrays, np.asarray(y), np.asarray(vjp(jnp.asarray(g))[0])
+
+
+@pytest.fixture(scope="module")
+def forwards(tmp_path_factory):
+    """One launch of 2 gloo ranks (data 1 x model 2) for the options'
+    forwards and the grouped layers; meanwhile one process's and JAX's.
+    Returns (one process's {option: (outputs, numel)}, JAX's and one
+    process's {(kind, case): ...}, each rank's results)."""
+    work = tmp_path_factory.mktemp("forwards")
+    layers, jax_out = {}, {}
+    for kind in ("conv", "deconv"):
+        for case in range(len(GROUPED_LAYERS)):
+            arrays, y, dx = _jax_grouped_layer(kind, case)
+            layers.update({f"{kind}{case}/{k}": v for k, v in arrays.items()})
+            jax_out[kind, case] = (y, dx)
+    np.savez(work / "layers.npz", **layers)
+    procs = [subprocess.Popen(
+        [sys.executable, RANKS, "forwards", str(work), "2"],
+        env=_env(COORDINATOR_ADDRESS="file://" + str(work / "rdzv"),
+                 NUM_PROCESSES="2", PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        one = {o: option_forward(o, option_input(o))
+               for o in FORWARD_OPTIONS}
+        one_layers = {key: grouped_layer(*key, layers) for key in jax_out}
+        _run(procs, timeout=240)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    ranks = [dict(np.load(work / f"forwards{r}.npz")) for r in range(2)]
+    return one, jax_out, one_layers, ranks
+
+
+@pytest.mark.parametrize("option", list(FORWARD_OPTIONS))
+def test_left_out_architectures_shard(forwards, option):
+    """(f) Residual units, batch norm, grouped convolutions (4 / 4 / 4)
+    and the heads (JNet, ViT) on the 64-wide CAE: under model=2 each
+    leaf is held as the shard ``infer_param_spec`` gives (half of a cut
+    leaf, running statistics included), and the eval forward over 2
+    ranks equals one process's."""
+    one, _, _, ranks = forwards
+    outputs, numel = one[option]
+    config = option_config(option)
     model = build_model(config, torch.Generator().manual_seed(0),
                         device="cpu")
-    with pytest.raises(ValueError, match="10c"):
-        shard_model(model, None, 0, 2)
+    axes = shard_axes(model.state_dict(), config, 2)
+    assert any(a is not None for a in axes.values())
+    for r, got in enumerate(ranks):
+        for k, n in numel.items():
+            want = n if axes[k] is None else n // 2
+            assert int(got[f"{option}/numel/{k}"]) == want, (r, k)
+        for k, v in outputs.items():
+            _close(got[f"{option}/{k}"], v, what=f"rank {r} {option} {k}")
     assert shard_model(model, None, 0, 1) is model
+
+
+@pytest.mark.parametrize("kind", ["conv", "deconv"])
+@pytest.mark.parametrize("case", range(len(GROUPED_LAYERS)))
+def test_grouped_layer_shards_equal_jax(forwards, kind, case):
+    """A grouped ``Conv2dReflect`` and ``ConvTranspose2dTorch`` held as
+    shards over 2 ranks: its whole groups on their input channels (4 and
+    2 groups), or the gathered kernel's whole layer (3 groups); y, the
+    input's and the weight's gradients against one process's, and y and
+    the input's gradient against JAX's layer, within 1e-5."""
+    _, jax_out, one_layers, ranks = forwards
+    y, dx, dw = one_layers[kind, case]
+    _close(y, jax_out[kind, case][0], what="one process y against JAX")
+    _close(dx, jax_out[kind, case][1], what="one process dx against JAX")
+    for r, got in enumerate(ranks):
+        for name, want in (("y", y), ("dx", dx), ("dw", dw)):
+            _close(got[f"{kind}{case}/{name}"], want,
+                   what=f"rank {r} {kind} {name}")

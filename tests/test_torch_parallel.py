@@ -72,11 +72,10 @@ def test_create_mesh_shapes_as_jax(data):
 
 
 def test_model_axis_raises(models):
-    """The model axis (ROADMAP item 10b) runs at every way in: meshes of
-    data x model, both cores given one (each data shard on the first
-    device of its model group, frames as one device's), and
-    ``shard_model``; only the architectures it leaves out raise, naming
-    item 10c."""
+    """The model axis runs at every way in: meshes of data x model, both
+    cores given one (each data shard on the first device of its model
+    group, frames as one device's), and ``shard_model``, which takes
+    every architecture: a residual model is held as its slices too."""
     _, t_model = models
     for mesh in (create_mesh(data=4, model=2, devices=CPU8),
                  create_mesh(model=2, devices=CPU8)):
@@ -96,8 +95,14 @@ def test_model_axis_raises(models):
     model = CAEModel(dict(channels_org=3, channels_net=8, channels_bn=8,
                           compression_level=2, K=4, r=3,
                           act_layer_type="GDN", use_residual=True))
-    with pytest.raises(ValueError, match="10c"):
-        shard_model(model, None, 0, 2)
+    full = {k: v.shape for k, v in model.state_dict().items()}
+    shard_model(model, None, 0, 2)
+    res = model.encoder.down_1.res_conv1
+    assert res.weight.shape[0] == full["encoder.down_1.res_conv1.weight"][0] \
+        // 2 and "weight" in res.model_shards
+    assert model.decoder.up_0.gdn_res.gamma.shape[0] == 4
+    assert model.encoder.down_0.res_conv1.weight.shape == \
+        full["encoder.down_0.res_conv1.weight"]
 
 
 @pytest.mark.parametrize("model_size", [1, 2, 4])

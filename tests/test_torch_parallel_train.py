@@ -317,8 +317,7 @@ def test_batch_sizes_must_divide_over_ranks(tmp_path, monkeypatch):
     data.mkdir()
     _make_slide(str(data / "train_0.zarr"), seed=0)
     _make_slide(str(data / "val_0.zarr"), seed=9)
-    # batch norm waits for ROADMAP item 10c under the model axis
-    argv = ["-dd", str(data)] + [a for a in CLI_ARGS if a != "-bn"]
+    argv = ["-dd", str(data)] + CLI_ARGS
     two_dir, one_dir = tmp_path / "two", tmp_path / "one"
     proc = subprocess.Popen(
         [sys.executable, os.path.join(REPO, "tests",
