@@ -32,6 +32,20 @@ index's device (``data_devices``; the JAX core's ``shard_map`` over
 launched before any shard's result is fetched.  The frames are those of
 one device, and ``per_shard_batch`` is the framing unit of the rANS
 fetch's pooled heads.
+
+Each call's work is timed in ``GLOBAL_TIMER`` stages (profiler ranges while
+a profiler records).  ``encode_tiles``: ``compress/upload`` (each shard's
+tiles to its device), ``compress/analysis`` (the encoder and quantization
+dispatched; on a coded upload, the words' upload, K5 and the encoder
+after ``compress/host_rans_px``), ``compress/rans_states`` (escape count,
+stream packing, K6's state pass), ``compress/fetch_words`` (every
+compaction tried and its copy to the host), then ``compress/frame`` (host
+frame assembly) or ``compress/host_fallback`` (the host coder).
+``decode_tiles``: ``decompress/parse`` (headers, grouping, the payload
+checks and the host word buffers), ``decompress/upload_words``,
+``decompress/symbols`` (K5 and unpacking), ``decompress/synthesis`` (the
+decoder dispatched; with a coded fetch, the residuals' coding too) and
+``decompress/d2h_pixels`` (``CAECodecCore.fetch_pixels``).
 """
 
 import copy
@@ -154,8 +168,17 @@ class CAETurboCore:
 
     def latent_symbols(self, tiles_u8) -> torch.Tensor:
         """(B, H, W, 3) uint8 -> (B, C, lh, lw) int32 quantized latent
-        ``round(y - medians)``, channel-major, on the device."""
-        return self.base.latent_symbols(tiles_u8)
+        ``round(y - medians)``, channel-major, on the device: each shard's
+        tiles uploaded to its device, then analysed there."""
+        parts = []
+        for core, part in self._shard_pairs(tiles_u8):
+            with GLOBAL_TIMER.stage("compress/upload"):
+                if not torch.is_tensor(part):
+                    part = torch.from_numpy(np.ascontiguousarray(part))
+                x = part.to(core.device)
+            with GLOBAL_TIMER.stage("compress/analysis"):
+                parts.append(core.base.latent_symbols(x))
+        return gather_batch(parts, self.device)[:len(tiles_u8)]
 
     def escapes(self, sym_cm: torch.Tensor) -> torch.Tensor:
         """Per-tile count of symbols outside their channel's table."""
@@ -172,14 +195,31 @@ class CAETurboCore:
         six capacities that all overflow, send the batch to the host coder,
         which codes the same symbols.  Under a mesh each shard codes its
         own tiles on its device."""
-        bsz, _, lh, lw = sym_cm.shape
+        _, _, lh, lw = sym_cm.shape
+        s = self.num_streams
+        with GLOBAL_TIMER.stage("compress/rans_states"):
+            shards = self._shard_pairs(sym_cm)
+            esc = [core.escapes(x).sum() for core, x in shards]
+            states = [encode_states(pack_streams(x.reshape(len(x), -1), s),
+                                    core._ch_map(lh, lw, s), core.tables)
+                      for core, x in shards]
+        with GLOBAL_TIMER.stage("compress/fetch_words"):
+            got = self._fetch_words(shards, states, esc, lh, lw)
+        if got is not None:
+            with GLOBAL_TIMER.stage("compress/frame"):
+                return self._frame(*got, true_hw)
+        self.host_fallbacks += 1
+        with GLOBAL_TIMER.stage("compress/host_fallback"):
+            sym = self.base.fetch_symbols(self.base.narrow_symbols(sym_cm))
+            return self.base.entropy_encode(sym, true_hw)
+
+    def _fetch_words(self, shards, states, esc, lh: int, lw: int):
+        """Compact the shards' states at each capacity in turn and copy
+        them to the host: (words, totals) of the batch at the first
+        capacity that holds every tile; None on an escape, or when none
+        does."""
         s = self.num_streams
         t = self._steps(lh, lw, s)
-        shards = self._shard_pairs(sym_cm)
-        esc = [core.escapes(x).sum() for core, x in shards]
-        states = [encode_states(pack_streams(x.reshape(len(x), -1), s),
-                                core._ch_map(lh, lw, s), core.tables)
-                  for core, x in shards]
         # the first capacity from the tables' entropy (+12% headroom), then
         # doubling, as the JAX codec tries them; none needs to exceed one
         # word per symbol
@@ -195,16 +235,13 @@ class CAETurboCore:
             fetched = [self._fetch_compacted(buf, len(x), cap)
                        for buf, (_, x) in zip(bufs, shards)]
             if sum(f[0] for f in fetched):
-                break
+                return None
             totals = np.concatenate([f[1] for f in fetched])
             if int(totals.max()) <= cap:
                 words = [f[2] for f in fetched]
-                return self._frame(words[0] if len(words) == 1
-                                   else np.concatenate(words), totals,
-                                   true_hw)
-        self.host_fallbacks += 1
-        sym = self.base.fetch_symbols(self.base.narrow_symbols(sym_cm))
-        return self.base.entropy_encode(sym, true_hw)
+                return (words[0] if len(words) == 1
+                        else np.concatenate(words)), totals
+        return None
 
     def _compact(self, state, esc: torch.Tensor, cap: int) -> torch.Tensor:
         """Compact ``state`` at ``cap`` into one device buffer holding the
@@ -265,8 +302,9 @@ class CAETurboCore:
                 queues, totals = up_transport.encode_host(
                     tiles_u8, cap, snap.freq, snap.start, snap.pred_mode)
             if (totals >= 0).all():
-                sym = self.base.encode_tiles_device_coded(
-                    queues, totals, tiles_u8.shape, snap, cap)[2]
+                with GLOBAL_TIMER.stage("compress/analysis"):
+                    sym = self.base.encode_tiles_device_coded(
+                        queues, totals, tiles_u8.shape, snap, cap)[2]
                 return self.frames_from_symbols(sym, true_hw)
             up_transport.note_overflow()
         if on_host:
@@ -302,8 +340,28 @@ class CAETurboCore:
                             tw: int) -> torch.Tensor:
         """Decode same-geometry v4 frames -> (B, C, lh, lw) int32 symbols
         on the device."""
+        return self._symbols(VERSION, self._v4_queues(raws), s, th, tw)
+
+    def symbols_from_frames_v3(self, raws: Sequence[bytes], s: int, th: int,
+                               tw: int) -> torch.Tensor:
+        """Decode same-geometry legacy v3 frames (a length table, then
+        per-stream words) -> (B, C, lh, lw) int32 symbols on the device."""
+        return self._symbols(LEGACY_VERSION, self._v3_streams(raws, s), s,
+                             th, tw)
+
+    def _symbols(self, version: int, words: np.ndarray, s: int, th: int,
+                 tw: int) -> torch.Tensor:
+        """A group's host word buffers (``_host_words``) -> (B, C, lh, lw)
+        int32 symbols on the device."""
         lh, lw = self._latent_hw(th, tw)
-        t = self._steps(lh, lw, s)
+        decode = decode_interleaved if version == VERSION else decode_device
+        return self._decode_shards(decode, words, lh, lw, s,
+                                   self._steps(lh, lw, s))
+
+    @staticmethod
+    def _v4_queues(raws: Sequence[bytes]) -> np.ndarray:
+        """v4 frames' payloads, checked against their headers, as (B, cap)
+        uint16 word queues."""
         batch = len(raws)
         totals = np.zeros(batch, np.int64)  # in 16-bit words
         payloads = []
@@ -321,7 +379,7 @@ class CAETurboCore:
         for i, payload in enumerate(payloads):
             queues[i, :totals[i]] = np.frombuffer(payload, "<u2")
         GLOBAL_TIMER.add_link_bytes("h2d", queues.nbytes)
-        return self._decode_shards(decode_interleaved, queues, lh, lw, s, t)
+        return queues
 
     def _decode_shards(self, decode, bufs: np.ndarray, lh: int, lw: int,
                        s: int, t: int) -> torch.Tensor:
@@ -330,20 +388,21 @@ class CAETurboCore:
         device."""
         parts = []
         for core, part in self._shard_pairs(bufs):
-            sym_ts = decode(torch.from_numpy(part).to(core.device),
-                            core._ch_map(lh, lw, s), core.tables, t)
-            flat = unpack_streams(sym_ts, self.channels_bn * lh * lw)
-            parts.append(flat.reshape(len(part), self.channels_bn, lh, lw))
+            with GLOBAL_TIMER.stage("decompress/upload_words"):
+                words = torch.from_numpy(part).to(core.device)
+            with GLOBAL_TIMER.stage("decompress/symbols"):
+                sym_ts = decode(words, core._ch_map(lh, lw, s), core.tables,
+                                t)
+                flat = unpack_streams(sym_ts, self.channels_bn * lh * lw)
+                parts.append(flat.reshape(len(part), self.channels_bn, lh,
+                                          lw))
         return gather_batch(parts, self.device)[:len(bufs)]
 
-    def symbols_from_frames_v3(self, raws: Sequence[bytes], s: int, th: int,
-                               tw: int) -> torch.Tensor:
-        """Decode same-geometry legacy v3 frames (a length table, then
-        per-stream words) -> (B, C, lh, lw) int32 symbols on the device.
-        The untrusted length table is checked against the payload before it
+    @staticmethod
+    def _v3_streams(raws: Sequence[bytes], s: int) -> np.ndarray:
+        """v3 frames' per-stream words as (B, S, cap) uint16 buffers.  The
+        untrusted length table is checked against the payload before it
         sizes any allocation."""
-        lh, lw = self._latent_hw(th, tw)
-        t = self._steps(lh, lw, s)
         batch = len(raws)
         lengths = np.zeros((batch, s), np.int64)  # in 16-bit words
         payloads = []
@@ -379,12 +438,13 @@ class CAETurboCore:
             flat = np.frombuffer(payloads[i], "<u2")
             mask = cols[None, :] < lengths[i][:, None]          # (S, cap)
             bufs[i][mask] = flat[:int(lengths[i].sum())]
-        return self._decode_shards(decode_device, bufs, lh, lw, s, t)
+        return bufs
 
     def reconstruct(self, sym_cm: torch.Tensor, th: int, tw: int
                     ) -> np.ndarray:
         """(B, C, lh, lw) symbols -> (B, th, tw, 3) uint8 pixels (host)."""
-        rec = self.base.decode_tiles_device(sym_cm)
+        with GLOBAL_TIMER.stage("decompress/synthesis"):
+            rec = self.base.decode_tiles_device(sym_cm)
         return CAECodecCore.fetch_pixels(rec[:, :th, :tw, :])
 
     def reconstruct_coded(self, sym_cm: torch.Tensor, th: int, tw: int,
@@ -400,24 +460,35 @@ class CAETurboCore:
         if (transport is not None and transport.calibrated()
                 and transport.worthwhile_fetch(n_px,
                                                self.per_shard_batch(b))):
-            rec = self.base.decode_tiles_device(sym_cm, transport=transport)
+            with GLOBAL_TIMER.stage("decompress/synthesis"):
+                rec = self.base.decode_tiles_device(sym_cm,
+                                                    transport=transport)
         elif (self.mesh is None and n_px % 128 == 0
               and packed_fetch_enabled(self.device)):
-            rec = self.base.decode_packed(sym_cm)
+            with GLOBAL_TIMER.stage("decompress/synthesis"):
+                rec = self.base.decode_packed(sym_cm)
         else:
             return self.reconstruct(sym_cm, th, tw)
         return CAECodecCore.fetch_pixels(rec, (b, ph, pw, 3),
                                          transport)[:b, :th, :tw, :]
 
-    def _decode_group(self, version: int, s: int, th: int, tw: int,
-                      raws: List[bytes], transport=None) -> np.ndarray:
+    def _host_words(self, version: int, s: int, raws: List[bytes]):
+        """What a group of frames hands its decode: the frames of a host
+        group, a turbo group's host word buffers."""
         if version == HOST_FORMAT:
-            return self.base.decode_tiles(raws)
+            return raws
         if version == VERSION:
-            return self.reconstruct_coded(
-                self.symbols_from_frames(raws, s, th, tw), th, tw, transport)
-        return self.reconstruct(self.symbols_from_frames_v3(raws, s, th, tw),
-                                th, tw)
+            return self._v4_queues(raws)
+        return self._v3_streams(raws, s)
+
+    def _decode_group(self, version: int, s: int, th: int, tw: int,
+                      words, transport=None) -> np.ndarray:
+        if version == HOST_FORMAT:
+            return self.base.decode_tiles(words)
+        sym = self._symbols(version, words, s, th, tw)
+        if version == VERSION:
+            return self.reconstruct_coded(sym, th, tw, transport)
+        return self.reconstruct(sym, th, tw)
 
     def decode_tiles(self, bufs: List[bytes], transport=None):
         """Decode a batch of frames, each turbo v4, turbo v3 or host format
@@ -429,14 +500,18 @@ class CAETurboCore:
         n = len(bufs)
         if n == 0:
             return np.zeros((0, 0, 0, 3), np.uint8)
-        groups = {}  # (version, s, th, tw) -> [(index, raw)]
-        for i, raw in enumerate(bufs):
-            raw = bytes(raw)
-            groups.setdefault(self._parse_header(raw), []).append((i, raw))
+        with GLOBAL_TIMER.stage("decompress/parse"):
+            groups = {}  # (version, s, th, tw) -> [(index, raw)]
+            for i, raw in enumerate(bufs):
+                raw = bytes(raw)
+                groups.setdefault(self._parse_header(raw), []).append(
+                    (i, raw))
+            words = {key: self._host_words(key[0], key[1],
+                                           [r for _, r in group])
+                     for key, group in groups.items()}
         recs: List[Optional[np.ndarray]] = [None] * n
         for key, group in groups.items():
-            rec = self._decode_group(*key, [r for _, r in group],
-                                     transport)
+            rec = self._decode_group(*key, words[key], transport)
             if len(groups) == 1:
                 return rec
             for (i, _), r in zip(group, rec):

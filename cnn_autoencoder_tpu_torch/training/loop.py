@@ -65,6 +65,7 @@ from ..models.tasks import fold_batch_stats, make_forward_fn, module_runner
 from ..ops.batchnorm import BatchNorm
 from ..parallel.distributed import named_shards, world_size
 from ..utils.device import full_f32
+from ..utils.profiling import GLOBAL_TIMER
 from .optim import apply_module_updates
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -215,21 +216,24 @@ def make_train_step(model, criterion, optimizers,
             rows = (rank * b, (rank + 1) * b, b * world_size(group))
         # TF32 off for the forward and for autograd's backward kernels
         with full_f32():
-            outputs, new_state = forward(
-                x.to(compute_dtype), train=True, noise=noise,
-                generator=generator, masks=masks,
-                compute_dtype=compute_dtype, rows=rows)
-            fold_batch_stats(model, new_state)
-            loss_dict = criterion(x, outputs, targets=t,
-                                  net=_net_aux(model, trainable, group))
-            total = torch.mean(loss_dict["loss"])
-            if "entropy_loss" in loss_dict:
-                total = total + torch.mean(loss_dict["entropy_loss"])
-            got = torch.autograd.grad(total, leaves, allow_unused=True)
-        got = [torch.zeros_like(p) if g is None else g
-               for g, p in zip(got, leaves)]
-        if group is not None:
-            _average_gradients(got, group)
+            with GLOBAL_TIMER.stage("train/forward"):
+                outputs, new_state = forward(
+                    x.to(compute_dtype), train=True, noise=noise,
+                    generator=generator, masks=masks,
+                    compute_dtype=compute_dtype, rows=rows)
+                fold_batch_stats(model, new_state)
+            with GLOBAL_TIMER.stage("train/loss"):
+                loss_dict = criterion(x, outputs, targets=t,
+                                      net=_net_aux(model, trainable, group))
+                total = torch.mean(loss_dict["loss"])
+                if "entropy_loss" in loss_dict:
+                    total = total + torch.mean(loss_dict["entropy_loss"])
+            with GLOBAL_TIMER.stage("train/backward"):
+                got = torch.autograd.grad(total, leaves, allow_unused=True)
+                got = [torch.zeros_like(p) if g is None else g
+                       for g, p in zip(got, leaves)]
+                if group is not None:
+                    _average_gradients(got, group)
         grads: Dict[str, Dict[str, torch.Tensor]] = {m: {} for m in trainable}
         for (m, n), g in zip(names, got):
             grads[m][n] = g
@@ -237,7 +241,8 @@ def make_train_step(model, criterion, optimizers,
         loss_dict["x_max"] = x.max()
         loss_dict["x_std"] = (torch.std(x, correction=0) if group is None
                               else _global_std(x, group))
-        apply_module_updates(optimizers, grads, lrs, step)
+        with GLOBAL_TIMER.stage("train/optimizer"):
+            apply_module_updates(optimizers, grads, lrs, step)
         return _summary_stats(outputs, loss_dict, group), grads
 
     return train_step

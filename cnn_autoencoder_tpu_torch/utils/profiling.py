@@ -1,18 +1,29 @@
-"""Stage timing for the tile pipeline, and the device trace.
+"""Stage timing for the tile pipeline, the codec cores and the train step,
+and the device trace.
 
-The port's copy of ``StageTimer``, ``GLOBAL_TIMER``, ``profiling_enabled``
-and ``trace`` from the JAX package's ``utils/profiling.py``, with
-the stage names the pipeline records (``pipeline/tiles.py``):
-``compress/read``, ``compress/h2d+dispatch``, ``compress/d2h_sym``,
-``compress/rans``, ``compress/write``, ``compress/turbo_encode``,
-``decompress/fetch_total``, ``decompress/stitch``, ``decompress/rans``,
-``decompress/h2d+dispatch`` and ``decompress/turbo_decode``, and the pixel
-transport's ``compress/host_rans_up``, ``compress/host_rans_px``,
+The port's copy of ``StageTimer``, ``GLOBAL_TIMER`` and ``trace`` from the
+JAX package's ``utils/profiling.py``, with the stage names the pipeline
+records (``pipeline/tiles.py``): ``compress/read``,
+``compress/h2d+dispatch``, ``compress/d2h_sym``, ``compress/rans``,
+``compress/write``, ``compress/turbo_encode``, ``decompress/fetch_total``,
+``decompress/stitch``, ``decompress/rans``, ``decompress/h2d+dispatch`` and
+``decompress/turbo_decode``; the pixel transport's
+``compress/host_rans_up``, ``compress/host_rans_px``,
 ``decompress/d2h_pixels``, ``decompress/host_rans_px`` and
-``decompress/host_unpack_px``; the link bytes each way are counted where
-the codec cores copy.  ``trace`` runs
-``torch.profiler`` around a block where the JAX package runs
-``jax.profiler``.
+``decompress/host_unpack_px``; the turbo core's
+(``storage/turbo_codec.py``) ``compress/upload``, ``compress/analysis``,
+``compress/rans_states``, ``compress/fetch_words``, ``compress/frame``,
+``compress/host_fallback``, ``decompress/parse``,
+``decompress/upload_words``, ``decompress/symbols`` and
+``decompress/synthesis``; and the train step's (``training/loop.py``)
+``train/forward``, ``train/loss``, ``train/backward`` and
+``train/optimizer``.  The link bytes each way are counted where the codec
+cores copy.
+
+While a ``torch.profiler`` session records, every stage is also a profiler
+range of its name, on the thread that runs it and on the trace's clock;
+otherwise a stage opens no range.  ``trace`` runs ``torch.profiler``
+around a block where the JAX package runs ``jax.profiler``.
 """
 
 import collections
@@ -21,6 +32,15 @@ import os
 import threading
 import time
 from typing import Dict, Optional
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as autograd_profiler
+
+
+def profiler_range(name: str):
+    """A profiler range ``name``: an operation of the profiler's own, so
+    what the block launches links to it."""
+    return _RecordFunctionFast(name)
 
 
 class StageTimer:
@@ -38,12 +58,19 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str, units: float = 0.0):
-        """Time a block; ``units`` adds throughput accounting (e.g. MB/MP)."""
+        """Time a block; ``units`` adds throughput accounting (e.g. MB/MP).
+        While a profiler records, the block is also its range ``name``."""
+        rng = (profiler_range(name)
+               if autograd_profiler._is_profiler_enabled else None)
+        if rng is not None:
+            rng.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
             t1 = time.perf_counter()
+            if rng is not None:
+                rng.__exit__(None, None, None)
             with self._lock:
                 self._total[name] = self._total.get(name, 0.0) + (t1 - t0)
                 self._count[name] = self._count.get(name, 0) + 1
@@ -118,10 +145,6 @@ class StageTimer:
 
 # process-global timer the tile pipeline records into
 GLOBAL_TIMER = StageTimer()
-
-
-def profiling_enabled() -> bool:
-    return os.environ.get("CAE_TPU_PROFILE", "0") == "1"
 
 
 @contextlib.contextmanager
