@@ -65,6 +65,7 @@ from ..parallel.mesh import (data_devices, gather_batch, replicate,
 from ..training.checkpoint import msgpack_restore, msgpack_serialize
 from ..utils.device import resolve_device
 from ..utils.profiling import GLOBAL_TIMER
+from ..utils.staging import to_device, to_host
 from .codecs import (Codec, check_frame_hw, latent_hw, ndarray_copy,
                      padded_hw, register_codec)
 
@@ -197,13 +198,11 @@ class CAECodecCore:
     def latent_symbols(self, tiles_u8) -> torch.Tensor:
         """(B, H, W, 3) uint8 (numpy or tensor) -> (B, C, lh, lw) int32
         quantized latent ``round(y - medians)``, channel-major, on the
-        device; y in the compute type, the medians and the difference in
-        float32."""
+        device (host tiles staged, ``utils/staging.py``); y in the compute
+        type, the medians and the difference in float32."""
         if self.shards:
             return self._sharded("latent_symbols", tiles_u8)
-        if not torch.is_tensor(tiles_u8):
-            tiles_u8 = torch.from_numpy(np.ascontiguousarray(tiles_u8))
-        x = tiles_u8.to(self.device)
+        x = to_device(tiles_u8, self.device)
         _, h, w, _ = x.shape
         x = x.float() / 255.0
         ph, pw = self.padded_hw(h, w)
@@ -223,9 +222,7 @@ class CAECodecCore:
         ``_latent``)."""
         if self.shards:
             return self._sharded("latents", tiles_u8)
-        if not torch.is_tensor(tiles_u8):
-            tiles_u8 = torch.from_numpy(np.ascontiguousarray(tiles_u8))
-        x = tiles_u8.to(self.device).float() / 255.0
+        x = to_device(tiles_u8, self.device).float() / 255.0
         return self._apply(self.model.encoder, x).float()
 
     def _apply(self, track, x: torch.Tensor):
@@ -375,11 +372,13 @@ class CAECodecCore:
         coded it.  The copy is one in the common case; a coded batch past
         its budget takes the raw pixels.  The copies are timed as
         ``decompress/d2h_pixels``, the host decode as
-        ``decompress/host_rans_px`` or ``decompress/host_unpack_px``."""
+        ``decompress/host_rans_px`` or ``decompress/host_unpack_px``.  Raw
+        pixels come from a CUDA device through its staging buffers and copy
+        stream (``utils/staging.py``)."""
         if torch.is_tensor(rec_dev):
             with GLOBAL_TIMER.stage("decompress/d2h_pixels",
                                     rec_dev.numel() / 1e6):
-                out = rec_dev.cpu().numpy()
+                out = to_host(rec_dev)
             GLOBAL_TIMER.add_link_bytes("d2h", out.nbytes)
             return out
         if isinstance(rec_dev, RansFetchResult):
@@ -528,7 +527,7 @@ class CAECodecCore:
         """Host frames of one tile size -> (B, h, w, 3) uint8 (host)."""
         sym, true_hw = self.entropy_decode(bufs)
         h, w = true_hw[0]
-        return self.decode_tiles_device(sym)[:, :h, :w, :].cpu().numpy()
+        return self.fetch_pixels(self.decode_tiles_device(sym)[:, :h, :w, :])
 
 
 class ConvolutionalAutoencoder(Codec):

@@ -64,6 +64,7 @@ from ..models.factory import autoencoder_from_state_dict
 from ..ops.kernels.rans_kernel import rans_compact
 from ..parallel.mesh import gather_batch, serving_mesh, split_batch
 from ..utils.profiling import GLOBAL_TIMER
+from ..utils.staging import to_device
 from .cae_codec import CAECodecCore, host_frame_hw
 from .codecs import (Codec, check_frame_hw, ndarray_copy,
                      register_codec)
@@ -169,13 +170,12 @@ class CAETurboCore:
     def latent_symbols(self, tiles_u8) -> torch.Tensor:
         """(B, H, W, 3) uint8 -> (B, C, lh, lw) int32 quantized latent
         ``round(y - medians)``, channel-major, on the device: each shard's
-        tiles uploaded to its device, then analysed there."""
+        tiles uploaded to its device (host tiles staged on its copy stream,
+        ``utils/staging.py``), then analysed there."""
         parts = []
         for core, part in self._shard_pairs(tiles_u8):
             with GLOBAL_TIMER.stage("compress/upload"):
-                if not torch.is_tensor(part):
-                    part = torch.from_numpy(np.ascontiguousarray(part))
-                x = part.to(core.device)
+                x = to_device(part, core.device)
             with GLOBAL_TIMER.stage("compress/analysis"):
                 parts.append(core.base.latent_symbols(x))
         return gather_batch(parts, self.device)[:len(tiles_u8)]

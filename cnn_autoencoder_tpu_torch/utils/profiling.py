@@ -18,7 +18,8 @@ records (``pipeline/tiles.py``): ``compress/read``,
 ``decompress/synthesis``; and the train step's (``training/loop.py``)
 ``train/forward``, ``train/loss``, ``train/backward`` and
 ``train/optimizer``.  The link bytes each way are counted where the codec
-cores copy.
+cores copy (``h2d``, ``d2h``), and, of those, the bytes that went through
+the staging buffers (``h2d_staged``, ``d2h_staged``: ``utils/staging.py``).
 
 While a ``torch.profiler`` session records, every stage is also a profiler
 range of its name, on the thread that runs it and on the trace's clock;
@@ -37,6 +38,9 @@ from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as autograd_profiler
 
 
+LINK_DIRECTIONS = {"d2h": 0, "h2d": 0, "d2h_staged": 0, "h2d_staged": 0}
+
+
 def profiler_range(name: str):
     """A profiler range ``name``: an operation of the profiler's own, so
     what the block launches links to it."""
@@ -51,7 +55,7 @@ class StageTimer:
         self._total: Dict[str, float] = {}
         self._count: Dict[str, int] = {}
         self._units: Dict[str, float] = {}
-        self._link_bytes: Dict[str, int] = {"d2h": 0, "h2d": 0}
+        self._link_bytes: Dict[str, int] = dict(LINK_DIRECTIONS)
         # bounded per stage: totals and counts stay O(#names), intervals are
         # O(#calls), so a long-lived serving process keeps only the last ones
         self._intervals: Dict[str, collections.deque] = {}
@@ -125,7 +129,8 @@ class StageTimer:
 
     def add_link_bytes(self, direction: str, nbytes: int):
         """Account bytes shipped over the host<->device link
-        (``direction``: 'd2h' or 'h2d')."""
+        (``direction``: 'd2h' or 'h2d', or 'd2h_staged' / 'h2d_staged' for
+        the part of them that went through staging buffers)."""
         with self._lock:
             self._link_bytes[direction] = (
                 self._link_bytes.get(direction, 0) + int(nbytes))
@@ -139,7 +144,7 @@ class StageTimer:
             self._total.clear()
             self._count.clear()
             self._units.clear()
-            self._link_bytes = {"d2h": 0, "h2d": 0}
+            self._link_bytes = dict(LINK_DIRECTIONS)
             self._intervals.clear()
 
 

@@ -23,6 +23,8 @@ from cnn_autoencoder_tpu_torch.storage import cae_codec as tcodec
 from cnn_autoencoder_tpu_torch.storage.codecs import get_codec
 from cnn_autoencoder_tpu_torch.training.checkpoint import (load_checkpoint,
                                                            msgpack_restore)
+from cnn_autoencoder_tpu_torch.utils import staging
+from cnn_autoencoder_tpu_torch.utils.profiling import GLOBAL_TIMER
 from chip_smoke import scaled_checkpoint
 from tests.test_torch_turbo import (  # noqa: F401 (a fixture)
     _assert_u8_close, small_checkpoint)
@@ -79,6 +81,31 @@ def test_round_trip_matches_jax(cores, name, h, w, batch):
     assert rec_t.shape == tiles.shape and rec_t.dtype == np.uint8
     _assert_u8_close(rec_t, rec_j)
     np.testing.assert_array_equal(tcore.decode_tiles(frames_t), rec_t)
+
+
+@pytest.mark.parametrize("name,h,w", [("small", 64, 64), ("small", 50, 38),
+                                      ("flagship", 40, 72)])
+def test_host_and_tensor_tiles_code_alike(cores, name, h, w, monkeypatch):
+    """The 'cae' core: host tiles and the same tiles as a tensor give
+    byte-identical frames and the same pixels; the pixels come back through
+    ``fetch_pixels`` (its stage and its raw bytes), unstaged on the CPU."""
+    def no_staging(device):
+        raise AssertionError("staged on the CPU")
+
+    monkeypatch.setattr(staging, "staging", no_staging)
+    tcore = cores[name][1]
+    tiles = np.stack([_image(h, w, seed) for seed in (2, 3)])
+    frames = tcore.encode_tiles(tiles)
+    assert tcore.encode_tiles(torch.from_numpy(tiles)) == frames
+    GLOBAL_TIMER.reset()
+    rec = tcore.decode_tiles(frames)
+    assert rec.shape == tiles.shape and rec.dtype == np.uint8
+    assert GLOBAL_TIMER._count == {"decompress/d2h_pixels": 1}
+    link = GLOBAL_TIMER.link_bytes()
+    assert link["d2h"] == rec.nbytes and link["d2h_staged"] == 0
+    sym, _ = tcore.entropy_decode(frames)
+    np.testing.assert_array_equal(
+        rec, tcore.decode_tiles_device(sym)[:, :h, :w].numpy())
 
 
 def test_int8_fetch_overflow_matches_jax(small_checkpoint):

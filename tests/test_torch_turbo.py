@@ -29,6 +29,8 @@ from cnn_autoencoder_tpu_torch.models.factory import \
 from cnn_autoencoder_tpu_torch.storage.codecs import get_codec
 from cnn_autoencoder_tpu_torch.storage.turbo_codec import (
     TURBO_FLAG, CAETurboCore, ConvolutionalAutoencoderTurbo, is_turbo_frame)
+from cnn_autoencoder_tpu_torch.utils import staging
+from cnn_autoencoder_tpu_torch.utils.profiling import GLOBAL_TIMER
 
 from chip_smoke import scaled_checkpoint, v3_frame_bytes, v3_frames
 
@@ -104,6 +106,30 @@ def test_round_trip_matches_jax(cores, name, h, w, batch):
     _assert_u8_close(rec_t, rec_j)
     np.testing.assert_array_equal(
         tcore.symbols_from_frames(frames_j, 64, h, w).numpy(), sym_t)
+
+
+@pytest.mark.parametrize("name,h,w", [("small", 64, 64), ("small", 50, 38),
+                                      ("flagship", 64, 64)])
+def test_host_and_tensor_tiles_code_alike(cores, name, h, w, monkeypatch):
+    """Host tiles and the same tiles as a tensor give byte-identical frames,
+    which decode to the same pixels; on the CPU device nothing is staged,
+    and the raw link bytes are counted as before."""
+    def no_staging(device):
+        raise AssertionError("staged on the CPU")
+
+    monkeypatch.setattr(staging, "staging", no_staging)
+    tcore = cores[name][1]
+    tiles = np.stack([_image(h, w, seed) for seed in (5, 6)])
+    GLOBAL_TIMER.reset()
+    frames = tcore.encode_tiles(tiles)
+    rec = tcore.decode_tiles(frames)
+    link = GLOBAL_TIMER.link_bytes()
+    assert link["h2d"] > tiles.nbytes and link["d2h"] > rec.nbytes
+    assert link["h2d_staged"] == link["d2h_staged"] == 0
+    assert tcore.encode_tiles(torch.from_numpy(tiles)) == frames
+    np.testing.assert_array_equal(
+        tcore.decode_tiles(tcore.encode_tiles(torch.from_numpy(tiles))), rec)
+    assert rec.shape == tiles.shape and rec.dtype == np.uint8
 
 
 @pytest.mark.parametrize("name,streams", [("small", 16), ("small", 1024),
